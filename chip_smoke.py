@@ -3,18 +3,27 @@
     python3 chip_smoke.py
 
 From the root of a checkout: builds the port's CUDA kernels from
-`csm_mlx_tpu_torch/csrc/`, holds each kernel against its plain PyTorch
-version at the shapes of the main path, checks the port's main path on the
-card against the CPU on a small model, then drives the main path at full
-CSM-1B width — random weights from a seed, W8A8, greedy
-`generate_tokens` for 125 frames (10 s of audio) from a 32-row prompt, a
-300-row prompt that takes the flash-prefill kernel, and a Mimi decode to a
-waveform — and checks that both kernels ran in it. Any failure raises; the
-last line of standard output is then missing.
+`csm_mlx_tpu_torch/csrc/` and holds each against its plain PyTorch version
+at the shapes of the main path — the W8A8 matvec and flash prefill on
+random inputs, the whole-frame decoder (kernel 3) on the full-width CSM-1B
+decoder at B = 1, 8 and 64 (greedy, teacher-forced agreement) and at
+T = 0.8 (a chi-square of its codebook-1 picks) — then checks the main path
+on the card against the CPU on a small model, and drives the main path at
+full CSM-1B width: random weights from a seed, W8A8, greedy
+`generate_tokens` for 125 frames (10 s of audio) from a 32-row prompt and
+10 frames from a 300-row prompt that takes the flash-prefill kernel, each
+decoder frame one kernel-3 launch, and a Mimi decode to a waveform. It
+checks that every kernel ran in it, then drives the dispatched decoder for
+10 frames (tables removed) and compares it with kernel 3 by teacher-forced
+flips per margin bin, and runs a 65-prompt batch (two kernel-3 chunks a
+frame). Any failure raises; the last line of standard output is then
+missing.
 
-Prints the card's name and power limit, one line per kernel check, the
-kernels' line `{"kernels": [...]}` and, last, `{"ok": true, "device":
-{...}}`. Needs one CUDA device; exits nonzero without one.
+Prints the card's name and power limit, one line per check and phase, the
+kernels' line `{"kernels": [...]}` (times measured here, bounds computed
+from this run's shapes against the H100's published peaks) and, last,
+`{"ok": true, "device": {...}}`. Needs one CUDA device; exits nonzero
+without one.
 """
 
 from __future__ import annotations
@@ -32,11 +41,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from csm_mlx_tpu_torch import config as port_config  # noqa: E402
-from csm_mlx_tpu_torch.generation import generate_tokens  # noqa: E402
+from csm_mlx_tpu_torch import generation  # noqa: E402
+from csm_mlx_tpu_torch.generation import (generate_tokens,  # noqa: E402
+                                          generate_tokens_batch)
 from csm_mlx_tpu_torch.models.csm import CSM, ModelArgs, csm_1b  # noqa: E402
+from csm_mlx_tpu_torch.models.csm import embed_audio  # noqa: E402
 from csm_mlx_tpu_torch.models.mimi import Mimi, mimi_202407  # noqa: E402
 from csm_mlx_tpu_torch.ops import _build  # noqa: E402
 from csm_mlx_tpu_torch.ops import attention, quant  # noqa: E402
+from csm_mlx_tpu_torch.ops import resident_decoder as resident  # noqa: E402
+from csm_mlx_tpu_torch.ops.layers import linear  # noqa: E402
+from csm_mlx_tpu_torch.ops.rope import rope_cache_for  # noqa: E402
+from csm_mlx_tpu_torch.ops.sampling import SamplerConfig  # noqa: E402
 
 SEED = 0
 W8A8_SHAPES = {  # (IN, OUT) of the main path's quantized linears
@@ -51,6 +67,22 @@ FLASH_CASES = [(s, dtype) for s in (256, 512)
                for dtype in (torch.bfloat16, torch.float32)]
 FLASH_PADS = (0, 37, 200)
 COLD_BYTES = 160 << 20  # weights cycled per timing run, > the 50 MB L2
+RESIDENT_ROWS = (1, 8, 64)
+# Kernel 3 against its plain version teacher-forced on the kernel's tokens.
+# The plain version sums in the kernel's order and agrees with it to the
+# bit on the H100 with torch 2.11. The tolerance is for a torch whose exp
+# or sigmoid rounds otherwise: int8 requantization turns a last-bit
+# difference into a whole code step now and then, and through 4 layers and
+# the 32-slot KV cache of random weights that grows to ~0.1 of the logits'
+# std — as much as the plain version moves when its input moves by 1e-6
+# (measured beside the kernel below). So the logits may differ by at most
+# this share of their std, and a pick only where the plain top-2 margin is
+# below it.
+FLIP_MARGIN_TOL = 0.3
+MIN_AGREEMENT = 0.99
+# H100 SXM, NVIDIA's data sheet: HBM bytes/s and dense peak ops/s by type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "fp32": 67e12}
 
 
 def log(msg: str) -> None:
@@ -99,6 +131,15 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> tuple[float, float]:
         if total_us > 0:
             return total_us / reps / 1000.0, wall
     return wall, wall
+
+
+def bound_ms(n_bytes: float, n_ops: float, kind: str) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the operations over the peak rate of their type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / PEAK_OPS_PER_S[kind]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def check_w8a8(dev, gen) -> dict:
@@ -153,7 +194,13 @@ def check_w8a8(dev, gen) -> dict:
                 timing = (ms_k, ms_p)
         del copies
     # the JSON line times the widest decode matvec: B=1 on gate-up
-    return dict(max_abs_err=worst, ms=timing[0], plain_ms=timing[1])
+    in_dim, out_dim = W8A8_SHAPES["backbone gate-up"]
+    n_bytes = in_dim * out_dim + 8 * out_dim + 2 * in_dim + 2 * out_dim
+    b_ms, b_by = bound_ms(n_bytes, 2 * in_dim * out_dim, "int8")
+    log(f"w8a8 bound at B=1 gate-up: {n_bytes / 1e6:.2f} MB -> {b_ms:.4f} ms"
+        f" ({b_by}); kernel {timing[0]:.4f} ms = {b_ms / timing[0]:.1%} of it")
+    return dict(max_abs_err=worst, ms=timing[0], plain_ms=timing[1],
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
 def check_flash(dev, gen) -> dict:
@@ -196,8 +243,35 @@ def check_flash(dev, gen) -> dict:
                 raise AssertionError(f"flash kernel disagrees at S={s} {dtype}")
             if s == 512 and dtype == torch.bfloat16 and pad_row1 == 200:
                 timing = (ms_k, ms_p)
+                library = time_sdpa(q, k, v, pad, d ** -0.5)
+                pairs = sum((s - p) * (s - p + 1) // 2 for p in pads)
+                n_bytes = 2 * (q.numel() * 2 + k.numel() + v.numel()) + 4 * b
+                b_ms, b_by = bound_ms(n_bytes, 4 * h * d * pairs, "bf16")
     # the JSON line times the main path's case: S=512 bf16 with a pad
-    return dict(max_abs_err=worst, ms=timing[0], plain_ms=timing[1])
+    log(f"flash S=512 bf16 pads (0, 200): library sdpa {library:.4f} ms "
+        f"device; bound {b_ms:.4f} ms ({b_by}); kernel {timing[0]:.4f} ms ="
+        f" {b_ms / timing[0]:.1%} of it")
+    return dict(max_abs_err=worst, ms=timing[0], plain_ms=timing[1],
+                bound_ms=b_ms, bound_by=b_by, library_ms=library)
+
+
+def time_sdpa(q, k, v, pad, scale) -> float:
+    """Device ms of one `F.scaled_dot_product_attention` call computing
+    kernel 2's function (causal, keys before each row's pad masked with the
+    same finite bias) on the same inputs. Timed here only: the port never
+    calls it."""
+    import torch.nn.functional as F
+
+    b, h, s, _ = q.shape
+    group = h // k.shape[1]
+    kx = k.repeat_interleave(group, dim=1)
+    vx = v.repeat_interleave(group, dim=1)
+    pos = torch.arange(s, device=q.device)
+    keep = (pos[None, :] <= pos[:, None])[None] \
+        & (pos[None, None, :] >= pad[:, None, None])
+    bias = torch.where(keep, 0.0, attention.NEG_INF).to(q.dtype)[:, None]
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        q, kx, vx, attn_mask=bias, scale=scale))[0]
 
 
 def synthetic_prompt(s: int, n_text_vocab: int, seed: int):
@@ -230,9 +304,148 @@ def params_to_cpu(tree):
     return tree.cpu()
 
 
+def resident_bound(res, args, rows: int) -> tuple[float, str]:
+    """Kernel 3's bound for one call of `rows` rows: every table read once
+    (the embed rows this call gathers: 30 per row), proj01 read and the
+    tokens written, against the int8 operations of 32 decoder steps and
+    31 heads."""
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    d = args.decoder_config.hidden_size
+    n_cb = args.n_audio_codebooks
+    weights = sum(nbytes(t) for lw in res["layers"] for t in lw)
+    n_bytes = (weights + nbytes(res["norm"]) + nbytes(res["rope_cs"])
+               + nbytes(res["audio_head_q"]) + nbytes(res["audio_head_s"])
+               + (n_cb - 2) * rows * d * 4 + 2 * rows * d * 4
+               + n_cb * rows * 4)
+    codes = sum(t.numel() for lw in res["layers"] for t in lw
+                if t.dtype == torch.int8)
+    n_ops = 2 * rows * (n_cb * codes + res["audio_head_q"].numel())
+    return bound_ms(n_bytes, n_ops, "int8")
+
+
+def forced_flips(res, args, proj01, tokens, kernel_logits):
+    """Kernel 3's tokens and logits against its plain version
+    teacher-forced on the tokens: (share of picks that agree, the flips'
+    plain top-2 margins and the largest logit error, both in units of the
+    logits' std, and the largest absolute logit error)."""
+    _, logits = resident.resident_decode_frame_plain(
+        res, args, proj01, 0.0, forced=tokens.long())
+    std = logits.std(dim=-1)
+    top2 = logits.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]) / std
+    flips = logits.argmax(-1) != tokens[1:].long()
+    err = (kernel_logits - logits).abs()
+    return (1.0 - flips.float().mean().item(), margin[flips],
+            (err.amax(-1) / std).max().item(), err.max().item())
+
+
+def check_resident(model: CSM, gen) -> dict:
+    """Kernel 3 against its plain version at full CSM-1B width, greedy, on
+    random proj01 rows, the plain version teacher-forced on the kernel's
+    tokens: every logit within FLIP_MARGIN_TOL of its row's std, >= 99% of
+    the picks agree, every disagreement sits at a plain top-2 margin below
+    FLIP_MARGIN_TOL of the std, and a second launch gives identical
+    tokens."""
+    res, args = model.params["_resident"], model.args
+    d = args.decoder_config.hidden_size
+    out = {}
+    for rows in RESIDENT_ROWS:
+        proj01 = torch.randn((2, rows, d), generator=gen, device=model.device)
+        toks, k_logits = resident.resident_decode_frame(
+            res, args, proj01, 0, 0.0, return_logits=True)
+        again = resident.resident_decode_frame(res, args, proj01, 0, 0.0)
+        torch.cuda.synchronize()
+        agree, flip_m, rel_err, abs_err = forced_flips(res, args, proj01,
+                                                       toks, k_logits)
+        # the plain version against itself, its input moved by 1e-6
+        nudged = proj01 * (1 + 1e-6 * torch.randn(
+            proj01.shape, generator=gen, device=proj01.device))
+        _, p_logits = resident.resident_decode_frame_plain(
+            res, args, nudged, 0.0, forced=toks.long())
+        base = forced_flips(res, args, proj01, toks, p_logits)[2]
+        worst = flip_m.max().item() if flip_m.numel() else 0.0
+        same = bool(torch.equal(toks, again))
+        ok = (agree >= MIN_AGREEMENT and worst < FLIP_MARGIN_TOL and same
+              and rel_err <= FLIP_MARGIN_TOL
+              and not bool(toks[0].any()) and int(toks.min()) >= 0
+              and int(toks.max()) < args.n_audio_vocab)
+        ms_k, wall_k = time_ms(lambda: resident.resident_decode_frame(
+            res, args, proj01, 0, 0.0), reps=10)
+        ms_p, wall_p = time_ms(lambda: resident.resident_decode_frame_plain(
+            res, args, proj01, 0.0), reps=2, warmup=1)
+        b_ms, b_by = resident_bound(res, args, rows)
+        log(f"resident B={rows:2d}  max_abs_err {abs_err:.3e} of the logits "
+            f"= {rel_err:.4f} std (tol {FLIP_MARGIN_TOL}; plain vs plain "
+            f"with its input moved by 1e-6: {base:.4f} std)  agreement "
+            f"{agree:.4f} (need >= "
+            f"{MIN_AGREEMENT}), {flip_m.numel()} flips, worst margin "
+            f"{worst:.4f} std (tol {FLIP_MARGIN_TOL}), repeat identical "
+            f"{same}  kernel {ms_k:.4f} ms device, {wall_k:.4f} ms wall  "
+            f"plain {ms_p:.4f} ms device, {wall_p:.4f} ms wall  bound "
+            f"{b_ms:.4f} ms ({b_by}) = {b_ms / ms_k:.1%} of the kernel  "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"kernel 3 disagrees with its plain version "
+                                 f"at B={rows}")
+        out[rows] = dict(max_abs_err=abs_err, agreement=agree, ms=ms_k,
+                         wall_ms=wall_k,
+                         plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)
+    codes = sum(t.numel() for lw in res["layers"] for t in lw
+                if t.dtype == torch.int8)
+    log(f"resident: decoder weights {codes / 1e6:.1f} MB int8, re-streamed "
+        f"each of {args.n_audio_codebooks} steps: "
+        f"{args.n_audio_codebooks * codes / HBM_BYTES_PER_S * 1e3:.3f} ms a "
+        f"frame at the HBM rate")
+    return out
+
+
+def chi_square_p(samples: np.ndarray, probs: np.ndarray) -> tuple:
+    """(p-value, bins) of samples against probs over the bins whose
+    expected count is >= 5 plus one pooled bin of the rest."""
+    from scipy import stats
+
+    expected = probs.astype(np.float64) * len(samples)
+    observed = np.bincount(samples, minlength=len(probs)).astype(np.float64)
+    big = expected >= 5
+    obs = np.append(observed[big], observed[~big].sum())
+    exp = np.append(expected[big], expected[~big].sum())
+    if exp[-1] < 5:
+        obs, exp = obs[:-1], exp[:-1]
+    stat = ((obs - exp) ** 2 / exp).sum()
+    return float(stats.chi2.sf(stat, len(obs) - 1)), len(obs)
+
+
+def check_resident_temperature(model: CSM, gen) -> None:
+    """Kernel 3 at T = 0.8: codebook 1 of 64 calls of 64 copies of one
+    proj01 row (4096 picks, one seed per call) against softmax(plain
+    logits_1 / T), chi-square p >= 1e-3. The head is rescaled for this
+    phase to a logits std of 3, so that many tokens carry probability."""
+    res = dict(model.params["_resident"])
+    args = model.args
+    row = torch.randn((2, 1, args.decoder_config.hidden_size), generator=gen,
+                      device=model.device)
+    _, logits = resident.resident_decode_frame_plain(res, args, row, 0.0)
+    resident.set_resident_audio_head(
+        res, model.params["audio_head"].float()
+        * (3.0 / logits[0].std().item()), res["audio_head_q"].shape[1])
+    _, logits = resident.resident_decode_frame_plain(res, args, row, 0.0)
+    probs = torch.softmax(logits[0, 0] / 0.8, -1).double().cpu().numpy()
+    proj01 = row.expand(2, 64, -1).contiguous()
+    picks = torch.cat([resident.resident_decode_frame(res, args, proj01,
+                                                      seed, 0.8)[1]
+                       for seed in range(64)]).cpu().numpy()
+    p, bins = chi_square_p(picks, probs)
+    log(f"resident T=0.8: {len(picks)} codebook-1 picks, {len(set(picks))} "
+        f"distinct, chi-square over {bins} bins p = {p:.4f} (need >= 1e-3)")
+    if not p >= 1e-3 or bins < 5:
+        raise AssertionError("kernel 3's samples do not follow softmax/T")
+
+
 def check_small_vs_cpu(dev, mimi: Mimi) -> None:
     """The main path on a small model, W8A8, fp32, with a 300-row prompt:
-    the card (both kernels) against the CPU (plain versions). The greedy
+    the card (all three kernels) against the CPU (plain versions). The greedy
     frames agree on at least 99% of the codes, and the full-size Mimi
     decodes them alike on both (fp32, TF32 off: sum order only, so within
     1e-4 of the waveform's largest magnitude)."""
@@ -249,13 +462,20 @@ def check_small_vs_cpu(dev, mimi: Mimi) -> None:
     gpu.params["audio_head"] = gpu.params["audio_head"] * 25.0  # N(0, 0.5^2)
     quant.quantize_model(gpu, mode="w8a8", min_size=0)
 
+    if "_resident" not in gpu.params:
+        raise AssertionError("quantize_model on the card prepared no tables")
+    # the CPU copy carries the tables: its frames come from kernel 3's
+    # plain version
     cpu = CSM(args, params=params_to_cpu(gpu.params), dtype=torch.float32)
     prompt, mask = synthetic_prompt(300, args.n_text_vocab, SEED + 8)
-    launches = attention.flash_prefill_sdpa.launches
+    launches = (attention.flash_prefill_sdpa.launches,
+                resident.resident_decode_frame.launches)
     f_gpu, n_gpu = generate_tokens(gpu, prompt, mask, 4, temperature=0.0)
     f_cpu, n_cpu = generate_tokens(cpu, prompt, mask, 4, temperature=0.0)
-    if attention.flash_prefill_sdpa.launches == launches:
-        raise AssertionError("small-model check did not take flash prefill")
+    if attention.flash_prefill_sdpa.launches == launches[0] \
+            or resident.resident_decode_frame.launches - launches[1] != n_gpu:
+        raise AssertionError("small-model check did not take flash prefill "
+                             "and one kernel-3 launch per frame")
     n = min(n_gpu, n_cpu)
     agree = float((f_gpu[:n] == f_cpu[:n]).mean()) if n else 0.0
     log(f"small model W8A8 fp32, 300-row prompt: card vs CPU frames "
@@ -273,16 +493,26 @@ def check_small_vs_cpu(dev, mimi: Mimi) -> None:
         raise AssertionError("card and CPU Mimi decodes disagree")
 
 
-def run_main_path(dev, mimi: Mimi) -> dict:
-    """Drive the main path at full CSM-1B width; return each kernel's
-    launch count in it."""
+def build_csm_1b(dev) -> CSM:
+    """CSM-1B at full width and depth, random weights from SEED, bf16,
+    W8A8 with fused qkv / gate-up; on the card `quantize_model` also
+    prepares kernel 3's tables."""
     args = csm_1b()
     t0 = time.perf_counter()
     model = random_csm(args, torch.bfloat16, dev, SEED)
     quant.quantize_model(model, mode="w8a8", fuse=True)
     torch.cuda.synchronize()
-    log(f"CSM-1B random init (seed {SEED}) + W8A8: "
+    if "_resident" not in model.params:
+        raise AssertionError("quantize_model prepared no kernel-3 tables")
+    log(f"CSM-1B random init (seed {SEED}) + W8A8 + kernel-3 tables: "
         f"{time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def run_main_path(model: CSM, mimi: Mimi) -> dict:
+    """Drive the main path at full CSM-1B width; return each kernel's
+    launch count in it and the W8A8 launches per frame."""
+    args = model.args
     prompt, mask = synthetic_prompt(32, args.n_text_vocab, SEED)
     long_prompt, long_mask = synthetic_prompt(300, args.n_text_vocab, SEED + 1)
     generate_tokens(model, prompt, mask, 2, temperature=0.0)  # warm-up
@@ -290,6 +520,7 @@ def run_main_path(dev, mimi: Mimi) -> dict:
 
     quant.w8a8_matvec.launches = 0
     attention.flash_prefill_sdpa.launches = 0
+    resident.resident_decode_frame.launches = 0
     t0 = time.perf_counter()
     frames, n = generate_tokens(model, prompt, mask, 125, temperature=0.0)
     torch.cuda.synchronize()
@@ -299,15 +530,16 @@ def run_main_path(dev, mimi: Mimi) -> dict:
                                           temperature=0.0)
     torch.cuda.synchronize()
     t_long = time.perf_counter() - t0
-    codes = torch.from_numpy(frames.T[None].copy()).to(dev)
+    codes = torch.from_numpy(frames.T[None].copy()).to(model.device)
     t0 = time.perf_counter()
     audio = mimi.decode(codes)
     torch.cuda.synchronize()
     t_dec = time.perf_counter() - t0
     counts = {"w8a8_matvec": quant.w8a8_matvec.launches,
-              "flash_prefill_sdpa": attention.flash_prefill_sdpa.launches}
+              "flash_prefill_sdpa": attention.flash_prefill_sdpa.launches,
+              "resident_decode_frame": resident.resident_decode_frame.launches}
 
-    log(f"launches on the main path: {counts}")
+    log(f"launches on the main path: {counts} over {n} + {n_long} frames")
     if n < 1 or n_long < 1:
         raise AssertionError(f"no frames generated ({n}, {n_long})")
     for f in (frames, long_frames):
@@ -319,13 +551,136 @@ def run_main_path(dev, mimi: Mimi) -> dict:
                              f"{n} * 1920 finite samples")
     if min(counts.values()) < 1:
         raise AssertionError(f"a kernel was not launched: {counts}")
+    if counts["resident_decode_frame"] < n + n_long:
+        raise AssertionError("a decoder frame did not go through kernel 3")
     audio_sec = n * 0.08
-    log(f"main path: {n} frames in {t_gen:.3f} s = {n / t_gen:.2f} frames/s,"
-        f" RTF {audio_sec / t_gen:.3f} (generation), "
-        f"{audio_sec / (t_gen + t_dec):.3f} (with Mimi decode {t_dec:.3f} s);"
-        f" 300-row prompt: {n_long} frames in {t_long:.3f} s;"
+    log(f"main path: {n} frames in {t_gen:.3f} s = {1e3 * t_gen / n:.2f} ms "
+        f"per frame, {n / t_gen:.2f} frames/s, RTF {audio_sec / t_gen:.3f} "
+        f"(generation), {audio_sec / (t_gen + t_dec):.3f} (with Mimi decode "
+        f"{t_dec:.3f} s); 300-row prompt: {n_long} frames in {t_long:.3f} s;"
         f" waveform {audio.shape[-1]} samples, finite")
-    return counts
+    return dict(counts=counts, frames=n + n_long, ms_per_frame=1e3 * t_gen / n)
+
+
+def trace_main_path(model: CSM) -> None:
+    """torch.profiler over prefill + 8 frames of the main path: kernel
+    launches per frame and the card's busy share of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prompt, mask = synthetic_prompt(32, model.args.n_text_vocab, SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, n = generate_tokens(model, prompt, mask, 8, temperature=0.0)
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in events)
+    by_name: dict = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"trace, prefill + {n} frames: {len(events)} device events "
+        f"({len(events) / n:.0f} per frame), device busy {busy_us / 1e3:.1f} "
+        f"ms of {wall_us / 1e3:.1f} ms wall = {busy_us / wall_us:.1%}; top: "
+        + "; ".join(f"{k[:48]} {v / 1e3:.2f} ms" for k, v in top))
+
+
+def run_dispatched(model: CSM) -> dict:
+    """10 frames of the main path's prompt through the dispatched decoder
+    (a shallow copy of the params without kernel 3's tables)."""
+    args = model.args
+    params = {k: v for k, v in model.params.items() if k != "_resident"}
+    dispatched = CSM(args, params=params, dtype=model.dtype)
+    prompt, mask = synthetic_prompt(32, args.n_text_vocab, SEED)
+    generate_tokens(dispatched, prompt, mask, 1, temperature=0.0)  # warm-up
+    torch.cuda.synchronize()
+    quant.w8a8_matvec.launches = 0
+    before = resident.resident_decode_frame.launches
+    t0 = time.perf_counter()
+    _, n = generate_tokens(dispatched, prompt, mask, 10, temperature=0.0)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    if resident.resident_decode_frame.launches != before or n < 1:
+        raise AssertionError("the dispatched run took kernel 3")
+    log(f"dispatched decoder: {n} frames in {t:.3f} s = {1e3 * t / n:.2f} ms "
+        f"per frame; W8A8 launches {quant.w8a8_matvec.launches / n:.0f} per "
+        f"frame")
+    return dict(ms_per_frame=1e3 * t / n,
+                w8a8_per_frame=quant.w8a8_matvec.launches / n)
+
+
+def check_divergence(model: CSM, gen) -> None:
+    """Kernel 3 against the dispatched decoder, teacher-forced as in
+    benchmarks/resident_divergence_probe.py: random backbone hidden states
+    and c0 for 4 x 16 rows; each frame's kernel-3 tokens are fed to the
+    dispatched decoder (bf16, raw head), whose argmax flips where it
+    disagrees. Flips are binned by the dispatched top-2 margin in units of
+    the spread, the std of (plain kernel-3 - dispatched) logits on the same
+    tokens. Gate: no flip at a margin of >= 4 spreads."""
+    args, params = model.args, model.params
+    n_cb, v = args.n_audio_codebooks, args.n_audio_vocab
+    cos_d, sin_d = rope_cache_for(args.decoder_config, n_cb + 1, model.device)
+    greedy = SamplerConfig(temperature=0.0)
+    margins, flips, diffs = [], [], []
+    for _ in range(4):
+        b = 16
+        hidden = torch.randn((b, args.backbone_dim), generator=gen,
+                             device=model.device).to(model.dtype)
+        c0 = torch.randint(0, v, (b,), generator=gen, device=model.device)
+        x01 = torch.stack([hidden, embed_audio(params, args, 0, c0)
+                           .to(model.dtype)], dim=1)
+        proj01 = linear(params["projection"], x01)  # (B, 2, d) bf16
+        proj01_t = proj01.float().transpose(0, 1).contiguous()
+        toks = resident.resident_decode_frame(params["_resident"], args,
+                                              proj01_t, 0, 0.0)
+        _, plain = resident.resident_decode_frame_plain(
+            params["_resident"], args, proj01_t, 0.0, forced=toks.long())
+        forced = toks.t().long()
+        _, disp = generation.dispatched_decode(params, args, proj01, greedy,
+                                               None, cos_d, sin_d,
+                                               forced=forced)
+        top2 = disp.topk(2, dim=-1).values
+        margins.append((top2[..., 0] - top2[..., 1]).flatten())
+        flips.append((disp.argmax(-1) != toks[1:].long()).flatten())
+        diffs.append((plain - disp).flatten())
+    margins, flips = torch.cat(margins), torch.cat(flips)
+    spread = torch.cat(diffs).std().item()
+    edges = [0, 0.25, 0.5, 1, 2, 4, 8, 16, float("inf")]
+    bins = []
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        sel = (margins >= lo * spread) & (margins < hi * spread)
+        bins.append((lo, hi, int(sel.sum()), int(flips[sel].sum())))
+    log(f"resident vs dispatched, teacher-forced: {int(flips.sum())} flips "
+        f"in {flips.numel()} picks ({flips.float().mean().item():.2%}), "
+        f"spread {spread:.4f}; by margin (spreads: picks/flips) "
+        + ", ".join(f"{lo:g}-{hi:g}: {n}/{f}" for lo, hi, n, f in bins))
+    if any(f for lo, _, _, f in bins if lo >= 4):
+        raise AssertionError("a resident-vs-dispatched flip at a margin of "
+                             ">= 4 spreads")
+
+
+def run_batch(model: CSM) -> None:
+    """65 prompts for 4 frames: two kernel-3 chunks a frame (33 + 32)."""
+    args = model.args
+    prompts, masks = zip(*[synthetic_prompt(20 + i % 12, args.n_text_vocab,
+                                            SEED + 100 + i)
+                           for i in range(65)])
+    before = resident.resident_decode_frame.launches
+    t0 = time.perf_counter()
+    frames, n = generate_tokens_batch(model, prompts, masks, 4,
+                                      temperature=0.0)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    calls = resident.resident_decode_frame.launches - before
+    steps = int(n.max())
+    log(f"batch of 65 prompts: {steps} frames in {t:.3f} s, {calls} kernel-3 "
+        f"launches (2 a frame), frames per row {n.min()}..{n.max()}")
+    if calls != 2 * steps or frames.min() < 0 \
+            or frames.max() >= args.n_audio_vocab:
+        raise AssertionError("the 65-row batch did not run two chunks a frame")
 
 
 def main() -> None:
@@ -338,6 +693,7 @@ def main() -> None:
     log(card_info())  # name, power limit: as nvidia-smi prints them
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     lib = _build.build(verbose=True)
@@ -352,22 +708,40 @@ def main() -> None:
                 generator=torch.Generator(device=dev).manual_seed(SEED + 2),
                 device=dev)
     check_small_vs_cpu(dev, mimi)
-    launches = run_main_path(dev, mimi)
+    model = build_csm_1b(dev)
+    frame = check_resident(model, gen)
+    check_resident_temperature(model, gen)
+    main_path = run_main_path(model, mimi)
+    trace_main_path(model)
+    disp = run_dispatched(model)
+    log(f"W8A8 launches per frame: {disp['w8a8_per_frame']:.0f} dispatched, "
+        f"{main_path['counts']['w8a8_matvec'] / main_path['frames']:.0f} "
+        f"with kernel 3; ms per frame: {disp['ms_per_frame']:.2f} dispatched,"
+        f" {main_path['ms_per_frame']:.2f} with kernel 3")
+    check_divergence(model, gen)
+    run_batch(model)
 
+    launches = main_path["counts"]
+    k3 = frame[1]  # the main path's shape: one row
     kernels = [
         dict(name="w8a8_matvec", route="cuda",
              source="csm_mlx_tpu_torch/csrc/w8a8_matvec.cu",
              replaces="csm_mlx_tpu/ops/quant.py:152",
-             launches=launches["w8a8_matvec"],
-             max_abs_err=w8a8["max_abs_err"], ms=w8a8["ms"],
-             plain_ms=w8a8["plain_ms"]),
+             launches=launches["w8a8_matvec"], **w8a8),
         dict(name="flash_prefill_sdpa", route="cuda",
              source="csm_mlx_tpu_torch/csrc/flash_prefill.cu",
              replaces="csm_mlx_tpu/ops/attention.py:34",
-             launches=launches["flash_prefill_sdpa"],
-             max_abs_err=flash["max_abs_err"], ms=flash["ms"],
-             plain_ms=flash["plain_ms"]),
+             launches=launches["flash_prefill_sdpa"], **flash),
+        dict(name="resident_decode_frame", route="cuda",
+             source="csm_mlx_tpu_torch/csrc/resident_frame.cu",
+             replaces="csm_mlx_tpu/ops/resident_decoder.py:198",
+             launches=launches["resident_decode_frame"],
+             max_abs_err=k3["max_abs_err"], agreement=k3["agreement"],
+             ms=k3["ms"],
+             plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
+             bound_by=k3["bound_by"], library_ms=None),
     ]
+    log(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

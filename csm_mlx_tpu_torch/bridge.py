@@ -6,9 +6,11 @@ to the host (`jax.device_get`) its leaves are numpy arrays (bf16 ones as
 tensors under the same nested names — raw CSM params, CSM params after
 `quantize_model(mode="w8a8", fuse=True)` (int8 codes, fp32 scales and
 biases, fused qkv/gate-up) and Mimi params alike — so both sides compute
-the same function. Configs (any object with the dataclass fields of
-`LlamaConfig` / `MimiConfig`) are copied field by field and can be
-registered in the port's registries. This module imports no JAX.
+the same function. A `_resident` entry (the JAX whole-frame decoder's
+tables) is carried across in the port's layout by `resident_to_torch`.
+Configs (any object with the dataclass fields of `LlamaConfig` /
+`MimiConfig`) are copied field by field and can be registered in the
+port's registries. This module imports no JAX.
 """
 
 from __future__ import annotations
@@ -42,12 +44,40 @@ def array_to_torch(a: Any, device: torch.device | str = "cpu",
 def tree_to_torch(tree: Any, device: torch.device | str = "cpu",
                   dtype: Optional[torch.dtype] = None) -> Any:
     """Nested dicts / lists of arrays -> the same structure of tensors.
-    `dtype` recasts floating leaves (codes and int leaves keep theirs)."""
+    `dtype` recasts floating leaves (codes and int leaves keep theirs); a
+    `_resident` entry goes through `resident_to_torch` as it is."""
     if isinstance(tree, dict):
-        return {k: tree_to_torch(v, device, dtype) for k, v in tree.items()}
+        return {k: resident_to_torch(v, device) if k == "_resident"
+                else tree_to_torch(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [tree_to_torch(v, device, dtype) for v in tree]
     return array_to_torch(tree, device, dtype)
+
+
+def resident_to_torch(res: Any, device: torch.device | str = "cpu"
+                      ) -> dict:
+    """The JAX `params["_resident"]` (fetched to numpy) -> the port's
+    whole-frame decoder tables (see `ops.resident_decoder`): the layers'
+    10 tables, "norm" and "rope_cs" as they are; "embed_tab" (N, 1, d) ->
+    (N, d); "audio_head_q" (n_cb-1, d, v_pad) -> (n_cb-1, v_pad, d), one
+    head column contiguous; "audio_head_s" (n_cb-1, 1, v_pad) ->
+    (n_cb-1, v_pad). JAX's rotation matrices ("rot") and bf16 padded head
+    ("audio_head") are left behind: the port reads neither."""
+    embed = np.asarray(res["embed_tab"])
+    head_q = np.asarray(res["audio_head_q"])
+    head_s = np.asarray(res["audio_head_s"])
+    return {
+        "layers": [[array_to_torch(t, device) for t in lw]
+                   for lw in res["layers"]],
+        "norm": array_to_torch(res["norm"], device),
+        "rope_cs": array_to_torch(res["rope_cs"], device),
+        "embed_tab": array_to_torch(embed.reshape(embed.shape[0], -1),
+                                    device),
+        "audio_head_q": array_to_torch(
+            np.ascontiguousarray(head_q.transpose(0, 2, 1)), device),
+        "audio_head_s": array_to_torch(
+            head_s.reshape(head_s.shape[0], -1), device),
+    }
 
 
 def llama_config_from(cfg: Any) -> LlamaConfig:

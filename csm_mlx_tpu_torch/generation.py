@@ -3,18 +3,22 @@
 The JAX package compiles the whole generation into one XLA program
 (`lax.while_loop` over frames, `lax.scan` over the decoder steps). The port
 runs eagerly: a Python frame loop over the same building blocks —
-`_prefill`, `_backbone_step`, the dispatched `_decode_frame` (c0 from
-`codebook0_head`, then a fresh 33-slot decoder cache primed with
-[backbone hidden, c0 embedding] and 30 single-token decoder steps scored
-against `audio_head[i-1]`) — with the same per-row all-zero-frame EOS.
+`_prefill`, `_backbone_step`, `_decode_frame` (c0 from `codebook0_head`,
+then the decoder primed with [backbone hidden, c0 embedding] and 30
+single-token decoder steps scored against `audio_head[i-1]`) — with the
+same per-row all-zero-frame EOS. With the whole-frame decoder's tables in
+the params (`quantize_model` on CUDA prepares them), codebooks 1..31 of a
+frame come from one kernel-3 launch per chunk of <= 64 rows, as in the JAX
+package; without them (or with a custom sampler) from the dispatched
+decoder, a Python loop of eager steps.
 
 Prompts are left-padded to the same buckets as in the JAX package, so a
 prompt gets the same positions and masks on both sides. Prefill runs the
 flash-prefill kernel on CUDA for buckets of >= 256 rows (multiples of 128),
 the masked `sdpa` otherwise.
 
-Not ported yet: streaming, context audio, long-form generation, the
-resident whole-frame decoder kernel and the watermark.
+Not ported yet: streaming, context audio, long-form generation and the
+watermark.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 from csm_mlx_tpu_torch.models.csm import (CSM, ModelArgs, embed_audio,
                                           masked_input_embeds)
 from csm_mlx_tpu_torch.models.llama import llama_forward
+from csm_mlx_tpu_torch.ops import resident_decoder
 from csm_mlx_tpu_torch.ops.attention import (NEG_INF, causal_mask_bias,
                                              key_validity_bias)
 from csm_mlx_tpu_torch.ops.kv_cache import KVCache
@@ -89,17 +94,25 @@ def _backbone_step(params, args: ModelArgs, tokens, token_mask, pad_len,
     return hidden[:, -1, :], cache
 
 
+def _use_resident_decoder(params, sampler, b: int) -> int:
+    """Kernel launches per frame for the whole-frame decoder: 0 when it
+    cannot serve (no prepared tables, or a custom sampler), else the number
+    of chunks of <= RESIDENT_MAX_BATCH rows the batch splits into."""
+    if "_resident" not in params \
+            or not resident_decoder.sampler_supported(sampler):
+        return 0
+    return -(-b // resident_decoder.RESIDENT_MAX_BATCH)
+
+
 def _decode_frame(params, args: ModelArgs, last_hidden, generator, history,
                   sampler, processors: Tuple, cos_d, sin_d):
     """Sample the 32 codebooks of one frame from the backbone hidden state:
     c0 through the sampler and processor chain, codebooks 1..31 through
-    the decoder with plain temperature sampling. Returns (frame (B, 32),
-    history)."""
-    dcfg = args.decoder_config
+    the decoder with plain temperature sampling — the whole-frame kernel
+    when the params carry its tables, else the dispatched decoder.
+    Returns (frame (B, 32), history)."""
     b = last_hidden.shape[0]
-    n_cb = args.n_audio_codebooks
     device = last_hidden.device
-    audio_head = params["audio_head"]
 
     c0_logits = linear(params["codebook0_head"], last_hidden).float()
     c0_logits = apply_processors(processors, history, c0_logits)
@@ -111,33 +124,68 @@ def _decode_frame(params, args: ModelArgs, last_hidden, generator, history,
     x01 = torch.stack([last_hidden, c0_emb], dim=1)  # (B, 2, D_backbone)
     proj01 = linear(params["projection"], x01)
 
+    n_chunks = _use_resident_decoder(params, sampler, b)
+    if n_chunks:
+        # One kernel-3 launch per chunk (the plain version on the CPU);
+        # c0, its processors and the projection stay outside, as in JAX.
+        t = sampler.temperature
+        proj01_t = proj01.float().transpose(0, 1)  # (2, B, d_decoder)
+        cs = -(-b // n_chunks)
+        seed_device = device if generator is None else generator.device
+        parts = []
+        for lo in range(0, b, cs):
+            # one int32 seed per chunk from the caller's generator
+            seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                                     device=seed_device)) if t > 0.0 else 0
+            parts.append(resident_decoder.resident_decode_frame(
+                params["_resident"], args, proj01_t[:, lo:lo + cs], seed, t))
+        toks = torch.cat(parts, dim=1)  # (n_cb, B)
+        frame = torch.cat([c0[:, None], toks[1:].t().long()], dim=1)
+        return frame, history
+
     dec_sampler = (SamplerConfig(temperature=sampler.temperature)
                    if type(sampler) is SamplerConfig else sampler)
+    codes, _ = dispatched_decode(params, args, proj01, dec_sampler,
+                                 generator, cos_d, sin_d)
+    return torch.cat([c0[:, None], codes], dim=1), history
+
+
+def dispatched_decode(params, args: ModelArgs, proj01, dec_sampler,
+                      generator, cos_d, sin_d, forced=None):
+    """The dispatched decoder: a fresh 33-slot cache primed with proj01
+    (B, 2, d_decoder), then one eager llama step per codebook, scored
+    against `audio_head[i-1]`. Returns (codes (B, n_cb-1) of codebooks
+    1..n_cb-1, logits (n_cb-1, B, V) f32). With `forced` (B, n_cb), step i
+    reads the embedding of forced[:, i-1] instead of its own pick (teacher
+    forcing); the returned codes stay its picks."""
+    dcfg = args.decoder_config
+    b, n_cb = proj01.shape[0], args.n_audio_codebooks
+    device, dtype = proj01.device, proj01.dtype
+    audio_head = params["audio_head"]
     cap = n_cb + 1
-    dcache = KVCache.init(dcfg, b, cap, dtype=last_hidden.dtype, device=device)
+    dcache = KVCache.init(dcfg, b, cap, dtype=dtype, device=device)
 
     def dec_bias(q_len, index):
         return causal_mask_bias(q_len, cap, q_offset=index,
                                 device=device)[None, None]
 
-    hidden01, dcache = llama_forward(
+    hidden, dcache = llama_forward(
         params["decoder"], dcfg, proj01, cos_d, sin_d,
         torch.arange(2, device=device)[None], dec_bias(2, 0), dcache)
-    prev = dec_sampler(generator, audio_head_logits(audio_head, 0,
-                                                    hidden01[:, -1]))
-    codes = [c0, prev]
+    logits = [audio_head_logits(audio_head, 0, hidden[:, -1])]
+    codes = [dec_sampler(generator, logits[0])]
     table = emb_table(params["audio_embeddings"])
     for i in range(2, n_cb):
-        emb = table[prev + (i - 1) * args.n_audio_vocab].to(last_hidden.dtype)
+        prev = codes[-1] if forced is None else forced[:, i - 1]
+        emb = table[prev + (i - 1) * args.n_audio_vocab].to(dtype)
         x = linear(params["projection"], emb[:, None, :])
         positions = torch.full((1, 1), dcache.index, device=device)
         hidden, dcache = llama_forward(params["decoder"], dcfg, x, cos_d,
                                        sin_d, positions,
                                        dec_bias(1, dcache.index), dcache)
-        prev = dec_sampler(generator, audio_head_logits(audio_head, i - 1,
-                                                        hidden[:, 0]))
-        codes.append(prev)
-    return torch.stack(codes, dim=1), history
+        logits.append(audio_head_logits(audio_head, i - 1, hidden[:, 0]))
+        codes.append(dec_sampler(generator, logits[-1]))
+    return torch.stack(codes, dim=1), torch.stack(logits).float()
 
 
 def _frame_to_next_input(frame):

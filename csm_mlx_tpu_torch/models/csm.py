@@ -23,6 +23,7 @@ from csm_mlx_tpu_torch.config import (
     DECODER_CONFIGURATION,
     LlamaConfig,
 )
+from csm_mlx_tpu_torch.device import resolve_device
 from csm_mlx_tpu_torch.models.llama import init_llama_params
 from csm_mlx_tpu_torch.ops.layers import emb_table
 
@@ -65,11 +66,13 @@ def csm_1b() -> ModelArgs:
 
 def init_csm_params(generator: torch.Generator, args: ModelArgs,
                     dtype=torch.float32,
-                    device: torch.device | str = "cpu") -> Params:
+                    device: torch.device | str | None = None) -> Params:
     """Random-initialized CSM parameters drawn from `generator` on `device`
-    (checkpoint layout). `audio_head` is zero, as in the JAX init: with a
-    zero head every decoder codebook is 0, so callers that generate from
-    random weights draw it themselves."""
+    (default `cuda`, see `device.resolve_device`), in checkpoint layout.
+    `audio_head` is zero, as in the JAX init: with a zero head every decoder
+    codebook is 0, so callers that generate from random weights draw it
+    themselves."""
+    device = resolve_device(device)
     d_b, d_d = args.backbone_dim, args.decoder_dim
     scale = d_b ** -0.5
 
@@ -121,7 +124,8 @@ def masked_input_embeds(params: Params, args: ModelArgs, tokens: torch.Tensor,
 
 class CSM:
     """Model object: `args`, `params` (nested dict of tensors), `dtype`,
-    `device`."""
+    `device`. The device is `device` if given, else that of `params`, else
+    `cuda` (a RuntimeError without a GPU: pass `device="cpu"`)."""
 
     def __init__(
         self,
@@ -129,12 +133,12 @@ class CSM:
         params: Optional[Params] = None,
         dtype=torch.bfloat16,
         generator: Optional[torch.Generator] = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
     ):
         self.args = args
         self.n_audio_codebooks = args.n_audio_codebooks
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device, params)
         if params is None:
             if generator is None:
                 generator = torch.Generator(device=self.device)

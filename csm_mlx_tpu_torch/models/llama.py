@@ -13,6 +13,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from csm_mlx_tpu_torch.config import LlamaConfig
+from csm_mlx_tpu_torch.device import resolve_device
 from csm_mlx_tpu_torch.ops.attention import flash_prefill_sdpa, sdpa
 from csm_mlx_tpu_torch.ops.kv_cache import KVCache
 from csm_mlx_tpu_torch.ops.layers import linear, rms_norm, swiglu_mlp
@@ -23,9 +24,10 @@ Params = Dict[str, Any]
 
 def init_llama_params(generator: torch.Generator, cfg: LlamaConfig,
                       dtype=torch.float32,
-                      device: torch.device | str = "cpu") -> Params:
+                      device: torch.device | str | None = None) -> Params:
     """Random init, normal / sqrt(fan_in), drawn from `generator` on
-    `device`; layout identical to checkpoints."""
+    `device` (default `cuda`); layout identical to checkpoints."""
+    device = resolve_device(device)
     d = cfg.hidden_size
     kv_dim = cfg.num_key_value_heads * cfg.head_dim
     f = cfg.intermediate_size

@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from csm_mlx_tpu_torch.device import resolve_device
 from csm_mlx_tpu_torch.models.mimi.config import MimiConfig
 from csm_mlx_tpu_torch.models.mimi.conv import causal_conv_transpose1d
 from csm_mlx_tpu_torch.models.mimi.rvq import (init_split_rvq_params,
@@ -42,8 +43,10 @@ def mimi_decode_fn(params: Params, cfg: MimiConfig,
 
 def init_mimi_params(generator: torch.Generator, cfg: MimiConfig,
                      dtype=torch.float32,
-                     device: torch.device | str = "cpu") -> Params:
-    """Random init of the decode-direction parameters."""
+                     device: torch.device | str | None = None) -> Params:
+    """Random init of the decode-direction parameters (on `cuda` unless
+    `device` says otherwise)."""
+    device = resolve_device(device)
     d, s = cfg.hidden_size, cfg.downsample_stride
     up = torch.randn((d, d // cfg.upsample_groups, 2 * s), generator=generator,
                      device=device, dtype=torch.float32)
@@ -57,14 +60,15 @@ def init_mimi_params(generator: torch.Generator, cfg: MimiConfig,
 
 
 class Mimi:
-    """The codec: `cfg`, `params`, `device`; `decode` maps codes to audio."""
+    """The codec: `cfg`, `params`, `device`; `decode` maps codes to audio.
+    The device is `device` if given, else that of `params`, else `cuda`."""
 
     def __init__(self, cfg: MimiConfig, params: Optional[Params] = None,
                  dtype=torch.float32, generator: Optional[torch.Generator] = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
         self.cfg = cfg
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device, params)
         if params is None:
             if generator is None:
                 generator = torch.Generator(device=self.device)

@@ -13,6 +13,7 @@ from typing import Any, Dict
 
 import torch
 
+from csm_mlx_tpu_torch.device import resolve_device
 from csm_mlx_tpu_torch.models.mimi.config import MimiConfig
 
 Params = Dict[str, Any]
@@ -64,7 +65,9 @@ def split_rvq_decode(params: Params, codes: torch.Tensor) -> torch.Tensor:
 
 def init_rvq_params(generator: torch.Generator, cfg: MimiConfig,
                     n_layers: int, dtype=torch.float32,
-                    device: torch.device | str = "cpu") -> Params:
+                    device: torch.device | str | None = None) -> Params:
+    device = resolve_device(device)
+
     def normal(*shape):
         return torch.randn(shape, generator=generator, device=device,
                            dtype=torch.float32)
@@ -87,7 +90,8 @@ def init_rvq_params(generator: torch.Generator, cfg: MimiConfig,
 
 def init_split_rvq_params(generator: torch.Generator, cfg: MimiConfig,
                           dtype=torch.float32,
-                          device: torch.device | str = "cpu") -> Params:
+                          device: torch.device | str | None = None) -> Params:
+    device = resolve_device(device)
     return {
         "semantic": init_rvq_params(generator, cfg,
                                     cfg.num_semantic_quantizers, dtype, device),

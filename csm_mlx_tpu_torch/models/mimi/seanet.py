@@ -14,6 +14,7 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from csm_mlx_tpu_torch.device import resolve_device
 from csm_mlx_tpu_torch.models.mimi.config import MimiConfig
 from csm_mlx_tpu_torch.models.mimi.conv import causal_conv_transpose1d, conv1d
 
@@ -58,7 +59,10 @@ def seanet_decode(params: Params, cfg: MimiConfig,
 
 def init_seanet_decoder_params(generator: torch.Generator, cfg: MimiConfig,
                                dtype=torch.float32,
-                               device: torch.device | str = "cpu") -> Params:
+                               device: torch.device | str | None = None
+                               ) -> Params:
+    device = resolve_device(device)
+
     def conv(c_out, c_in, k):
         w = torch.randn((c_out, c_in, k), generator=generator, device=device,
                         dtype=torch.float32)

@@ -14,6 +14,7 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from csm_mlx_tpu_torch.device import resolve_device
 from csm_mlx_tpu_torch.models.mimi.config import MimiConfig
 from csm_mlx_tpu_torch.ops.attention import NEG_INF, sdpa
 from csm_mlx_tpu_torch.ops.layers import linear
@@ -83,7 +84,9 @@ def transformer_forward(params: Params, cfg: MimiConfig,
 
 def init_transformer_params(generator: torch.Generator, cfg: MimiConfig,
                             dtype=torch.float32,
-                            device: torch.device | str = "cpu") -> Params:
+                            device: torch.device | str | None = None
+                            ) -> Params:
+    device = resolve_device(device)
     d = cfg.hidden_size
 
     def dense(o, i):

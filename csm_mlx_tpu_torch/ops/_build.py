@@ -38,6 +38,7 @@ _lib: ctypes.CDLL | None = None
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # x, qx, aux, w, s, z, out, rows, in_dim, out_dim, dtype, stream
     "csm_w8a8_matvec": (_VP,) * 7 + (_I,) * 4 + (_VP,),
@@ -45,6 +46,11 @@ _SIGNATURES = {
     # scale, dtype, stream
     "csm_flash_prefill": (_VP,) * 5 + (_LL,) * 9 + (_I,) * 5
     + (ctypes.c_float, _I, _VP),
+    # layer pointers, n_layers, norm, rope_cs, head_q, head_s, embed, proj01,
+    # x, q, act, xq, aux, kc, vc, part, part_cap, tokens, logits, rows,
+    # heads, n_kv, hd, d, f, n_cb, v, v_pad, eps, scale, inv_t, seed, stream
+    "csm_resident_frame": (ctypes.POINTER(_VP), _I) + (_VP,) * 14
+    + (_I, _VP, _VP) + (_I,) * 9 + (_F,) * 3 + (ctypes.c_uint, _VP),
 }
 
 

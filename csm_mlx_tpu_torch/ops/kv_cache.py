@@ -15,6 +15,7 @@ from typing import Tuple
 import torch
 
 from csm_mlx_tpu_torch.config import LlamaConfig
+from csm_mlx_tpu_torch.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -35,8 +36,10 @@ class KVCache:
 
     @staticmethod
     def init(cfg: LlamaConfig, batch_size: int, capacity: int,
-             dtype=torch.bfloat16, device: torch.device | str = "cpu"
+             dtype=torch.bfloat16, device: torch.device | str | None = None
              ) -> "KVCache":
+        """Zeroed buffers on `device` (default `cuda`)."""
+        device = resolve_device(device)
         shape = (cfg.num_hidden_layers, batch_size, cfg.num_key_value_heads,
                  capacity, cfg.head_dim)
         return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),

@@ -12,7 +12,8 @@ above) has one arithmetic here, so prefill and decode quantize alike; on
 CPU tensors it runs `w8a8_matvec_plain`, the mirror of `_xla_w8a8_matvec`.
 
 Not ported yet: the grouped-affine (MLX) mode, W4A8 and
-`quantize_audio_head`.
+`quantize_audio_head` (the whole-frame decoder's own int8 head is, in
+`ops.resident_decoder.set_resident_audio_head`).
 """
 
 from __future__ import annotations
@@ -167,7 +168,11 @@ def quantize_model(model, min_size: int = 1 << 16, mode: str = "w8a8",
     then (with `fuse`) fold q/k/v and gate/up into single wide linears.
 
     Embeddings, norms and `audio_head` stay as they are, as in the JAX
-    package with its default targets."""
+    package with its default targets. On a CUDA model, W8A8 with `fuse` and
+    the decoder among the targets also derives the whole-frame decoder's
+    tables (`params["_resident"]`, `ops.resident_decoder`), as the JAX
+    package does on any backend but the CPU; generation then runs each
+    decoder frame as one kernel-3 launch per chunk of <= 64 rows."""
     if mode != "w8a8":
         raise ValueError(f"quantize_model: mode {mode!r} is not ported yet; "
                          f"only 'w8a8'")
@@ -184,3 +189,8 @@ def quantize_model(model, min_size: int = 1 << 16, mode: str = "w8a8",
         for key in ("backbone", "decoder"):
             if key in p:
                 fuse_layer_weights(p[key])
+    if fuse and "decoder" in targets and model.device.type == "cuda":
+        from csm_mlx_tpu_torch.ops.resident_decoder import \
+            prepare_resident_decoder
+
+        prepare_resident_decoder(model)

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from csm_mlx_tpu_torch.config import LlamaConfig, RopeScalingConfig
+from csm_mlx_tpu_torch.device import resolve_device
 
 
 def llama3_scaled_freqs(
@@ -61,8 +62,10 @@ def rope_cache(
 
 
 def rope_cache_for(cfg: LlamaConfig, max_seq_len: int,
-                   device: torch.device | str = "cpu"
+                   device: torch.device | str | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) tables of `rope_cache` on `device` (default `cuda`)."""
+    device = resolve_device(device)
     cos, sin = rope_cache(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
                           max_seq_len)
     return (torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device))

@@ -66,10 +66,11 @@ def test_llama_flash_prefill_path_matches_jax():
                         JKVCache.init(jcfg, b, cap, dtype=jnp.float32),
                         flash_pad_len=jnp.asarray(pad))
     tcfg = llama_config_from(jcfg)
-    tc, ts = trope_cache(tcfg, 256)
+    tc, ts = trope_cache(tcfg, 256, "cpu")
     got, tcache = tfwd(to_torch(params), tcfg, torch.from_numpy(x), tc, ts,
                        torch.from_numpy(pos), None,
-                       TKVCache.init(tcfg, b, cap, dtype=torch.float32),
+                       TKVCache.init(tcfg, b, cap, dtype=torch.float32,
+                                      device="cpu"),
                        flash_pad_len=torch.from_numpy(pad))
     got, want = got.numpy(), np.asarray(want)
     assert tcache.index == s == int(jcache.index)

@@ -16,7 +16,10 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from csm_mlx_tpu_torch import config as port_config  # noqa: E402
+from csm_mlx_tpu_torch.models.csm import CSM, ModelArgs  # noqa: E402
 from csm_mlx_tpu_torch.ops import attention, quant  # noqa: E402
+from csm_mlx_tpu_torch.ops import resident_decoder as resident  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -85,3 +88,130 @@ def test_flash_prefill_kernel_matches_plain(cuda_device, dtype, s, pads):
         torch.testing.assert_close(got[bi, :, p0:].float(),
                                    want[bi, :, p0:].float(), rtol=0,
                                    atol=atol)
+
+
+# --- kernel 3: the whole-frame decoder --------------------------------------
+
+# decoders of the tiny test config and of a medium one (full head_dim and
+# 32 codebooks, narrow widths); both need heads * head_dim == hidden_size
+RESIDENT_CONFIGS = {
+    "tiny": (dict(num_hidden_layers=2, num_attention_heads=2,
+                  num_key_value_heads=1, head_dim=16, intermediate_size=64,
+                  hidden_size=32), 64, 8),
+    "medium": (dict(num_hidden_layers=2, num_attention_heads=4,
+                    num_key_value_heads=2, head_dim=128,
+                    intermediate_size=1024, hidden_size=512), 300, 32),
+}
+
+
+def resident_model(name, device):
+    """A random W8A8 CSM on `device` whose decoder is RESIDENT_CONFIGS[name]
+    (a one-layer backbone); `quantize_model` on CUDA prepares kernel 3's
+    tables."""
+    dec, vocab, n_cb = RESIDENT_CONFIGS[name]
+    key = f"resident_{name}"
+    port_config.BACKBONE_CONFIGURATION[key] = port_config.LlamaConfig(
+        num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=1,
+        head_dim=32, intermediate_size=128, hidden_size=64)
+    port_config.DECODER_CONFIGURATION[key] = port_config.LlamaConfig(**dec)
+    args = ModelArgs(key, key, 128, vocab, n_cb)
+    gen = torch.Generator(device=device).manual_seed(3)
+    model = CSM(args, dtype=torch.float32, generator=gen, device=device)
+    model.params["audio_head"] = torch.randn(
+        model.params["audio_head"].shape, generator=gen, device=device)
+    quant.quantize_model(model, mode="w8a8", min_size=0)
+    assert "_resident" in model.params
+    return model
+
+
+def forced_agreement(model, proj01, tokens, kernel_logits):
+    """The plain version teacher-forced on the kernel's tokens: the share of
+    picks it agrees with, the largest top-2 margin of a disagreeing pick
+    and the largest logit error, both in units of the logits row's std."""
+    _, logits = resident.resident_decode_frame_plain(
+        model.params["_resident"], model.args, proj01, 0.0,
+        forced=tokens.long())
+    std = logits.std(dim=-1)
+    top2 = logits.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]) / std
+    flips = logits.argmax(-1) != tokens[1:].long()
+    worst = margin[flips].max().item() if bool(flips.any()) else 0.0
+    err = ((kernel_logits - logits).abs().amax(-1) / std).max().item()
+    return 1.0 - flips.float().mean().item(), worst, err
+
+
+@pytest.mark.parametrize("rows", [1, 8, 64])
+@pytest.mark.parametrize("name", ["tiny", "medium"])
+def test_resident_kernel_matches_plain(cuda_device, name, rows):
+    model = resident_model(name, cuda_device)
+    d = model.args.decoder_config.hidden_size
+    gen = torch.Generator(device=cuda_device).manual_seed(rows)
+    proj01 = torch.randn((2, rows, d), generator=gen, device=cuda_device)
+    before = resident.resident_decode_frame.launches
+    toks, logits = resident.resident_decode_frame(
+        model.params["_resident"], model.args, proj01, 0, 0.0,
+        return_logits=True)
+    again = resident.resident_decode_frame(model.params["_resident"],
+                                           model.args, proj01, 0, 0.0)
+    torch.cuda.synchronize()
+    assert resident.resident_decode_frame.launches == before + 2
+    assert toks.shape == (model.args.n_audio_codebooks, rows)
+    assert not toks[0].any() and int(toks.min()) >= 0
+    assert int(toks.max()) < model.args.n_audio_vocab
+    torch.testing.assert_close(again, toks, rtol=0, atol=0)  # deterministic
+    # The plain version sums in the kernel's order (bit-equal on the H100).
+    # For a torch whose exp rounds otherwise: int8 requantization turns an
+    # ulp into a code step now and then, which grows to ~0.1 of the logits'
+    # std through the layers and the KV cache of random weights (as much as
+    # the plain version moves when its input moves by 1e-6). So the logits
+    # may differ by 0.3 std, and picks only at near-ties below that margin.
+    agree, worst, err = forced_agreement(model, proj01, toks, logits)
+    assert agree >= 0.99 and worst < 0.3 and err <= 0.3, (agree, worst, err)
+
+
+def test_resident_kernel_samples_at_temperature(cuda_device):
+    """T = 0.8: codebook-1 picks over 1024 rows of one proj01 against
+    softmax(plain logits / T), chi-square p >= 1e-3 over the bins with an
+    expected count >= 5 and one pooled bin. The head is scaled to a logits
+    std of 2.5, so that many tokens carry probability."""
+    from scipy import stats
+
+    model = resident_model("medium", cuda_device)
+    res, args = dict(model.params["_resident"]), model.args
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    row = torch.randn((2, 1, args.decoder_config.hidden_size), generator=gen,
+                      device=cuda_device)
+    _, logits = resident.resident_decode_frame_plain(res, args, row, 0.0)
+    resident.set_resident_audio_head(
+        res, model.params["audio_head"] * (2.5 / logits[0].std().item()),
+        res["audio_head_q"].shape[1])
+    proj01 = row.expand(2, 64, -1).contiguous()
+    picks = torch.cat([resident.resident_decode_frame(res, args, proj01,
+                                                      seed, 0.8)[1]
+                       for seed in range(16)]).cpu().numpy()
+    _, logits = resident.resident_decode_frame_plain(res, args, row, 0.0)
+    probs = torch.softmax(logits[0, 0] / 0.8, -1).double().cpu().numpy()
+    expected = probs * len(picks)
+    observed = np.bincount(picks, minlength=len(probs))
+    big = expected >= 5
+    obs = np.append(observed[big], observed[~big].sum())
+    exp = np.append(expected[big], expected[~big].sum())
+    p = stats.chi2.sf(((obs - exp) ** 2 / exp).sum(), len(obs) - 1)
+    assert big.sum() >= 5 and p >= 1e-3, (big.sum(), p)
+
+
+def test_resident_kernel_rejects_what_it_does_not_take(cuda_device):
+    model = resident_model("tiny", cuda_device)
+    res, args = model.params["_resident"], model.args
+    d = args.decoder_config.hidden_size
+    with pytest.raises(ValueError, match="rows"):
+        resident.resident_decode_frame(
+            res, args, torch.zeros((2, 65, d), device=cuda_device), 0, 0.0)
+    with pytest.raises(ValueError, match="float32"):
+        resident.resident_decode_frame(
+            res, args, torch.zeros((2, 1, d), device=cuda_device,
+                                   dtype=torch.bfloat16), 0, 0.0)
+    cpu_res = dict(res, norm=res["norm"].cpu())
+    with pytest.raises(ValueError, match="norm"):
+        resident.resident_decode_frame(
+            cpu_res, args, torch.zeros((2, 1, d), device=cuda_device), 0, 0.0)

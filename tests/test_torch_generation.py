@@ -141,10 +141,11 @@ def _torch_teacher_logits(model, prompt, mask, frames):
     tokens, msk, pad, bucket = tgen._pad_prompt(prompt, mask)
     bcfg, dcfg = args.backbone_config, args.decoder_config
     cap_b, cap_d = bucket + len(frames), args.n_audio_codebooks + 1
-    cos_b, sin_b = trope_cache(bcfg, max(cap_b, bcfg.max_position_embeddings))
-    cos_d, sin_d = trope_cache(dcfg, cap_d)
+    cos_b, sin_b = trope_cache(bcfg, max(cap_b, bcfg.max_position_embeddings),
+                               "cpu")
+    cos_d, sin_d = trope_cache(dcfg, cap_d, "cpu")
     pad = torch.from_numpy(pad).long()
-    cache = TKVCache.init(bcfg, 1, cap_b, dtype=torch.float32)
+    cache = TKVCache.init(bcfg, 1, cap_b, dtype=torch.float32, device="cpu")
     h, cache = tgen._prefill(params, args, torch.from_numpy(tokens).long(),
                              torch.from_numpy(msk).long(), pad, cache, cos_b,
                              sin_b)
@@ -154,7 +155,8 @@ def _torch_teacher_logits(model, prompt, mask, frames):
         logits = [tlinear(params["codebook0_head"], h)[0]]
         x = tlinear(params["projection"], torch.stack(
             [h, tcsm.embed_audio(params, args, 0, fr[:, 0])], dim=1))
-        dc = TKVCache.init(dcfg, 1, cap_d, dtype=torch.float32)
+        dc = TKVCache.init(dcfg, 1, cap_d, dtype=torch.float32,
+                            device="cpu")
         pos, q_off = torch.arange(2)[None], 0
         for i in range(1, args.n_audio_codebooks):
             hd, dc = tfwd(params["decoder"], dcfg, x, cos_d, sin_d, pos,
@@ -231,7 +233,8 @@ def test_generate_text_to_waveform(base_params, tmp_path):
 
     tm = torch_model_from_jax(_jax_model(base_params))
     cfg = mimi_config_from(dataclasses.replace(TINY_MIMI, num_quantizers=8))
-    mimi = TMimi(cfg, generator=torch.Generator().manual_seed(3))
+    mimi = TMimi(cfg, generator=torch.Generator().manual_seed(3),
+                 device="cpu")
     wav = tgen.generate(tm, "hello world", 0, mimi, str(tmp_path),
                         max_audio_length_ms=320, temperature=0.0)
     frames, n = tgen.generate_tokens(tm, prompt, mask, 4, temperature=0.0)

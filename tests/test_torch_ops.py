@@ -39,7 +39,8 @@ def test_rope_freqs_and_rotation_match_jax():
     x = rng.randn(2, 7, 4, 16).astype(np.float32)
     pos = np.array([np.arange(7) - 3, np.arange(7)], np.int32)  # negatives clamp
     jc, js = jrope.rope_cache_for(TINY_BACKBONE, 32)
-    tc, ts = trope.rope_cache_for(llama_config_from(TINY_BACKBONE), 32)
+    tc, ts = trope.rope_cache_for(llama_config_from(TINY_BACKBONE), 32,
+                                  "cpu")
     want = np.asarray(jrope.apply_rope(jnp.asarray(x), jc, js,
                                        jnp.asarray(pos)))
     got = trope.apply_rope(_t(x), tc, ts, _t(pos)).numpy()
@@ -102,7 +103,7 @@ def test_kv_cache_matches_jax():
     rng = np.random.RandomState(3)
     jc = JKVCache.init(TINY_BACKBONE, 2, 10, dtype=jnp.float32)
     tc = TKVCache.init(llama_config_from(TINY_BACKBONE), 2, 10,
-                       dtype=torch.float32)
+                       dtype=torch.float32, device="cpu")
     for s in (4, 1, 1):
         for layer in range(TINY_BACKBONE.num_hidden_layers):
             kn = rng.randn(2, 2, s, 16).astype(np.float32)
@@ -121,12 +122,13 @@ def test_kv_cache_matches_jax():
 
 PORT_MODULES = [
     "csm_mlx_tpu_torch", "csm_mlx_tpu_torch.config",
-    "csm_mlx_tpu_torch.bridge", "csm_mlx_tpu_torch.generation",
-    "csm_mlx_tpu_torch.tokenizers",
+    "csm_mlx_tpu_torch.bridge", "csm_mlx_tpu_torch.device",
+    "csm_mlx_tpu_torch.generation", "csm_mlx_tpu_torch.tokenizers",
     "csm_mlx_tpu_torch.models", "csm_mlx_tpu_torch.ops",
     "csm_mlx_tpu_torch.ops._build", "csm_mlx_tpu_torch.ops.attention",
     "csm_mlx_tpu_torch.ops.kv_cache", "csm_mlx_tpu_torch.ops.layers",
-    "csm_mlx_tpu_torch.ops.quant", "csm_mlx_tpu_torch.ops.rope",
+    "csm_mlx_tpu_torch.ops.quant", "csm_mlx_tpu_torch.ops.resident_decoder",
+    "csm_mlx_tpu_torch.ops.rope",
     "csm_mlx_tpu_torch.ops.sampling", "csm_mlx_tpu_torch.models.csm",
     "csm_mlx_tpu_torch.models.llama", "csm_mlx_tpu_torch.models.mimi",
     "csm_mlx_tpu_torch.models.mimi.config", "csm_mlx_tpu_torch.models.mimi.conv",
