@@ -16,8 +16,17 @@ decoder frame one kernel-3 launch, and a Mimi decode to a waveform. It
 checks that every kernel ran in it, then drives the dispatched decoder for
 10 frames (tables removed) and compares it with kernel 3 by teacher-forced
 flips per margin bin, and runs a 65-prompt batch (two kernel-3 chunks a
-frame). Any failure raises; the last line of standard output is then
-missing.
+frame).
+
+Then the fine-tuning path: kernels 6 and 7 (causal flash attention forward
+and backward) against their plain versions at the backbone's shape, (B=2,
+S=575) and (B=1, S=2048) in fp32 and bf16, timed beside the library's
+`scaled_dot_product_attention`; CSM-1B at full width and depth in bf16
+trained on synthetic (B=2, S=576) batches — full SFT with remat, a DPO and
+a KTO step, LoRA rank 8, `train()` with checkpoints and a resume — with
+the kernels' launch counts per step; and one training step through the
+kernels against the masked sdpa on a 2-layer full-width backbone. Any
+failure raises; the last line of standard output is then missing.
 
 Prints the card's name and power limit, one line per check and phase, the
 kernels' line `{"kernels": [...]}` (times measured here, bounds computed
@@ -32,7 +41,9 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+from dataclasses import replace as dataclass_replace
 
 import numpy as np
 import torch
@@ -42,13 +53,19 @@ sys.path.insert(0, ROOT)
 
 from csm_mlx_tpu_torch import config as port_config  # noqa: E402
 from csm_mlx_tpu_torch import generation  # noqa: E402
+from csm_mlx_tpu_torch.finetune import lora  # noqa: E402
+from csm_mlx_tpu_torch.finetune import trainer as ft  # noqa: E402
+from csm_mlx_tpu_torch.finetune.dataset import CSMDataset  # noqa: E402
+from csm_mlx_tpu_torch.finetune.loss import compute_loss  # noqa: E402
 from csm_mlx_tpu_torch.generation import (generate_tokens,  # noqa: E402
                                           generate_tokens_batch)
+from csm_mlx_tpu_torch.loaders import tree_to_flat  # noqa: E402
 from csm_mlx_tpu_torch.models.csm import CSM, ModelArgs, csm_1b  # noqa: E402
 from csm_mlx_tpu_torch.models.csm import embed_audio  # noqa: E402
 from csm_mlx_tpu_torch.models.mimi import Mimi, mimi_202407  # noqa: E402
 from csm_mlx_tpu_torch.ops import _build  # noqa: E402
 from csm_mlx_tpu_torch.ops import attention, quant  # noqa: E402
+from csm_mlx_tpu_torch.ops import flash_train  # noqa: E402
 from csm_mlx_tpu_torch.ops import resident_decoder as resident  # noqa: E402
 from csm_mlx_tpu_torch.ops.layers import linear  # noqa: E402
 from csm_mlx_tpu_torch.ops.rope import rope_cache_for  # noqa: E402
@@ -80,6 +97,17 @@ RESIDENT_ROWS = (1, 8, 64)
 # below it.
 FLIP_MARGIN_TOL = 0.3
 MIN_AGREEMENT = 0.99
+# Kernels 6 and 7 at the backbone's shape: (B, S) cases; H = 32, n_kv = 8,
+# D = 64, scale 1/8. Tolerances on max |kernel - plain| over max |plain|,
+# for O, dq, dk and dv. fp32: both sum in fp32 in other orders (exp, the
+# online softmax against a one-pass one); 2e-5 is ~10x what fp32 runs at
+# S = 2048 show. bf16 is looser: the inputs are the same bf16 values, both
+# compute in fp32 and round the outputs to bf16 (2^-8 of each value), and
+# the kernel's delta = rowsum(dO * O) reads the bf16 O where the plain one
+# reads its fp32 O.
+FLASH_TRAIN_CASES = ((2, 575), (1, 2048))
+FLASH_TRAIN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+TRAIN_B, TRAIN_S = 2, 576  # the 64-bucket of 575 frames
 # H100 SXM, NVIDIA's data sheet: HBM bytes/s and dense peak ops/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "fp32": 67e12}
@@ -99,38 +127,37 @@ def card_info() -> str:
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> tuple[float, float]:
     """(device ms, wall ms) of one call, each a mean over `reps` calls.
 
-    Device ms: the summed duration of every kernel, copy and fill the
-    calls ran on the card, from `torch.profiler` (device events only: the
-    operator events that launched them carry the same time again) — at
-    small shapes the host launches slower than the card computes, so the
-    wall time is the host's. Wall ms: CUDA events around the `reps`
-    calls. The profiler now and then records no device event in a
-    window; it is asked up to three times, and if it still sees none the
-    device ms is the wall ms."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    Wall ms: CUDA events around `reps` calls as the host issues them — at
+    small shapes the host launches slower than the card computes, so this
+    is the host's time. Device ms: the same `reps` calls queued behind a
+    spin kernel (`torch.cuda._sleep`) that lasts longer than the host takes
+    to issue them, so the events bracket the card's own work, back to back.
+    (torch.profiler's device events were tried first and dropped kernels:
+    it once reported kernel 6 faster than the card's fp32 peak allows.) A
+    call that synchronizes inside gets no head start: its device ms is
+    then its wall ms."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    wall = start.elapsed_time(end) / reps
+    # 2.5e6 cycles a ms is above the H100's top clock: the spin lasts at
+    # least twice the host's issue time plus a millisecond, up to 0.2 s
+    torch.cuda._sleep(int(min(2 * host_ms + 1, 200) * 2.5e6))
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
-    wall = start.elapsed_time(end) / reps
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        if total_us > 0:
-            return total_us / reps / 1000.0, wall
-    return wall, wall
+    return start.elapsed_time(end) / reps, wall
 
 
 def bound_ms(n_bytes: float, n_ops: float, kind: str) -> tuple[float, str]:
@@ -296,12 +323,17 @@ def random_csm(args, dtype, dev, seed) -> CSM:
     return model
 
 
-def params_to_cpu(tree):
+def map_params(fn, tree):
+    """The params tree with `fn` applied to every tensor."""
     if isinstance(tree, dict):
-        return {k: params_to_cpu(v) for k, v in tree.items()}
+        return {k: map_params(fn, v) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [params_to_cpu(v) for v in tree]
-    return tree.cpu()
+        return [map_params(fn, v) for v in tree]
+    return fn(tree)
+
+
+def params_to_cpu(tree):
+    return map_params(torch.Tensor.cpu, tree)
 
 
 def resident_bound(res, args, rows: int) -> tuple[float, str]:
@@ -569,10 +601,12 @@ def trace_main_path(model: CSM) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     prompt, mask = synthetic_prompt(32, model.args.n_text_vocab, SEED)
-    torch.cuda.synchronize()
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities):  # the profiler's own start-up
+        generate_tokens(model, prompt, mask, 1, temperature=0.0)
+        torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         _, n = generate_tokens(model, prompt, mask, 8, temperature=0.0)
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
@@ -683,6 +717,384 @@ def run_batch(model: CSM) -> None:
         raise AssertionError("the 65-row batch did not run two chunks a frame")
 
 
+def flash_train_inputs(gen, dev, dtype, b, s):
+    """q, k, v as the backbone makes them (transposed (B, S, heads, 64)
+    projections), and a random dO."""
+    h, n_kv = 32, 8
+
+    def proj(heads):
+        return torch.randn((b, s, heads, 64), generator=gen,
+                           device=dev).to(dtype).transpose(1, 2)
+
+    return proj(h), proj(n_kv), proj(n_kv), proj(h)
+
+
+def time_sdpa_train(q, k, v, do, scale) -> tuple[float, float, float]:
+    """Device ms of `F.scaled_dot_product_attention(is_causal=True,
+    enable_gqa=True)` on the same inputs: forward, backward alone, forward
+    + backward. Timed here only, as the library-call column; the port never
+    calls it."""
+    import torch.nn.functional as F
+
+    def fwd(a, b, c):
+        return F.scaled_dot_product_attention(a, b, c, is_causal=True,
+                                              scale=scale, enable_gqa=True)
+
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = fwd(qg, kg, vg)
+    ms_f = time_ms(lambda: fwd(q, k, v))[0]
+    ms_b = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                               retain_graph=True))[0]
+
+    def both():
+        o = fwd(qg, kg, vg)
+        torch.autograd.grad(o, (qg, kg, vg), do)
+
+    return ms_f, ms_b, time_ms(both)[0]
+
+
+def flash_train_bounds(q, k, dtype) -> dict:
+    """Kernels 6 and 7's bounds: causal FLOPs 2*B*H*S^2*D forward and 2.5x
+    that backward, at the peak of the input type, against the bytes each
+    moves (inputs read once, outputs written once)."""
+    b, h, s, d = q.shape
+    kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+    e = torch.empty((), dtype=dtype).element_size()
+    qb, kb = b * h * s * d * e, k.numel() * e
+    lse = b * h * s * 4
+    flops = 2.0 * b * h * s * s * d
+    return dict(fwd=bound_ms(2 * qb + 2 * kb + lse, flops, kind),
+                bwd=bound_ms(4 * qb + 4 * kb + lse, 2.5 * flops, kind))
+
+
+def check_flash_train(dev, gen) -> dict:
+    """Kernels 6 and 7 against their plain versions at the backbone's
+    shape, with random dO: max_abs_err and max |err| / max |plain| of O,
+    dq, dk and dv within FLASH_TRAIN_TOL; device times of the kernels, the
+    plain versions and the library call, and the bound. Returns the JSON
+    entries' numbers at the training path's case, (B=2, S=575) bf16."""
+    scale = 64 ** -0.5
+    out = {}
+    for b, s in FLASH_TRAIN_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = flash_train_inputs(gen, dev, dtype, b, s)
+            o, lse = flash_train.flash_train_fwd(q, k, v, scale)
+            grads = flash_train.flash_train_bwd(q, k, v, o, lse, do, scale)
+            want_o, _ = flash_train.flash_train_fwd_plain(q, k, v, scale)
+            want = flash_train.flash_train_bwd_plain(q, k, v, do, scale)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, got, ref in zip(("O", "dq", "dk", "dv"),
+                                      (o, *grads), (want_o, *want)):
+                ref = ref.float()
+                abs_err = (got.float() - ref).abs().max().item()
+                if not bool(torch.isfinite(got).all()):
+                    abs_err = float("inf")
+                errs[name] = (abs_err, abs_err / ref.abs().max().item())
+            tol = FLASH_TRAIN_TOL[dtype]
+            ok = all(rel <= tol for _, rel in errs.values())
+            ms_f = time_ms(lambda: flash_train.flash_train_fwd(q, k, v, scale),
+                           reps=10)[0]
+            ms_b = time_ms(lambda: flash_train.flash_train_bwd(
+                q, k, v, o, lse, do, scale), reps=10)[0]
+            pl_f = time_ms(lambda: flash_train.flash_train_fwd_plain(
+                q, k, v, scale), reps=5, warmup=1)[0]
+            pl_b = time_ms(lambda: flash_train.flash_train_bwd_plain(
+                q, k, v, do, scale), reps=5, warmup=1)[0]
+            lib_f, lib_b, lib_fb = time_sdpa_train(q, k, v, do, scale)
+            bounds = flash_train_bounds(q, k, dtype)
+            log(f"flash_train B={b} S={s} {str(dtype):14s} "
+                + "  ".join(f"{n} max_abs_err {a:.3e} rel {r:.3e}"
+                            for n, (a, r) in errs.items())
+                + f" (tol rel {tol:g})  kernel fwd {ms_f:.4f} bwd {ms_b:.4f}"
+                f" ms device  plain fwd {pl_f:.4f} bwd {pl_b:.4f}  sdpa fwd "
+                f"{lib_f:.4f} bwd {lib_b:.4f} fwd+bwd {lib_fb:.4f}  bound fwd "
+                f"{bounds['fwd'][0]:.4f} ({bounds['fwd'][1]}) bwd "
+                f"{bounds['bwd'][0]:.4f} ({bounds['bwd'][1]}) = "
+                f"{bounds['fwd'][0] / ms_f:.1%} / {bounds['bwd'][0] / ms_b:.1%}"
+                f" of the kernels  {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise AssertionError(f"flash_train kernels disagree at B={b} "
+                                     f"S={s} {dtype}")
+            if (b, s, dtype) == (2, 575, torch.bfloat16):
+                for key, ms, pl, lib, bd in (
+                        ("fwd", ms_f, pl_f, lib_f, bounds["fwd"]),
+                        ("bwd", ms_b, pl_b, lib_b, bounds["bwd"])):
+                    err = errs["O"][0] if key == "fwd" else \
+                        max(errs[n][0] for n in ("dq", "dk", "dv"))
+                    out[key] = dict(max_abs_err=err, ms=ms, plain_ms=pl,
+                                    bound_ms=bd[0], bound_by=bd[1],
+                                    library_ms=lib)
+            del q, k, v, do, o, lse, grads, want_o, want
+            torch.cuda.empty_cache()
+    return out
+
+
+def train_batch(args, b: int, s: int, seed: int) -> dict:
+    """benchmarks/train_bench.py's synthetic batch: random codes in every
+    slot, all masks 1."""
+    rng = np.random.RandomState(seed)
+    k = args.n_audio_codebooks + 1
+    return {"tokens": rng.randint(0, args.n_audio_vocab,
+                                  size=(b, s, k)).astype(np.int32),
+            "masks": np.ones((b, s, k), dtype=np.int32),
+            "loss_masks": np.ones((b, s, k), dtype=np.int32)}
+
+
+class SyntheticItems(CSMDataset):
+    """Pre-tokenized items of `frames` frames (the Mimi encoder is not
+    ported): `get_batch` pads them to the 64-bucket as the dataset does."""
+
+    def __init__(self, args, n: int, frames: int, seed: int):
+        super().__init__([])
+        one = train_batch(args, n, frames, seed)
+        self.items = [tuple(one[f][i] for f in ("tokens", "masks",
+                                                "loss_masks"))
+                      for i in range(n)]
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, idx):
+        return self.items[idx]
+
+
+def reset_flash_counts() -> None:
+    flash_train.flash_train_fwd.launches = 0
+    flash_train.flash_train_bwd.launches = 0
+
+
+def flash_counts() -> tuple[int, int]:
+    return (flash_train.flash_train_fwd.launches,
+            flash_train.flash_train_bwd.launches)
+
+
+def timed_steps(trainer, batch, n: int) -> tuple[list, list]:
+    losses, ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(batch))  # float(): synchronizes
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return losses, ms
+
+
+def trace_step(trainer, batch, label: str) -> None:
+    """torch.profiler over one more training step: the card's busy time
+    (the profiler slows the host, so the busy share reads low), device
+    events, and the kernels that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by_name.get(e.name[:56], (0, 0))
+            by_name[e.name[:56]] = (n + 1, us + e.time_range.elapsed_us())
+    busy_ms = sum(us for _, us in by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    log(f"trace, one {label} step: "
+        f"{sum(n for n, _ in by_name.values())} device events, device busy "
+        f"{busy_ms:.1f} ms of {wall_ms:.1f} ms profiled wall; top: "
+        + "; ".join(f"{k} {us / 1e3:.2f} ms x{n}" for k, (n, us) in top))
+
+
+def run_training(dev, workdir: str) -> dict:
+    """The fine-tuning path at full CSM-1B width and depth, bf16, random
+    weights: (a) full SFT with remat, AdamW at the CLI's defaults, five
+    steps on one (B=2, S=576) batch; (c) one DPO and one KTO step (KTO
+    against a copy of the policy: exactly 0.5); (b) LoRA rank 8 on the
+    default keys, dropout 0.05, three steps, base weights bit-equal (each
+    of (a) and (b) then traces one more step); (d)
+    train() over 4 items of 575 frames with ckpt_freq=1, then a new trainer
+    on the directory resumes step, epoch, adapters and optimizer state
+    bit-equal; (e) every step launches kernel 6 32 times (remat) and kernel
+    7 16 times. Returns the kernels' launches over the whole phase."""
+    args = csm_1b()
+    n_layers = args.backbone_config.num_hidden_layers
+    model = random_csm(args, torch.bfloat16, dev, SEED + 20)
+    batch = train_batch(args, TRAIN_B, TRAIN_S, SEED + 21)
+    frames = TRAIN_B * TRAIN_S
+    reset_flash_counts()
+    common = dict(ckpt_freq=0, gradient_checkpointing=True,
+                  learning_rate=1e-5)
+
+    def optimizer():
+        return ft.build_optimizer("adamw", 1e-5, 1e-4)
+
+    # (a) full SFT
+    torch.cuda.reset_peak_memory_stats()
+    sft = ft.CSMTrainer(ft.TrainArgs(model=model, optimizer=optimizer(),
+                                     output_dir=f"{workdir}/sft", **common))
+    before = flash_counts()
+    losses, ms = timed_steps(sft, batch, 5)
+    fwd, bwd = (a - b for a, b in zip(flash_counts(), before))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = float(np.median(ms[1:]))
+    log(f"(a) full SFT CSM-1B bf16 B={TRAIN_B} S={TRAIN_S} remat, AdamW "
+        f"lr 1e-5 wd 1e-4: losses " + ", ".join(f"{x:.5f}" for x in losses)
+        + f"; ms per step " + ", ".join(f"{x:.1f}" for x in ms)
+        + f" (median of steps 2-5 {steady:.1f} ms = {frames / steady * 1e3:.0f}"
+        f" frames/s); peak memory {peak:.2f} GiB")
+    log(f"(e) flash launches over 5 SFT steps: kernel 6 {fwd} "
+        f"({fwd / 5:.0f} a step), kernel 7 {bwd} ({bwd / 5:.0f} a step)")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"full SFT loss did not fall: {losses}")
+    if (fwd, bwd) != (5 * 2 * n_layers, 5 * n_layers):
+        raise AssertionError(f"expected {2 * n_layers} kernel-6 and "
+                             f"{n_layers} kernel-7 launches a step")
+    trace_step(sft, batch, "full SFT")
+    del sft
+    torch.cuda.empty_cache()
+
+    # (c) DPO and KTO, one step each
+    dpo = ft.DPOTrainer(ft.DPOArgs(model=model, optimizer=optimizer(),
+                                   output_dir=f"{workdir}/dpo", **common))
+    rejected = train_batch(args, TRAIN_B, TRAIN_S, SEED + 22)
+    pair = {f"chosen_{k}": v for k, v in batch.items()}
+    pair.update({f"rejected_{k}": v for k, v in rejected.items()})
+    dpo_loss, dpo_ms = timed_steps(dpo, pair, 1)
+    del dpo
+    torch.cuda.empty_cache()
+    reference = CSM(args, params=map_params(
+        lambda t: t.detach().clone(), model.params), dtype=torch.bfloat16)
+    kto = ft.KTOTrainer(ft.KTOArgs(model=model, optimizer=optimizer(),
+                                   output_dir=f"{workdir}/kto",
+                                   reference_model=reference, **common))
+    kto_batch = dict(batch, preferences=np.asarray([1, -1], dtype=np.int32))
+    kto_loss, kto_ms = timed_steps(kto, kto_batch, 1)
+    log(f"(c) DPO step: loss {dpo_loss[0]:.6f} ({dpo_ms[0]:.1f} ms); KTO "
+        f"step against a copy of the policy: loss {kto_loss[0]!r} (must be "
+        f"0.5 exactly; {kto_ms[0]:.1f} ms)")
+    if not np.isfinite(dpo_loss[0]) or kto_loss[0] != 0.5:
+        raise AssertionError("DPO loss not finite or KTO step-0 loss not 0.5")
+    del kto, reference
+    torch.cuda.empty_cache()
+
+    # (b) LoRA rank 8 on the default keys
+    lora.linear_to_lora_layers(model, {"rank": 8, "scale": 2.0,
+                                       "dropout": 0.05, "seed": SEED})
+    lora_args = dict(common, trainable_filter=lora.trainable_filter)
+    base = {k: v.clone() for k, v in tree_to_flat(model.params).items()
+            if not lora.trainable_filter(k)}
+    adapters = {k: v.clone() for k, v in tree_to_flat(model.params).items()
+                if lora.trainable_filter(k)}
+    torch.cuda.reset_peak_memory_stats()
+    tuner = ft.CSMTrainer(ft.TrainArgs(model=model, optimizer=optimizer(),
+                                       output_dir=f"{workdir}/lora",
+                                       **lora_args))
+    losses, ms = timed_steps(tuner, batch, 3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    trace_step(tuner, batch, "LoRA")
+    flat = tree_to_flat(model.params)
+    base_equal = all(torch.equal(flat[k], v) for k, v in base.items())
+    moved = sum(not torch.equal(flat[k], v) for k, v in adapters.items())
+    log(f"(b) LoRA rank 8, default keys, dropout 0.05: {len(adapters)} "
+        f"adapter tensors, {len(tuner.trainable)} trainable; losses "
+        + ", ".join(f"{x:.5f}" for x in losses) + "; ms per step "
+        + ", ".join(f"{x:.1f}" for x in ms) + f"; peak memory {peak:.2f} GiB;"
+        f" base weights bit-equal {base_equal}, adapters moved {moved}")
+    if not base_equal or moved == 0 or not all(np.isfinite(losses)):
+        raise AssertionError("LoRA steps moved a base weight or no adapter")
+    del tuner, base
+    torch.cuda.empty_cache()
+
+    # (d) train() with checkpoints, then resume
+    run_dir = f"{workdir}/resume"
+    ckpt_args = dict(lora_args, ckpt_freq=1, only_save_trainable_params=True)
+    items = SyntheticItems(args, 4, TRAIN_S - 1, SEED + 23)
+    t1 = ft.CSMTrainer(ft.TrainArgs(model=model, optimizer=optimizer(),
+                                    output_dir=run_dir, **ckpt_args))
+    t0 = time.perf_counter()
+    t1.train(items, batch_size=2, epochs=1)
+    t_train = time.perf_counter() - t0
+    saved = {n: t.detach().clone() for n, t in t1.trainable}
+    opt_saved = {n: {k: v.clone() for k, v in t1.optimizer.state[t].items()}
+                 for n, t in t1.trainable}
+    with torch.no_grad():
+        for _, t in t1.trainable:
+            t.zero_()
+    t2 = ft.CSMTrainer(ft.TrainArgs(model=model, optimizer=optimizer(),
+                                    output_dir=run_dir, **ckpt_args))
+    flat = tree_to_flat(model.params)
+    weights_equal = all(torch.equal(flat[n], v) for n, v in saved.items())
+    opt_equal = all(torch.equal(t2.optimizer.state[t][k].to(v.device), v)
+                    for n, t in t2.trainable
+                    for k, v in opt_saved[n].items())
+    log(f"(d) train() over 4 items of {TRAIN_S - 1} frames, batch 2, "
+        f"ckpt_freq 1: {t1.state.step} steps in {t_train:.2f} s (3 saves); a "
+        f"new trainer resumed step {t2.state.step}, epoch {t2.state.epoch}, "
+        f"adapters bit-equal {weights_equal}, optimizer state bit-equal "
+        f"{opt_equal}")
+    if (t2.state.step, t2.state.epoch) != (2, 1) or not weights_equal \
+            or not opt_equal:
+        raise AssertionError("resume did not restore step, epoch, adapters "
+                             "and optimizer state")
+    del t1, t2, model
+    torch.cuda.empty_cache()
+    return dict(launches=flash_counts(), steady_ms=steady, frames_per_s=frames
+                / steady * 1e3)
+
+
+def check_training_vs_plain(dev) -> None:
+    """One step's loss and per-leaf gradient norms through kernels 6 and 7
+    and through the masked sdpa (flash_min_len=0), on CSM-1B at full width
+    with a 2-layer backbone, fp32, B=2, S=576: the loss within 1e-5 and
+    every leaf's gradient norm within 1e-3 (relative; sum order only). Then
+    the peak memory of one step at (B=1, S=2048) both ways."""
+    port_config.BACKBONE_CONFIGURATION["1b_2l"] = dataclass_replace(
+        port_config.BACKBONE_CONFIGURATION["1b"], num_hidden_layers=2)
+    base = csm_1b()
+    args = ModelArgs("1b_2l", base.decoder_name, base.n_text_vocab,
+                     base.n_audio_vocab, base.n_audio_codebooks)
+    model = random_csm(args, torch.float32, dev, SEED + 30)
+    flat = tree_to_flat(model.params)
+    for t in flat.values():
+        t.requires_grad_(True)
+
+    def step(b, s, min_len):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in train_batch(args, b, s, SEED + 31).items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = compute_loss(model.params, args, batch, remat=False,
+                            flash_min_len=min_len)
+        grads = torch.autograd.grad(loss, list(flat.values()))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        norms = [g.float().norm().item() for g in grads]
+        return loss.item(), norms, peak
+
+    before = flash_counts()
+    l_k, n_k, _ = step(TRAIN_B, TRAIN_S, 512)
+    if flash_counts() == before:
+        raise AssertionError("the kernel step did not launch kernels 6 and 7")
+    l_p, n_p, _ = step(TRAIN_B, TRAIN_S, 0)
+    loss_rel = abs(l_k - l_p) / abs(l_p)
+    norm_rel = max(abs(a - b) / max(b, 1e-30) for a, b in zip(n_k, n_p)
+                   if b > 0)
+    _, _, peak_k = step(1, 2048, 512)
+    _, _, peak_p = step(1, 2048, 0)
+    log(f"training step, kernels vs masked sdpa (CSM-1B width, 2-layer "
+        f"backbone, fp32, B={TRAIN_B} S={TRAIN_S}): loss {l_k:.6f} vs "
+        f"{l_p:.6f}, rel err {loss_rel:.2e} (tol 1e-5); {len(n_k)} gradient "
+        f"leaves, worst norm rel err {norm_rel:.2e} (tol 1e-3); peak memory "
+        f"of a step at B=1 S=2048: {peak_k:.2f} GiB with the kernels, "
+        f"{peak_p:.2f} GiB with the masked sdpa")
+    for t in flat.values():
+        t.requires_grad_(False)
+    if not loss_rel <= 1e-5 or not norm_rel <= 1e-3:
+        raise AssertionError("the training step through kernels 6 and 7 "
+                             "disagrees with the masked sdpa")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -720,6 +1132,13 @@ def main() -> None:
         f" {main_path['ms_per_frame']:.2f} with kernel 3")
     check_divergence(model, gen)
     run_batch(model)
+    del model
+    torch.cuda.empty_cache()
+
+    flash_tr = check_flash_train(dev, gen)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        training = run_training(dev, workdir)
+    check_training_vs_plain(dev)
 
     launches = main_path["counts"]
     k3 = frame[1]  # the main path's shape: one row
@@ -740,6 +1159,14 @@ def main() -> None:
              ms=k3["ms"],
              plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
              bound_by=k3["bound_by"], library_ms=None),
+        dict(name="flash_train_fwd", route="cuda",
+             source="csm_mlx_tpu_torch/csrc/flash_train.cu",
+             replaces="csm_mlx_tpu/ops/flash_train.py:88",
+             launches=training["launches"][0], **flash_tr["fwd"]),
+        dict(name="flash_train_bwd", route="cuda",
+             source="csm_mlx_tpu_torch/csrc/flash_train.cu",
+             replaces="csm_mlx_tpu/ops/flash_train.py:126",
+             launches=training["launches"][1], **flash_tr["bwd"]),
     ]
     log(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

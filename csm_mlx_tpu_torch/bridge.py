@@ -41,13 +41,21 @@ def array_to_torch(a: Any, device: torch.device | str = "cpu",
     return t.to(device)
 
 
+# fp32 scalars of LoRA dicts that keep their type whatever `dtype` says, as
+# the JAX package keeps them
+_OWN_DTYPE = ("lora_scale", "lora_dropout")
+
+
 def tree_to_torch(tree: Any, device: torch.device | str = "cpu",
                   dtype: Optional[torch.dtype] = None) -> Any:
     """Nested dicts / lists of arrays -> the same structure of tensors.
-    `dtype` recasts floating leaves (codes and int leaves keep theirs); a
-    `_resident` entry goes through `resident_to_torch` as it is."""
+    `dtype` recasts floating leaves (codes, int leaves and the LoRA
+    `lora_scale` / `lora_dropout` scalars keep theirs); a `_resident` entry
+    goes through `resident_to_torch` as it is. LoRA/DoRA trees (`lora_a`,
+    `lora_b`, `lora_scale`, `dora_m`) carry across as they are."""
     if isinstance(tree, dict):
         return {k: resident_to_torch(v, device) if k == "_resident"
+                else array_to_torch(v, device) if k in _OWN_DTYPE
                 else tree_to_torch(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [tree_to_torch(v, device, dtype) for v in tree]

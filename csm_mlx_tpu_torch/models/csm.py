@@ -145,3 +145,19 @@ class CSM:
                 generator.manual_seed(0)
             params = init_csm_params(generator, args, dtype, self.device)
         self.params = params
+
+    def load_weights(self, path: str, strict: bool = True) -> "CSM":
+        """Load a safetensors checkpoint (reference names) in the model's
+        dtype onto its device; strict=False merges into the current
+        params (see `loaders.load_csm_weights`)."""
+        from csm_mlx_tpu_torch.loaders import load_csm_weights
+
+        self.params = load_csm_weights(path, dtype=self.dtype, strict=strict,
+                                       existing=self.params,
+                                       device=self.device)
+        return self
+
+    def save_weights(self, path: str) -> None:
+        from csm_mlx_tpu_torch.loaders import save_csm_weights
+
+        save_csm_weights(path, self.params)

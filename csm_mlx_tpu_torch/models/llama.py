@@ -11,10 +11,13 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from csm_mlx_tpu_torch.config import LlamaConfig
 from csm_mlx_tpu_torch.device import resolve_device
+from csm_mlx_tpu_torch.ops import layers
 from csm_mlx_tpu_torch.ops.attention import flash_prefill_sdpa, sdpa
+from csm_mlx_tpu_torch.ops.flash_train import flash_attention
 from csm_mlx_tpu_torch.ops.kv_cache import KVCache
 from csm_mlx_tpu_torch.ops.layers import linear, rms_norm, swiglu_mlp
 from csm_mlx_tpu_torch.ops.rope import apply_rope
@@ -101,6 +104,7 @@ def _attn_layer(
     cache: Optional[KVCache],
     layer_idx: int,
     flash_pad_len: Optional[torch.Tensor] = None,
+    flash_train: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     b, s, _ = x.shape
     h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -127,6 +131,10 @@ def _attn_layer(
         # is causally unreachable); the k/v slices are read in place.
         out = flash_prefill_sdpa(q, k[:, :, :s], v[:, :, :s],
                                  scale=hd ** -0.5, pad_len=flash_pad_len)
+    elif flash_train:
+        # Kernels 6 and 7: differentiable causal attention of a fresh
+        # sequence (no cache, pure causal mask: checked by llama_forward).
+        out = flash_attention(q, k, v, scale=hd ** -0.5)
     else:
         out = sdpa(q, k, v, scale=hd ** -0.5, mask_bias=mask_bias)
     out = out.transpose(1, 2).reshape(b, s, -1)
@@ -143,6 +151,8 @@ def llama_forward(
     mask_bias: Optional[torch.Tensor] = None,
     cache: Optional[KVCache] = None,
     flash_pad_len: Optional[torch.Tensor] = None,
+    flash_train: bool = False,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the stack.
 
@@ -151,23 +161,47 @@ def llama_forward(
     cache: optional KVCache, written at cache.index and advanced by S (in
     place); flash_pad_len: (B,) left pads — attention then runs the
     flash-prefill kernel (causal + left-pad masks in the kernel) instead of
-    the masked `sdpa`; it needs a fresh cache (prefill).
+    the masked `sdpa`; it needs a fresh cache (prefill);
+    flash_train: attention runs the differentiable flash kernels
+    (`ops.flash_train.flash_attention`) — training only: no cache, and
+    mask_bias None (the kernels mask causally themselves);
+    remat: each layer runs under `torch.utils.checkpoint` and is recomputed
+    in the backward pass (LoRA dropout masks replayed).
 
     Returns (hidden (B, S, D), cache).
     """
     if flash_pad_len is not None and (cache is None or cache.index != 0):
         raise ValueError("flash_pad_len needs a fresh KV cache (prefill)")
-    x = embeds
-    for idx, lp in enumerate(params["layers"]):
+    if flash_train and (cache is not None or mask_bias is not None):
+        raise ValueError(
+            "flash_train requires a fresh causal sequence: no cache, and "
+            "mask_bias must be None (the kernel applies causal masking "
+            "itself; any other mask would be silently ignored)")
+
+    def one_layer(x, lp, idx, cache):
         attn_out, cache = _attn_layer(
             lp["self_attn"], cfg,
             rms_norm(lp["input_layernorm"], x, cfg.rms_norm_eps),
             cos, sin, positions, mask_bias, cache, idx,
-            flash_pad_len=flash_pad_len,
+            flash_pad_len=flash_pad_len, flash_train=flash_train,
         )
         x = x + attn_out
         h = rms_norm(lp["post_attention_layernorm"], x, cfg.rms_norm_eps)
-        x = x + swiglu_mlp(lp["mlp"], h)
+        return x + swiglu_mlp(lp["mlp"], h), cache
+
+    x = embeds
+    for idx, lp in enumerate(params["layers"]):
+        if remat and cache is None:
+            snapshot = layers.dropout_snapshot()
+
+            def replayed(x, lp=lp, idx=idx, snapshot=snapshot):
+                with layers.dropout_replay(snapshot):
+                    return one_layer(x, lp, idx, None)[0]
+
+            x = torch.utils.checkpoint.checkpoint(replayed, x,
+                                                  use_reentrant=False)
+        else:
+            x, cache = one_layer(x, lp, idx, cache)
     if cache is not None:
         cache = cache.advance(embeds.shape[1])
     return rms_norm(params["norm"], x, cfg.rms_norm_eps), cache

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for `sm_90a` into one shared
-library with a plain C interface, loaded with `ctypes`. The build happens at
+Every `csrc/*.cu` file is compiled by its own `nvcc` for `sm_90a`, all of
+them at once, and the objects are linked into one shared library with a
+plain C interface, loaded with `ctypes`. The build happens at
 the first kernel launch of a process (never at import), from the sources in
 this checkout only, into `csm_mlx_tpu_torch/_build/` (listed in
 `.gitignore`). The library's file name carries a hash of the sources, so an
@@ -51,6 +52,14 @@ _SIGNATURES = {
     # heads, n_kv, hd, d, f, n_cb, v, v_pad, eps, scale, inv_t, seed, stream
     "csm_resident_frame": (ctypes.POINTER(_VP), _I) + (_VP,) * 14
     + (_I, _VP, _VP) + (_I,) * 9 + (_F,) * 3 + (ctypes.c_uint, _VP),
+    # q, k, v, out, lse, 9 strides, batch, n_heads, n_kv, seq, head_dim,
+    # scale, dtype, stream
+    "csm_flash_train_fwd": (_VP,) * 5 + (_LL,) * 9 + (_I,) * 5
+    + (_F, _I, _VP),
+    # q, k, v, o, lse, dout, delta, dq, dk, dv, 12 strides, batch, n_heads,
+    # n_kv, seq, head_dim, scale, dtype, stream
+    "csm_flash_train_bwd": (_VP,) * 10 + (_LL,) * 12 + (_I,) * 5
+    + (_F, _I, _VP),
 }
 
 
@@ -77,17 +86,37 @@ def build(verbose: bool = False) -> Path:
     lib_path = BUILD_DIR / f"libcsm_kernels_{digest.hexdigest()[:16]}.so"
     if lib_path.exists():
         return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj_dir = BUILD_DIR / f"obj_{digest.hexdigest()[:16]}_{os.getpid()}"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = obj_dir / f"{src.stem}.o"
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log = []
+    for src, _, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            for _, _, other in procs:
+                other.kill()
+                other.wait()
+            raise RuntimeError(
+                f"nvcc failed on {src.name} ({proc.returncode}):\n{err}")
+        log.append(err)
     tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                           *[str(obj) for _, obj, _ in procs]],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{proc.stderr}")
     if verbose:
-        print(proc.stderr, end="")
+        print("".join(log), end="")
     os.replace(tmp, lib_path)
+    shutil.rmtree(obj_dir, ignore_errors=True)
     return lib_path
 
 

@@ -3,35 +3,142 @@
 
 Parameters keep the checkpoint layout: Linear weights are (out, in),
 embeddings (vocab, dim). `linear` dispatches on the dict itself: one that
-carries `weight_q` runs the quantized path (`ops.quant.quant_linear`).
-Norms accumulate in fp32 and cast back. LoRA / DoRA are not ported yet.
+carries `weight_q` runs the quantized path (`ops.quant.quant_linear`), one
+that carries `lora_a` adds the low-rank adapter term, one that carries
+`dora_m` renormalizes each row of the adapted weight (DoRA). Norms
+accumulate in fp32 and cast back.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from contextlib import contextmanager
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 Params = Dict[str, torch.Tensor]
 
+# Training-time LoRA dropout: a seed drawn from the trainer's generator and
+# a count of the dropout calls made under it. Call c draws its mask from a
+# generator seeded with (seed, c), so a forward replayed for activation
+# checkpointing (`dropout_snapshot` / `dropout_replay`) draws the same masks.
+# Outside a `lora_dropout_rng` scope dropout is the identity.
+_DROPOUT_CTX: Dict[str, Optional[int]] = {"seed": None, "count": 0}
+
+
+@contextmanager
+def lora_dropout_rng(generator: Optional[torch.Generator]):
+    """Enable LoRA dropout for `linear` calls inside this scope, with masks
+    drawn from `generator` (None: dropout stays off)."""
+    prev = dict(_DROPOUT_CTX)
+    seed = None
+    if generator is not None:
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                 device=generator.device).item())
+    _DROPOUT_CTX.update(seed=seed, count=0)
+    try:
+        yield
+    finally:
+        _DROPOUT_CTX.update(prev)
+
+
+def dropout_snapshot() -> Dict[str, Optional[int]]:
+    """The dropout state before a checkpointed block (see `dropout_replay`)."""
+    return dict(_DROPOUT_CTX)
+
+
+@contextmanager
+def dropout_replay(snapshot: Dict[str, Optional[int]]):
+    """Run a block under the dropout state of `snapshot`, so that its
+    recomputation in the backward pass draws the masks of its first run.
+    On exit the live state is restored, advanced past the calls the block
+    made when the snapshot is the live state (the first run)."""
+    prev = dict(_DROPOUT_CTX)
+    _DROPOUT_CTX.update(snapshot)
+    try:
+        yield
+    finally:
+        used = _DROPOUT_CTX["count"] - snapshot["count"]
+        _DROPOUT_CTX.update(prev)
+        if prev == snapshot:
+            _DROPOUT_CTX["count"] += used
+
+
+def _maybe_dropout(x: torch.Tensor, rate) -> torch.Tensor:
+    seed = _DROPOUT_CTX["seed"]
+    if seed is None:
+        return x
+    _DROPOUT_CTX["count"] += 1
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed((seed + 1_000_003 * _DROPOUT_CTX["count"]) % (2 ** 63))
+    keep = 1.0 - float(rate)
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+def _lora_scale(params: Params):
+    return params["lora_scale"] if "lora_scale" in params else 1.0
+
+
+def _lora_delta(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """scale * ((dropout(x) @ A^T) @ B^T): factored, never forms B A."""
+    if "lora_dropout" in params:
+        x = _maybe_dropout(x, params["lora_dropout"])
+    z = torch.matmul(x, params["lora_a"].to(x.dtype).t())
+    z = torch.matmul(z, params["lora_b"].to(x.dtype).t())
+    return _lora_scale(params) * z
+
 
 def linear(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ W^T (+ b), W stored (out, in)."""
+    """y = x @ W^T (+ b), W stored (out, in); LoRA adds the adapter term,
+    DoRA renormalizes each row of the adapted weight."""
     if "weight_q" in params:
+        if "dora_m" in params:
+            raise ValueError(
+                "quantized DoRA leaves are unsupported: the per-row "
+                "renormalization needs the dense weight (fuse_lora before "
+                "quantizing)")
         from csm_mlx_tpu_torch.ops.quant import quant_linear
 
-        return quant_linear(params, x)
-    y = torch.matmul(x, params["weight"].to(x.dtype).t())
+        y = quant_linear(params, x)
+        if "lora_a" in params:
+            y = y + _lora_delta(params, x).to(y.dtype)
+        return y
+    w = params["weight"]
+    if "dora_m" in params:
+        from csm_mlx_tpu_torch.finetune.lora import effective_weight
+
+        if _DROPOUT_CTX["seed"] is not None and "lora_dropout" in params:
+            # dropout on the adapter branch only; each row renormalized
+            # from the clean adapted weight
+            adapted = w.float() + _lora_scale(params) * (
+                params["lora_b"] @ params["lora_a"]).float()
+            norm = torch.clamp(torch.linalg.vector_norm(adapted, dim=-1),
+                               min=1e-6)
+            gain = (params["dora_m"].float() / norm).to(x.dtype)
+            y = torch.matmul(x, w.to(x.dtype).t())
+            y = (y + _lora_delta(params, x).to(y.dtype)) * gain
+        else:
+            y = torch.matmul(x, effective_weight(params).to(x.dtype).t())
+    else:
+        y = torch.matmul(x, w.to(x.dtype).t())
+        if "lora_a" in params:
+            y = y + _lora_delta(params, x).to(y.dtype)
     if "bias" in params:
         y = y + params["bias"].to(y.dtype)
     return y
 
 
 def emb_table(params: Params) -> torch.Tensor:
-    """The embedding table stored (vocab, dim)."""
-    return params["weight"]
+    """The embedding table stored (vocab, dim), with its LoRA adapter
+    folded in when it carries one."""
+    w = params["weight"]
+    if "lora_a" in params:
+        w = w + (_lora_scale(params)
+                 * (params["lora_b"] @ params["lora_a"])).to(w.dtype)
+    return w
 
 
 def rms_norm(params: Params, x: torch.Tensor, eps: float) -> torch.Tensor:

@@ -19,6 +19,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from csm_mlx_tpu_torch import config as port_config  # noqa: E402
 from csm_mlx_tpu_torch.models.csm import CSM, ModelArgs  # noqa: E402
 from csm_mlx_tpu_torch.ops import attention, quant  # noqa: E402
+from csm_mlx_tpu_torch.ops import flash_train  # noqa: E402
 from csm_mlx_tpu_torch.ops import resident_decoder as resident  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -215,3 +216,138 @@ def test_resident_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="norm"):
         resident.resident_decode_frame(
             cpu_res, args, torch.zeros((2, 1, d), device=cuda_device), 0, 0.0)
+
+
+# --- kernels 6 and 7: causal flash attention for training ------------------
+
+
+def _flash_inputs(device, dtype, b, h, n_kv, s, seed):
+    """q/k/v as transposed (B, S, heads, 64) projections, as the model makes
+    them, and a random dO."""
+    rng = np.random.RandomState(seed)
+
+    def proj(heads):
+        t = torch.from_numpy(rng.randn(b, s, heads, 64).astype(np.float32))
+        return t.to(device, dtype).transpose(1, 2)
+
+    return proj(h), proj(n_kv), proj(n_kv), proj(h)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,n_kv,s", [(2, 4, 2, 70), (1, 8, 2, 128),
+                                        (2, 32, 8, 575)])
+def test_flash_train_kernels_match_plain(cuda_device, dtype, b, h, n_kv, s):
+    q, k, v, do = _flash_inputs(cuda_device, dtype, b, h, n_kv, s, s)
+    scale = 64 ** -0.5
+    before = (flash_train.flash_train_fwd.launches,
+              flash_train.flash_train_bwd.launches)
+    out, lse = flash_train.flash_train_fwd(q, k, v, scale)
+    grads = flash_train.flash_train_bwd(q, k, v, out, lse, do, scale)
+    want_out, want_lse = flash_train.flash_train_fwd_plain(q, k, v, scale)
+    want = flash_train.flash_train_bwd_plain(q, k, v, do, scale)
+    torch.cuda.synchronize()
+    assert (flash_train.flash_train_fwd.launches,
+            flash_train.flash_train_bwd.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert out.dtype == dtype and all(g.dtype == dtype for g in grads)
+    # fp32: sum order and expf only. bf16: both compute in fp32 from the same
+    # bf16 inputs and round the outputs to bf16; the kernel's delta reads the
+    # bf16 O, the plain one its fp32 O
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+    for got, ref in zip((out, *grads), (want_out, *want)):
+        assert torch.isfinite(got).all()
+        ref = ref.float()
+        torch.testing.assert_close(got.float(), ref, rtol=tol,
+                                   atol=tol * ref.abs().max().item())
+
+
+def test_flash_attention_autograd_on_card(cuda_device):
+    """flash_attention's gradient on the card against autograd through the
+    masked sdpa, fp32, with q/k/v as strided views."""
+    q, k, v, do = _flash_inputs(cuda_device, torch.float32, 1, 8, 2, 200, 3)
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = flash_train.flash_attention(q, k, v, 0.125)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    ref_out = attention.sdpa(q, k, v, 0.125, attention.causal_mask_bias(
+        200, 200, device=cuda_device)[None, None])
+    want = torch.autograd.grad(ref_out, (q, k, v), do)
+    torch.testing.assert_close(out, ref_out, rtol=1e-4, atol=1e-4)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_train_kernel_rejects_what_it_does_not_take(cuda_device):
+    q = torch.zeros((1, 4, 64, 32), device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim 64"):
+        flash_train.flash_train_fwd(q, q[:, :2], q[:, :2], 1.0)
+    q = torch.zeros((1, 4, 64, 64), device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        flash_train.flash_train_fwd(q, q[:, :2], q[:, :2], 1.0)
+
+
+def test_lora_train_step_on_card(cuda_device, tmp_path):
+    """One LoRA train_step of a small CUDA model whose backbone has
+    head_dim 64 and a sequence past flash_min_len: kernels 6 and 7 run
+    (remat: two forwards a layer), only the adapters move, and the loss and
+    adapters agree with the same step on the CPU (plain versions)."""
+    from csm_mlx_tpu_torch.finetune import lora
+    from csm_mlx_tpu_torch.finetune import trainer as ft
+    from csm_mlx_tpu_torch.loaders import tree_to_flat
+
+    port_config.BACKBONE_CONFIGURATION["train_small"] = port_config.LlamaConfig(
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        head_dim=64, intermediate_size=512, hidden_size=256)
+    port_config.DECODER_CONFIGURATION["train_small"] = port_config.LlamaConfig(
+        num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1,
+        head_dim=64, intermediate_size=256, hidden_size=128)
+    args = ModelArgs("train_small", "train_small", 128, 64, 8)
+    rng = np.random.RandomState(0)
+    batch = {"tokens": rng.randint(0, 64, size=(2, 80, 9)).astype(np.int32),
+             "masks": np.ones((2, 80, 9), dtype=np.int32),
+             "loss_masks": np.ones((2, 80, 9), dtype=np.int32)}
+    cpu_model = CSM(args, dtype=torch.float32, device="cpu",
+                    generator=torch.Generator().manual_seed(1))
+    lora.linear_to_lora_layers(cpu_model, {"rank": 4, "keys": ["attn"]})
+    gen = torch.Generator().manual_seed(2)
+    for name, p in tree_to_flat(cpu_model.params).items():
+        if name.endswith("lora_b") or name == "audio_head":  # zero at init
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    cuda_model = CSM(args, params=_to_device(cpu_model.params, cuda_device),
+                     dtype=torch.float32)
+    base = {k: v.clone() for k, v in tree_to_flat(cuda_model.params).items()
+            if not lora.trainable_filter(k)}
+    steps = []
+    for m in (cuda_model, cpu_model):
+        tr = ft.CSMTrainer(ft.TrainArgs(
+            model=m, optimizer=ft.build_optimizer("sgd", 0.1),
+            output_dir=tmp_path / m.device.type, ckpt_freq=0, max_norm=0.0,
+            gradient_checkpointing=True, flash_min_len=64,
+            trainable_filter=lora.trainable_filter))
+        before = (flash_train.flash_train_fwd.launches,
+                  flash_train.flash_train_bwd.launches)
+        steps.append(tr.train_step(batch))
+        after = (flash_train.flash_train_fwd.launches,
+                 flash_train.flash_train_bwd.launches)
+        if m is cuda_model:
+            assert (after[0] - before[0], after[1] - before[1]) == (4, 2)
+        else:
+            assert after == before
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(steps[0], steps[1], rtol=1e-4)
+    flat_c, flat_p = tree_to_flat(cuda_model.params), tree_to_flat(
+        cpu_model.params)
+    for k, v in base.items():
+        assert torch.equal(flat_c[k], v), k
+    for k, v in flat_p.items():
+        if lora.trainable_filter(k):
+            torch.testing.assert_close(flat_c[k].cpu(), v, rtol=1e-4,
+                                       atol=1e-5)
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.detach().to(device).clone()

@@ -135,6 +135,11 @@ PORT_MODULES = [
     "csm_mlx_tpu_torch.models.mimi.mimi", "csm_mlx_tpu_torch.models.mimi.rvq",
     "csm_mlx_tpu_torch.models.mimi.seanet",
     "csm_mlx_tpu_torch.models.mimi.transformer",
+    "csm_mlx_tpu_torch.ops.flash_train", "csm_mlx_tpu_torch.loaders",
+    "csm_mlx_tpu_torch.safetensors_io", "csm_mlx_tpu_torch.segment",
+    "csm_mlx_tpu_torch.finetune", "csm_mlx_tpu_torch.finetune.dataset",
+    "csm_mlx_tpu_torch.finetune.lora", "csm_mlx_tpu_torch.finetune.loss",
+    "csm_mlx_tpu_torch.finetune.trainer",
 ]
 
 
