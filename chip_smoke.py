@@ -18,6 +18,20 @@ checks that every kernel ran in it, then drives the dispatched decoder for
 flips per margin bin, and runs a 65-prompt batch (two kernel-3 chunks a
 frame).
 
+Then the MLX-affine and batch flash-decode paths: kernel 5 (the
+grouped-affine matvec) against its plain version at the quantized
+linears' shapes, 4- and 8-bit, group 64 (and 128), B = 1, 2, 8, 32, 64,
+timed beside dequant + `torch.matmul` and `torch._weight_int4pack_mm`;
+kernel 4 (flash decode) against its plain version at H=32/8, D=64 over
+several (B, cap), timed beside `scaled_dot_product_attention`; a small
+affine model card-vs-CPU; 64 prompts through `generate_tokens_batch` with
+`flash_decode_min_b=8` (16 kernel-4 launches a backbone step) and without,
+alternated, the same at 8 prompts and one prompt through `generate_tokens`
+with `flash_decode_min_b=1`, and one step on the same cache both ways on
+an unquantized CSM-1B in bf16 and fp32; CSM-1B affine 4-bit group 64 for
+20 frames (kernel 5 on every quantized linear, kernels 1 and 3 never) with
+a Mimi decode, and 8-bit for 5.
+
 Then the fine-tuning path: kernels 6 and 7 (causal flash attention forward
 and backward) against their plain versions at the backbone's shape, (B=2,
 S=575) and (B=1, S=2048) in fp32 and bf16, timed beside the library's
@@ -67,6 +81,7 @@ from csm_mlx_tpu_torch.ops import _build  # noqa: E402
 from csm_mlx_tpu_torch.ops import attention, quant  # noqa: E402
 from csm_mlx_tpu_torch.ops import flash_train  # noqa: E402
 from csm_mlx_tpu_torch.ops import resident_decoder as resident  # noqa: E402
+from csm_mlx_tpu_torch.ops.kv_cache import KVCache  # noqa: E402
 from csm_mlx_tpu_torch.ops.layers import linear  # noqa: E402
 from csm_mlx_tpu_torch.ops.rope import rope_cache_for  # noqa: E402
 from csm_mlx_tpu_torch.ops.sampling import SamplerConfig  # noqa: E402
@@ -97,6 +112,24 @@ RESIDENT_ROWS = (1, 8, 64)
 # below it.
 FLIP_MARGIN_TOL = 0.3
 MIN_AGREEMENT = 0.99
+# Kernel 5 (grouped-affine matvec): bits 4 and 8 at group 64 on every
+# shape of W8A8_SHAPES, and group 128 at 4 bits on the gate-up. Rows: 1
+# (single-stream decode), 2 (the projection and the dispatched decoder's
+# prime, every frame), 8, 32 (the 32-row prefill) and 64
+AFFINE_ROWS = (1, 2, 8, 32, 64)
+AFFINE_FRAMES = {4: 20, 8: 5}  # frames of the full-width affine runs
+# Kernel 4 (flash decode), H=32, n_kv=8, D=64: (B, cap) cases. cap 40 is
+# the batch phase's (a 32-row bucket + 8 frames), 157 that of a 125-frame
+# run. Tolerances: the JAX tests' own (tests/test_flash_attention.py).
+FLASH_DECODE_CASES = ((8, 157), (64, 40), (64, 157), (64, 1024), (8, 2048))
+FLASH_DECODE_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+BATCH_ROWS, BATCH_FRAMES = 64, 8  # the batch flash-decode phase
+# One backbone step through kernel 4 against the masked sdpa on an
+# unquantized CSM-1B, max |hidden err| / max |hidden| through 16 layers.
+# fp32: sum order and expf only. bf16: the JAX tests' bf16 tolerance (the
+# plain version rounds P to bf16 before P.V, the kernel keeps it in fp32,
+# and each layer rounds its output).
+STEP_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 # Kernels 6 and 7 at the backbone's shape: (B, S) cases; H = 32, n_kv = 8,
 # D = 64, scale 1/8. Tolerances on max |kernel - plain| over max |plain|,
 # for O, dq, dk and dv. fp32: both sum in fp32 in other orders (exp, the
@@ -115,6 +148,28 @@ PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "fp32": 67e12}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# every kernel wrapper of the port, by the name of its launch counter
+WRAPPERS = {
+    "w8a8_matvec": quant.w8a8_matvec,
+    "flash_prefill_sdpa": attention.flash_prefill_sdpa,
+    "resident_decode_frame": resident.resident_decode_frame,
+    "affine_matvec": quant.affine_matvec,
+    "flash_decode_sdpa": attention.flash_decode_sdpa,
+    "flash_train_fwd": flash_train.flash_train_fwd,
+    "flash_train_bwd": flash_train.flash_train_bwd,
+}
+
+
+def reset_counts() -> None:
+    """Every launch counter to 0, just before a path is driven."""
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
 def card_info() -> str:
@@ -301,6 +356,189 @@ def time_sdpa(q, k, v, pad, scale) -> float:
         q, kx, vx, attn_mask=bias, scale=scale))[0]
 
 
+def affine_cases():
+    """(name, IN, OUT, bits, group) of kernel 5's check."""
+    for name, (in_dim, out_dim) in W8A8_SHAPES.items():
+        for bits in (4, 8):
+            yield name, in_dim, out_dim, bits, 64
+    in_dim, out_dim = W8A8_SHAPES["backbone gate-up"]
+    yield "backbone gate-up", in_dim, out_dim, 4, 128
+
+
+def affine_bytes(in_dim, out_dim, bits, group, rows) -> tuple[int, int]:
+    """(code bytes, all bytes kernel 5 must move): codes, fp32 scales and
+    biases, bf16 x read once and y written once."""
+    codes = in_dim * out_dim * bits // 8
+    return codes, codes + 8 * out_dim * (in_dim // group) \
+        + 2 * rows * (in_dim + out_dim)
+
+
+def check_affine(dev, gen) -> dict:
+    """Kernel 5 vs `affine_matvec_plain` on bf16 activations, at the
+    quantized linears' shapes, 4- and 8-bit codes, group 64 (and 128), rows
+    AFFINE_ROWS; weights cycled through COLD_BYTES so the L2 is cold. Both
+    dequantize to the same fp32 weights and sum in fp32 in other orders,
+    then round to bf16: tolerance 2**-7 of each value plus 1e-3 of the
+    output's largest magnitude (check_w8a8's)."""
+    worst, out = 0.0, None
+    for name, in_dim, out_dim, bits, group in affine_cases():
+        w = torch.randn((out_dim, in_dim), generator=gen, device=dev) * 0.02
+        copies = [quant.quantize_weight(w, bits, group)]
+        code_bytes, _ = affine_bytes(in_dim, out_dim, bits, group, 1)
+        n_copies = max(1, -(-COLD_BYTES // code_bytes))
+        for _ in range(n_copies - 1):
+            copies.append({k: v.clone() for k, v in copies[0].items()})
+        for rows in AFFINE_ROWS:
+            x = torch.randn((rows, in_dim), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            q = copies[0]
+            got = quant.affine_matvec(x, q["weight_q"], q["scales"],
+                                      q["biases"])
+            want = quant.affine_matvec_plain(x, q["weight_q"], q["scales"],
+                                             q["biases"])
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            scale = want.float().abs().max().item()
+            err = diff.max().item()
+            ok = bool((diff <= 2.0 ** -7 * want.float().abs() + 1e-3 * scale)
+                      .all()) and bool(torch.isfinite(got).all())
+            it = iter(range(1 << 30))
+
+            def run(fn):
+                c = copies[next(it) % n_copies]
+                fn(x, c["weight_q"], c["scales"], c["biases"])
+
+            ms_k, wall_k = time_ms(lambda: run(quant.affine_matvec))
+            ms_p = time_ms(lambda: run(quant.affine_matvec_plain), reps=10)[0]
+            _, n_bytes = affine_bytes(in_dim, out_dim, bits, group, rows)
+            b_ms, b_by = bound_ms(n_bytes, 2 * rows * in_dim * out_dim,
+                                  "bf16")
+            gbs = (n_bytes - 2 * rows * (in_dim + out_dim)) / ms_k / 1e6
+            log(f"affine {name:17s} {bits}-bit g{group:<3d} B={rows:2d} "
+                f"IN={in_dim:5d} OUT={out_dim:5d}  max_abs_err={err:.3e} "
+                f"(tol 2^-7*|y| + {1e-3 * scale:.2e})  kernel {ms_k:.4f} ms "
+                f"device ({gbs:.0f} GB/s of codes + scales), {wall_k:.4f} "
+                f"ms wall  plain {ms_p:.4f} ms  bound {b_ms:.4f} ms ({b_by})"
+                f" = {b_ms / ms_k:.1%} of the kernel  "
+                f"{'ok' if ok else 'MISMATCH'}")
+            worst = max(worst, err)
+            if not ok:
+                raise AssertionError(f"affine kernel disagrees at {name} "
+                                     f"{bits}-bit g{group} B={rows}")
+            if (name, bits, group, rows) == ("backbone gate-up", 4, 64, 1):
+                library = time_ms(lambda: run(dequant_matmul))[0]
+                log(f"affine gate-up 4-bit g64 B=1: dequant + torch.matmul "
+                    f"(bf16) {library:.4f} ms device")
+                int4pack(x, q, group, want)
+                out = dict(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=library)
+        del copies
+        torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, **out)
+
+
+def dequant_matmul(x, weight_q, scales, biases):
+    """The library yardstick of kernel 5: the weight dequantized to x's
+    type, then one `torch.matmul` (the route of quant_linear above 64
+    rows)."""
+    w = quant.dequantize_weight(
+        {"weight_q": weight_q, "scales": scales, "biases": biases},
+        quant.code_bits(weight_q, x.shape[-1]), x.dtype)
+    return torch.matmul(x, w.t())
+
+
+def int4pack(x, q, group, want) -> None:
+    """`torch._weight_int4pack_mm` (tinygemm) on the same 4-bit codes,
+    where this torch has it: time and error against the plain version. It
+    takes bf16 scales and zeros (w = (q - 8) * s + zero, so zero = z + 8 s),
+    not the fp32 ones of kernel 5: a yardstick of speed, not the same
+    function. Timed here only; the port never calls it."""
+    if not hasattr(torch, "_weight_int4pack_mm"):
+        log("torch._weight_int4pack_mm: not in this torch")
+        return
+    codes = quant.unpack_uint4(q["weight_q"]).to(torch.int32)
+    packed = ((codes[:, 0::2] << 4) | codes[:, 1::2]).to(torch.uint8)
+    sz = torch.stack([q["scales"], q["biases"] + 8 * q["scales"]], dim=-1)
+    sz = sz.transpose(0, 1).contiguous().to(torch.bfloat16)
+    try:
+        w4 = torch._convert_weight_to_int4pack(packed, 8)
+        y = torch._weight_int4pack_mm(x, w4, group, sz)
+    except (RuntimeError, TypeError) as e:
+        log(f"torch._weight_int4pack_mm refused these inputs: {e}")
+        return
+    err = (y.float() - want.float()).abs().max().item()
+    ms = time_ms(lambda: torch._weight_int4pack_mm(x, w4, group, sz))[0]
+    log(f"affine gate-up 4-bit g{group} B={x.shape[0]}: "
+        f"torch._weight_int4pack_mm {ms:.4f} ms device (bf16 scales and "
+        f"zeros), max |err| against the plain version {err:.3e} of max "
+        f"|y| {want.float().abs().max().item():.3e}")
+
+
+def check_flash_decode(dev, gen) -> dict:
+    """Kernel 4 vs `flash_decode_plain` at H=32, n_kv=8, D=64 over the
+    layer views of a 2-layer cache, index = cap - 1 and random pads below
+    32 (prompts of a 32-row bucket), fp32 and bf16, tolerances
+    FLASH_DECODE_TOL on max |err| (bf16: times max |plain| where that is
+    below 1); timed beside the plain version and
+    `F.scaled_dot_product_attention` with the same boolean mask and
+    `enable_gqa`. The bound counts the keys each row needs, [pad, index]."""
+    import torch.nn.functional as F
+
+    h, n_kv, d = 32, 8, 64
+    worst, out = 0.0, None
+    for b, cap in FLASH_DECODE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            index = cap - 1
+            q = torch.randn((b, 1, h, d), generator=gen,
+                            device=dev).to(dtype).transpose(1, 2)
+            kc, vc = (torch.randn((2, b, n_kv, cap, d), generator=gen,
+                                  device=dev).to(dtype) for _ in range(2))
+            k, v = kc[1], vc[1]
+            pad = torch.randint(0, 32, (b,), generator=gen, device=dev)
+            got = attention.flash_decode_sdpa(q, k, v, d ** -0.5, pad, index)
+            want = attention.flash_decode_plain(q, k, v, d ** -0.5, pad,
+                                                index)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            # bf16 shrinks with the output's largest magnitude (never past
+            # 2e-2): at long caches the outputs are averages over thousands
+            # of keys
+            tol = FLASH_DECODE_TOL[dtype] * (
+                min(1.0, want.float().abs().max().item())
+                if dtype == torch.bfloat16 else 1.0)
+            ok = err <= tol and bool(torch.isfinite(got).all())
+            pos = torch.arange(cap, device=dev)
+            keep = ((pos[None] >= pad[:, None])
+                    & (pos[None] <= index))[:, None, None]
+            ms_k, wall_k = time_ms(lambda: attention.flash_decode_sdpa(
+                q, k, v, d ** -0.5, pad, index))
+            ms_p = time_ms(lambda: attention.flash_decode_plain(
+                q, k, v, d ** -0.5, pad, index))[0]
+            ms_l = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=keep, scale=d ** -0.5,
+                enable_gqa=True))[0]
+            keys = int((index + 1 - pad).sum())
+            e = q.element_size()
+            n_bytes = 2 * keys * n_kv * d * e + 2 * b * h * d * e + 8 * b
+            b_ms, b_by = bound_ms(n_bytes, 4 * keys * h * d,
+                                  "bf16" if dtype == torch.bfloat16
+                                  else "fp32")
+            log(f"flash_decode B={b:2d} cap={cap:4d} {str(dtype):14s} "
+                f"max_abs_err={err:.3e} (tol {tol:.3e})  kernel {ms_k:.4f} ms"
+                f" device, {wall_k:.4f} ms wall  plain {ms_p:.4f} ms  sdpa "
+                f"{ms_l:.4f} ms  bound {b_ms:.4f} ms ({b_by}, "
+                f"{n_bytes / 1e6:.2f} MB) = {b_ms / ms_k:.1%} of the kernel;"
+                f" {n_kv * b} blocks  {'ok' if ok else 'MISMATCH'}")
+            worst = max(worst, err)
+            if not ok:
+                raise AssertionError(f"flash decode kernel disagrees at B={b}"
+                                     f" cap={cap} {dtype}")
+            if (b, cap, dtype) == (64, 157, torch.bfloat16):
+                out = dict(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=ms_l)
+    return dict(max_abs_err=worst, **out)
+
+
 def synthetic_prompt(s: int, n_text_vocab: int, seed: int):
     """bench.py's prompt: s random text tokens in column 32, no audio."""
     rng = np.random.RandomState(seed)
@@ -475,12 +713,9 @@ def check_resident_temperature(model: CSM, gen) -> None:
         raise AssertionError("kernel 3's samples do not follow softmax/T")
 
 
-def check_small_vs_cpu(dev, mimi: Mimi) -> None:
-    """The main path on a small model, W8A8, fp32, with a 300-row prompt:
-    the card (all three kernels) against the CPU (plain versions). The greedy
-    frames agree on at least 99% of the codes, and the full-size Mimi
-    decodes them alike on both (fp32, TF32 off: sum order only, so within
-    1e-4 of the waveform's largest magnitude)."""
+def small_args() -> ModelArgs:
+    """A small CSM (2-layer backbone d=256, 2-layer decoder d=128, head_dim
+    64, 32 codebooks), registered in the port's config registries."""
     port_config.BACKBONE_CONFIGURATION["smoke_small"] = port_config.LlamaConfig(
         vocab_size=1024, num_hidden_layers=2, num_attention_heads=4,
         num_key_value_heads=2, head_dim=64, intermediate_size=512,
@@ -489,7 +724,16 @@ def check_small_vs_cpu(dev, mimi: Mimi) -> None:
         vocab_size=1024, num_hidden_layers=2, num_attention_heads=2,
         num_key_value_heads=1, head_dim=64, intermediate_size=256,
         hidden_size=128)
-    args = ModelArgs("smoke_small", "smoke_small", 1024, 256, 32)
+    return ModelArgs("smoke_small", "smoke_small", 1024, 256, 32)
+
+
+def check_small_vs_cpu(dev, mimi: Mimi) -> None:
+    """The main path on a small model, W8A8, fp32, with a 300-row prompt:
+    the card (all three kernels) against the CPU (plain versions). The greedy
+    frames agree on at least 99% of the codes, and the full-size Mimi
+    decodes them alike on both (fp32, TF32 off: sum order only, so within
+    1e-4 of the waveform's largest magnitude)."""
+    args = small_args()
     gpu = random_csm(args, torch.float32, dev, SEED + 7)
     gpu.params["audio_head"] = gpu.params["audio_head"] * 25.0  # N(0, 0.5^2)
     quant.quantize_model(gpu, mode="w8a8", min_size=0)
@@ -550,9 +794,7 @@ def run_main_path(model: CSM, mimi: Mimi) -> dict:
     generate_tokens(model, prompt, mask, 2, temperature=0.0)  # warm-up
     torch.cuda.synchronize()
 
-    quant.w8a8_matvec.launches = 0
-    attention.flash_prefill_sdpa.launches = 0
-    resident.resident_decode_frame.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     frames, n = generate_tokens(model, prompt, mask, 125, temperature=0.0)
     torch.cuda.synchronize()
@@ -567,9 +809,9 @@ def run_main_path(model: CSM, mimi: Mimi) -> dict:
     audio = mimi.decode(codes)
     torch.cuda.synchronize()
     t_dec = time.perf_counter() - t0
-    counts = {"w8a8_matvec": quant.w8a8_matvec.launches,
-              "flash_prefill_sdpa": attention.flash_prefill_sdpa.launches,
-              "resident_decode_frame": resident.resident_decode_frame.launches}
+    counts = {k: v for k, v in read_counts().items()
+              if k in ("w8a8_matvec", "flash_prefill_sdpa",
+                       "resident_decode_frame")}
 
     log(f"launches on the main path: {counts} over {n} + {n_long} frames")
     if n < 1 or n_long < 1:
@@ -715,6 +957,256 @@ def run_batch(model: CSM) -> None:
     if calls != 2 * steps or frames.min() < 0 \
             or frames.max() >= args.n_audio_vocab:
         raise AssertionError("the 65-row batch did not run two chunks a frame")
+
+
+def check_small_affine_vs_cpu(dev) -> None:
+    """The affine path on a small model, 4-bit group 64, fp32, with a
+    300-row prompt: the card (kernel 5 at <= 64 rows, flash prefill) against
+    the CPU (plain versions). The greedy frames agree on >= 99% of the
+    codes."""
+    args = small_args()
+    gpu = random_csm(args, torch.float32, dev, SEED + 9)
+    gpu.params["audio_head"] = gpu.params["audio_head"] * 25.0
+    quant.quantize_model(gpu, bits=4, group_size=64, min_size=0)
+    cpu = CSM(args, params=params_to_cpu(gpu.params), dtype=torch.float32)
+    prompt, mask = synthetic_prompt(300, args.n_text_vocab, SEED + 10)
+    before = quant.affine_matvec.launches
+    f_gpu, n_gpu = generate_tokens(gpu, prompt, mask, 4, temperature=0.0)
+    launched = quant.affine_matvec.launches - before
+    f_cpu, n_cpu = generate_tokens(cpu, prompt, mask, 4, temperature=0.0)
+    n = min(n_gpu, n_cpu)
+    agree = float((f_gpu[:n] == f_cpu[:n]).mean()) if n else 0.0
+    log(f"small model affine 4-bit g64 fp32, 300-row prompt: card vs CPU "
+        f"frames {n_gpu}/{n_cpu}, code agreement {agree:.4f} (need >= "
+        f"0.99); {launched} kernel-5 launches on the card")
+    if launched == 0 or n_gpu != n_cpu or agree < 0.99:
+        raise AssertionError("card and CPU disagree on the small affine "
+                             "model")
+
+
+def quantized_linears(tree) -> int:
+    """The number of quantized linear dicts in a params subtree."""
+    if isinstance(tree, dict):
+        if "weight_q" in tree:
+            return 1
+        return sum(quantized_linears(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(quantized_linears(v) for v in tree)
+    return 0
+
+
+def run_affine_path(dev, mimi: Mimi) -> dict:
+    """The affine path at full CSM-1B width: random weights from SEED,
+    bf16, `quantize_model(bits, group_size=64, mode="affine")`, greedy
+    `generate_tokens` from the 32-row prompt (4-bit for AFFINE_FRAMES[4]
+    frames and a Mimi decode, then 8-bit). Every quantized linear runs at
+    <= 64 rows here, so each frame launches kernel 5 once per backbone
+    linear and 31 times per decoder and projection linear (the dispatched
+    decoder: a 2-row prime and 30 steps); kernels 1 and 3 never. Returns
+    the 4-bit run's launch counts."""
+    args = csm_1b()
+    prompt, mask = synthetic_prompt(32, args.n_text_vocab, SEED)
+    out = {}
+    for bits, n_frames in AFFINE_FRAMES.items():
+        t0 = time.perf_counter()
+        model = random_csm(args, torch.bfloat16, dev, SEED)
+        quant.quantize_model(model, bits=bits, group_size=64, mode="affine")
+        torch.cuda.synchronize()
+        log(f"CSM-1B random init (seed {SEED}) + affine {bits}-bit g64: "
+            f"{time.perf_counter() - t0:.1f} s")
+        p = model.params
+        per_frame = quantized_linears(p["backbone"]) + (
+            args.n_audio_codebooks - 1) * (quantized_linears(p["decoder"])
+                                           + quantized_linears(
+                                               p["projection"]))
+        generate_tokens(model, prompt, mask, 1, temperature=0.0)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        frames, n = generate_tokens(model, prompt, mask, n_frames,
+                                    temperature=0.0)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+        counts = read_counts()
+        log(f"affine {bits}-bit path: {n} frames in {t_gen:.3f} s = "
+            f"{1e3 * t_gen / max(n, 1):.2f} ms per frame; launches {counts}"
+            f" = {counts['affine_matvec'] / max(n, 1):.0f} kernel-5 launches"
+            f" a frame (every quantized linear: {per_frame})")
+        if n != n_frames or frames.min() < 0 \
+                or frames.max() >= args.n_audio_vocab:
+            raise AssertionError(f"affine {bits}-bit: {n} frames or codes "
+                                 f"outside the vocabulary")
+        if counts["affine_matvec"] != n * per_frame \
+                or counts["w8a8_matvec"] or counts["resident_decode_frame"]:
+            raise AssertionError(f"affine {bits}-bit: a quantized linear "
+                                 f"missed kernel 5, or kernel 1 or 3 ran")
+        if bits == 4:
+            codes = torch.from_numpy(frames.T[None].copy()).to(dev)
+            t0 = time.perf_counter()
+            audio = mimi.decode(codes)
+            torch.cuda.synchronize()
+            log(f"affine 4-bit: Mimi decode of {n} frames in "
+                f"{time.perf_counter() - t0:.3f} s, waveform "
+                f"{audio.shape[-1]} samples")
+            if tuple(audio.shape) != (1, 1, n * 1920) \
+                    or not bool(torch.isfinite(audio).all()):
+                raise AssertionError("affine 4-bit waveform not finite")
+            out = dict(counts=counts, ms_per_frame=1e3 * t_gen / n)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def batch_inputs(args, n_rows: int):
+    """n_rows prompts of 20-31 rows and their masks: each row gets its own
+    pad in the 32-row bucket."""
+    prompts, masks = zip(*[synthetic_prompt(20 + i % 12, args.n_text_vocab,
+                                            SEED + 200 + i)
+                           for i in range(n_rows)])
+    return prompts, masks
+
+
+def check_decode_step(args, dev, gen, prompts, masks) -> dict:
+    """One backbone step of the batch on the same cache state (after the
+    prompts' prefill, a random frame as input), its attention through
+    kernel 4 (`flash_decode_min_b=8`) and through the masked sdpa (None),
+    on an unquantized CSM-1B (random weights) in bf16 and in fp32. Returns
+    by type max |hidden err| / max |hidden| (the gated ratio) and the ratio
+    of the two's norms. Unquantized, because on a W8A8 model any last-bit
+    change of the attention output moves int8 activation codes, and 16
+    layers amplify that to the quantization noise (PERF.md §6)."""
+    bcfg = args.backbone_config
+    b, bucket = len(prompts), 32
+    tokens = torch.zeros((b, bucket, 33), dtype=torch.long, device=dev)
+    mask = torch.zeros_like(tokens)
+    pad = torch.zeros((b,), dtype=torch.long, device=dev)
+    for i, (p, m) in enumerate(zip(prompts, masks)):
+        pad[i] = bucket - p.shape[0]
+        tokens[i, bucket - p.shape[0]:] = torch.from_numpy(p)
+        mask[i, bucket - p.shape[0]:] = torch.from_numpy(m)
+    cap = bucket + BATCH_FRAMES
+    cos_b, sin_b = rope_cache_for(bcfg, max(cap, bcfg.max_position_embeddings),
+                                  dev)
+    frame = torch.randint(0, args.n_audio_vocab, (b, 32), generator=gen,
+                          device=dev)
+    tok, msk = generation._frame_to_next_input(frame)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        m = random_csm(args, dtype, dev, SEED + 41)
+        with torch.no_grad():
+            cache = KVCache.init(bcfg, b, cap, dtype=dtype, device=dev)
+            _, cache = generation._prefill(m.params, args, tokens, mask, pad,
+                                           cache, cos_b, sin_b)
+
+            def step(min_b):
+                c = KVCache(k=cache.k.clone(), v=cache.v.clone(),
+                            index=cache.index)
+                h, _ = generation._backbone_step(m.params, args, tok, msk,
+                                                 pad, c, cos_b, sin_b, min_b)
+                return h.float()
+
+            kernel, plain = step(8), step(None)
+        diff = kernel - plain
+        out[dtype] = ((diff.abs().max() / plain.abs().max()).item(),
+                      (diff.norm() / plain.norm()).item())
+        del m, cache
+        torch.cuda.empty_cache()
+    return out
+
+
+def flash_decode_ab(run, min_b: int) -> dict:
+    """`run(flash_decode_min_b, n_frames)` -> (frames (F, B, 32), n (B,))
+    with kernel 4 (`min_b`) and without (None): a 2-frame warm-up of each,
+    then BATCH_FRAMES frames in the order on, off, off, on, so that host
+    drift falls on both settings alike. Each run's launch counts are set to
+    0 just before it and read just after. Returns, by setting, the frames,
+    n and counts of its first run and the seconds of both."""
+    for setting in (min_b, None):
+        run(setting, 2)
+    out = {}
+    for setting in (min_b, None, None, min_b):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        frames, n = run(setting, BATCH_FRAMES)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        if setting in out:
+            out[setting]["seconds"].append(dt)
+        else:
+            out[setting] = dict(frames=frames, n=n, counts=counts,
+                                seconds=[dt])
+    return out
+
+
+def run_batch_flash_decode(model: CSM, gen) -> dict:
+    """Kernel 4 on the W8A8 model (the decoder one kernel-3 launch a
+    frame), each case with and without it (`flash_decode_ab`): BATCH_ROWS
+    prompts of 20-31 rows through `generate_tokens_batch` with
+    `flash_decode_min_b=8` (kernel 4 in each of the 16 layers of every
+    backbone step), the first 8 of them likewise, and the 32-row prompt
+    through `generate_tokens` with `flash_decode_min_b=1`. Gates: 16
+    kernel-4 launches a step with it and none without, every frame made,
+    codes in range; and one step on the same cache state within STEP_TOL
+    of the masked sdpa (`check_decode_step`). Returns the BATCH_ROWS run's
+    launch counts."""
+    args = model.args
+    n_layers = args.backbone_config.num_hidden_layers
+    prompts, masks = batch_inputs(args, BATCH_ROWS)
+    one, one_mask = synthetic_prompt(32, args.n_text_vocab, SEED)
+
+    def batch(n_rows):
+        return lambda min_b, n: generate_tokens_batch(
+            model, prompts[:n_rows], masks[:n_rows], n, temperature=0.0,
+            flash_decode_min_b=min_b)
+
+    def single(min_b, n):
+        frames, n_made = generate_tokens(model, one, one_mask, n,
+                                         temperature=0.0,
+                                         flash_decode_min_b=min_b)
+        return frames[:, None], np.array([n_made])
+
+    steps = BATCH_FRAMES - 1
+    out = None
+    for label, run, min_b in ((f"batch of {BATCH_ROWS}", batch(BATCH_ROWS), 8),
+                              ("batch of 8", batch(8), 8),
+                              ("single stream", single, 1)):
+        ab = flash_decode_ab(run, min_b)
+        on, off = ab[min_b], ab[None]
+        launched = on["counts"]["flash_decode_sdpa"]
+        same = on["frames"].shape == off["frames"].shape
+        agree = float((on["frames"] == off["frames"]).mean()) if same else 0.
+        ms = {k: [1e3 * s / BATCH_FRAMES for s in r["seconds"]]
+              for k, r in (("on", on), ("off", off))}
+        log(f"{label}, {BATCH_FRAMES} frames, alternated on/off/off/on: "
+            f"flash decode {np.mean(ms['on']):.2f} ms per frame "
+            f"({', '.join(f'{t:.2f}' for t in ms['on'])}), masked sdpa "
+            f"{np.mean(ms['off']):.2f} "
+            f"({', '.join(f'{t:.2f}' for t in ms['off'])}); {launched} "
+            f"kernel-4 launches ({launched / steps:.0f} a step), launches "
+            f"{on['counts']}; code agreement of the two settings {agree:.4f}")
+        for r in (on, off):
+            if int(r["n"].max()) != BATCH_FRAMES or r["frames"].min() < 0 \
+                    or r["frames"].max() >= args.n_audio_vocab:
+                raise AssertionError(f"{label}: the run stopped early or "
+                                     f"made codes outside the vocabulary")
+        if launched != n_layers * steps or off["counts"]["flash_decode_sdpa"]:
+            raise AssertionError(f"{label}: expected {n_layers} kernel-4 "
+                                 f"launches a step with flash_decode_min_b="
+                                 f"{min_b} and none without")
+        if out is None:
+            out = dict(counts=on["counts"])
+    rel = check_decode_step(args, model.device, gen, prompts, masks)
+    for dtype, (r, r_norm) in rel.items():
+        log(f"one backbone step on the same cache, unquantized CSM-1B "
+            f"{str(dtype)}: max |hidden err| / max |hidden|, kernel 4 vs "
+            f"masked sdpa {r:.3e} (tol {STEP_TOL[dtype]:g}); |err| / "
+            f"|hidden| in norm {r_norm:.3e}")
+    if any(r[0] > STEP_TOL[dtype] for dtype, r in rel.items()):
+        raise AssertionError("kernel 4 moved the backbone step's hidden "
+                             "state past its tolerance")
+    return out
 
 
 def flash_train_inputs(gen, dev, dtype, b, s):
@@ -1116,10 +1608,17 @@ def main() -> None:
     gen.manual_seed(SEED)
     w8a8 = check_w8a8(dev, gen)
     flash = check_flash(dev, gen)
+    # the phases added with kernels 4 and 5 draw from their own generator,
+    # so the earlier phases keep their inputs
+    gen45 = torch.Generator(device=dev)
+    gen45.manual_seed(SEED + 40)
+    affine = check_affine(dev, gen45)
+    decode = check_flash_decode(dev, gen45)
     mimi = Mimi(mimi_202407(32), dtype=torch.float32,
                 generator=torch.Generator(device=dev).manual_seed(SEED + 2),
                 device=dev)
     check_small_vs_cpu(dev, mimi)
+    check_small_affine_vs_cpu(dev)
     model = build_csm_1b(dev)
     frame = check_resident(model, gen)
     check_resident_temperature(model, gen)
@@ -1132,8 +1631,10 @@ def main() -> None:
         f" {main_path['ms_per_frame']:.2f} with kernel 3")
     check_divergence(model, gen)
     run_batch(model)
+    batch = run_batch_flash_decode(model, gen45)
     del model
     torch.cuda.empty_cache()
+    affine_path = run_affine_path(dev, mimi)
 
     flash_tr = check_flash_train(dev, gen)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
@@ -1159,6 +1660,14 @@ def main() -> None:
              ms=k3["ms"],
              plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
              bound_by=k3["bound_by"], library_ms=None),
+        dict(name="affine_matvec", route="cuda",
+             source="csm_mlx_tpu_torch/csrc/affine_matvec.cu",
+             replaces="csm_mlx_tpu/ops/quant.py:102",
+             launches=affine_path["counts"]["affine_matvec"], **affine),
+        dict(name="flash_decode_sdpa", route="cuda",
+             source="csm_mlx_tpu_torch/csrc/flash_decode.cu",
+             replaces="csm_mlx_tpu/ops/attention.py:166",
+             launches=batch["counts"]["flash_decode_sdpa"], **decode),
         dict(name="flash_train_fwd", route="cuda",
              source="csm_mlx_tpu_torch/csrc/flash_train.cu",
              replaces="csm_mlx_tpu/ops/flash_train.py:88",
@@ -1169,6 +1678,7 @@ def main() -> None:
              launches=training["launches"][1], **flash_tr["bwd"]),
     ]
     log(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
+    log(card_info())  # again beside the results: the build log is long
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,9 @@ The JAX package keeps parameters as a nested dict / list pytree; fetched
 to the host (`jax.device_get`) its leaves are numpy arrays (bf16 ones as
 `ml_dtypes.bfloat16`). `tree_to_torch` turns such a tree into the port's
 tensors under the same nested names — raw CSM params, CSM params after
-`quantize_model(mode="w8a8", fuse=True)` (int8 codes, fp32 scales and
-biases, fused qkv/gate-up) and Mimi params alike — so both sides compute
+`quantize_model(..., fuse=True)` in either mode (W8A8: int8 codes; affine:
+uint8 or packed uint4 codes; fp32 scales and biases, fused qkv/gate-up)
+and Mimi params alike — so both sides compute
 the same function. A `_resident` entry (the JAX whole-frame decoder's
 tables) is carried across in the port's layout by `resident_to_torch`.
 Configs (any object with the dataclass fields of `LlamaConfig` /
@@ -29,8 +30,18 @@ from csm_mlx_tpu_torch.models.mimi.config import MimiConfig
 
 def array_to_torch(a: Any, device: torch.device | str = "cpu",
                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """One numpy leaf -> tensor; bf16 leaves keep their bits."""
+    """One numpy leaf -> tensor; bf16 leaves keep their bits. 4-bit affine
+    codes (`ml_dtypes` uint4, (OUT, IN)) are packed two to a byte into the
+    port's uint8 (OUT, IN/2) layout (`ops.quant.pack_uint4`); uint8 codes,
+    also a TPU's 4-bit codes in uint8 carriers, stay 8-bit codes (the same
+    dequantized weight)."""
     a = np.asarray(a)
+    if a.dtype.name == "int4":
+        raise ValueError("signed int4 (W4A8) codes are not ported yet")
+    if a.dtype.name == "uint4":
+        from csm_mlx_tpu_torch.ops.quant import pack_uint4
+
+        return pack_uint4(torch.from_numpy(a.astype(np.uint8))).to(device)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(
             torch.bfloat16)

@@ -15,7 +15,9 @@ decoder, a Python loop of eager steps.
 Prompts are left-padded to the same buckets as in the JAX package, so a
 prompt gets the same positions and masks on both sides. Prefill runs the
 flash-prefill kernel on CUDA for buckets of >= 256 rows (multiples of 128),
-the masked `sdpa` otherwise.
+the masked `sdpa` otherwise. A backbone step runs the flash-decode kernel
+when the caller sets `flash_decode_min_b` and the batch reaches it (off by
+default, as in JAX).
 
 Not ported yet: streaming, context audio, long-form generation and the
 watermark.
@@ -79,8 +81,10 @@ def _prefill(params, args: ModelArgs, tokens, token_mask, pad_len,
 
 
 def _backbone_step(params, args: ModelArgs, tokens, token_mask, pad_len,
-                   cache: KVCache, cos_b, sin_b):
-    """One-frame backbone decode step. tokens: (B, 1, 33)."""
+                   cache: KVCache, cos_b, sin_b,
+                   flash_decode_min_b: Optional[int] = None):
+    """One-frame backbone decode step. tokens: (B, 1, 33). With
+    `flash_decode_min_b` set and B >= it, attention runs kernel 4."""
     bcfg = args.backbone_config
     device = tokens.device
     pad_len = pad_len.reshape(-1, 1)
@@ -90,7 +94,9 @@ def _backbone_step(params, args: ModelArgs, tokens, token_mask, pad_len,
     key_valid = (k_idx >= pad_len) & (k_idx <= cache.index)
     mask_bias = key_validity_bias(key_valid)[:, None]
     hidden, cache = llama_forward(params["backbone"], bcfg, embeds, cos_b,
-                                  sin_b, positions, mask_bias, cache)
+                                  sin_b, positions, mask_bias, cache,
+                                  decode_pad_len=pad_len.reshape(-1),
+                                  flash_decode_min_b=flash_decode_min_b)
     return hidden[:, -1, :], cache
 
 
@@ -229,12 +235,14 @@ def _resolve_sampler(temperature: float, sampler: Optional[Any]):
 def _generate_padded(model: CSM, tokens: np.ndarray, mask: np.ndarray,
                      pad_len: np.ndarray, bucket: int, max_frames: int,
                      sampler, processors: Tuple,
-                     generator: Optional[torch.Generator]
+                     generator: Optional[torch.Generator],
+                     flash_decode_min_b: Optional[int] = None
                      ) -> Tuple[np.ndarray, np.ndarray]:
     """The frame loop over a left-padded batch; returns (frames
     (max_frames, B, 32) int32, n_frames (B,) int32). A row stops counting
     frames at its first all-zero frame; the loop ends when every row has
-    stopped or after max_frames."""
+    stopped or after max_frames. Backbone steps of B >= `flash_decode_min_b`
+    rows run their attention through kernel 4 (None: never)."""
     args = model.args
     device = model.device
     bcfg, dcfg = args.backbone_config, args.decoder_config
@@ -268,7 +276,7 @@ def _generate_padded(model: CSM, tokens: np.ndarray, mask: np.ndarray,
         nxt_tokens, nxt_mask = _frame_to_next_input(frame)
         last_hidden, cache = _backbone_step(model.params, args, nxt_tokens,
                                             nxt_mask, pad, cache, cos_b,
-                                            sin_b)
+                                            sin_b, flash_decode_min_b)
     return (frames.to(torch.int32).cpu().numpy(),
             n_frames.to(torch.int32).cpu().numpy())
 
@@ -283,14 +291,16 @@ def generate_tokens(
     sampler: Optional[Any] = None,
     logits_processors: Optional[Sequence] = None,
     generator: Optional[torch.Generator] = None,
+    flash_decode_min_b: Optional[int] = None,
 ) -> Tuple[np.ndarray, int]:
-    """One (S, 33) prompt -> (frames (F, 32) int32, F)."""
+    """One (S, 33) prompt -> (frames (F, 32) int32, F). `flash_decode_min_b`
+    as in `generate_tokens_batch`: one row takes kernel 4 only at 1."""
     _check_context_window(model.args, prompt.shape[0], max_audio_frames)
     tokens, mask, pad_len, bucket = _pad_prompt(prompt, prompt_mask)
     frames, n = _generate_padded(
         model, tokens, mask, pad_len, bucket, max_audio_frames,
         _resolve_sampler(temperature, sampler),
-        tuple(logits_processors or ()), generator)
+        tuple(logits_processors or ()), generator, flash_decode_min_b)
     n = int(n[0])
     return frames[:n, 0, :], n
 
@@ -305,9 +315,16 @@ def generate_tokens_batch(
     sampler: Optional[Any] = None,
     logits_processors: Optional[Sequence] = None,
     generator: Optional[torch.Generator] = None,
+    flash_decode_min_b: Optional[int] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Prompts left-padded to a common bucket; each row stops at its own
-    all-zero frame. Returns (frames (max_frames, B, 32), n_frames (B,))."""
+    all-zero frame. Returns (frames (max_frames, B, 32), n_frames (B,)).
+
+    `flash_decode_min_b`: at B >= it, each backbone step's attention runs
+    the flash-decode kernel (`ops.attention.flash_decode_sdpa`, kernel 4)
+    instead of the masked `sdpa`; None (the default) keeps it off, as the
+    JAX package's `CSM_TPU_FLASH_DECODE` is off by default (which gates at
+    `CSM_TPU_FLASH_DECODE_MIN_B`, 8). The decoder never takes it."""
     b = len(prompts)
     longest = max(p.shape[0] for p in prompts)
     _check_context_window(model.args, longest, max_audio_frames)
@@ -324,7 +341,7 @@ def generate_tokens_batch(
     return _generate_padded(
         model, tokens, mask, pad_len, bucket, max_audio_frames,
         _resolve_sampler(temperature, sampler),
-        tuple(logits_processors or ()), generator)
+        tuple(logits_processors or ()), generator, flash_decode_min_b)
 
 
 def generate(

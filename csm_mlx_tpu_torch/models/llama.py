@@ -16,7 +16,8 @@ import torch.utils.checkpoint
 from csm_mlx_tpu_torch.config import LlamaConfig
 from csm_mlx_tpu_torch.device import resolve_device
 from csm_mlx_tpu_torch.ops import layers
-from csm_mlx_tpu_torch.ops.attention import flash_prefill_sdpa, sdpa
+from csm_mlx_tpu_torch.ops.attention import (flash_decode_sdpa,
+                                             flash_prefill_sdpa, sdpa)
 from csm_mlx_tpu_torch.ops.flash_train import flash_attention
 from csm_mlx_tpu_torch.ops.kv_cache import KVCache
 from csm_mlx_tpu_torch.ops.layers import linear, rms_norm, swiglu_mlp
@@ -65,8 +66,9 @@ def init_llama_params(generator: torch.Generator, cfg: LlamaConfig,
 
 def fuse_layer_weights(params: Params) -> None:
     """Concatenate q,k,v -> qkv_proj and gate,up -> gateup_proj in place
-    (along the output axis), for raw ({"weight"}) and W8A8 dicts alike.
-    Dicts with other keys (bias, adapters) stay unfused."""
+    (along the output axis), for raw ({"weight"}), W8A8 and affine dicts
+    alike (packed 4-bit codes keep one output row per row too). Dicts with
+    other keys (bias, adapters) stay unfused."""
 
     def fuse(dicts):
         keys = set(dicts[0].keys())
@@ -105,6 +107,8 @@ def _attn_layer(
     layer_idx: int,
     flash_pad_len: Optional[torch.Tensor] = None,
     flash_train: bool = False,
+    decode_pad_len: Optional[torch.Tensor] = None,
+    flash_decode_min_b: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     b, s, _ = x.shape
     h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -135,6 +139,13 @@ def _attn_layer(
         # Kernels 6 and 7: differentiable causal attention of a fresh
         # sequence (no cache, pure causal mask: checked by llama_forward).
         out = flash_attention(q, k, v, scale=hd ** -0.5)
+    elif (decode_pad_len is not None and flash_decode_min_b is not None
+          and s == 1 and cache is not None and b >= flash_decode_min_b):
+        # Kernel 4: one query position over the whole cache, keys valid at
+        # pad <= pos <= cache.index (the slot just written; the cache
+        # advances after the last layer), the mask computed in the kernel.
+        out = flash_decode_sdpa(q, k, v, hd ** -0.5, decode_pad_len,
+                                cache.index)
     else:
         out = sdpa(q, k, v, scale=hd ** -0.5, mask_bias=mask_bias)
     out = out.transpose(1, 2).reshape(b, s, -1)
@@ -153,6 +164,8 @@ def llama_forward(
     flash_pad_len: Optional[torch.Tensor] = None,
     flash_train: bool = False,
     remat: bool = False,
+    decode_pad_len: Optional[torch.Tensor] = None,
+    flash_decode_min_b: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the stack.
 
@@ -166,7 +179,13 @@ def llama_forward(
     (`ops.flash_train.flash_attention`) — training only: no cache, and
     mask_bias None (the kernels mask causally themselves);
     remat: each layer runs under `torch.utils.checkpoint` and is recomputed
-    in the backward pass (LoRA dropout masks replayed).
+    in the backward pass (LoRA dropout masks replayed);
+    decode_pad_len: (B,) left pads of a single-position decode step (the
+    caller still passes the equivalent mask_bias); with
+    `flash_decode_min_b` set and B >= it, attention runs the flash-decode
+    kernel (`ops.attention.flash_decode_sdpa`) instead of the masked
+    `sdpa`. `flash_decode_min_b` None (the default) keeps it off, as the
+    JAX package's `CSM_TPU_FLASH_DECODE` does by default.
 
     Returns (hidden (B, S, D), cache).
     """
@@ -184,6 +203,8 @@ def llama_forward(
             rms_norm(lp["input_layernorm"], x, cfg.rms_norm_eps),
             cos, sin, positions, mask_bias, cache, idx,
             flash_pad_len=flash_pad_len, flash_train=flash_train,
+            decode_pad_len=decode_pad_len,
+            flash_decode_min_b=flash_decode_min_b,
         )
         x = x + attn_out
         h = rms_norm(lp["post_attention_layernorm"], x, cfg.rms_norm_eps)

@@ -60,6 +60,13 @@ _SIGNATURES = {
     # n_kv, seq, head_dim, scale, dtype, stream
     "csm_flash_train_bwd": (_VP,) * 10 + (_LL,) * 12 + (_I,) * 5
     + (_F, _I, _VP),
+    # x, w, scales, biases, out, rows, in_dim, out_dim, group, bits, dtype,
+    # stream
+    "csm_affine_matvec": (_VP,) * 5 + (_I,) * 6 + (_VP,),
+    # q, k, v, pad_len, out, 8 strides, batch, n_heads, n_kv, cap, index,
+    # head_dim, scale, dtype, stream
+    "csm_flash_decode": (_VP,) * 5 + (_LL,) * 8 + (_I,) * 6
+    + (_F, _I, _VP),
 }
 
 

@@ -1,30 +1,196 @@
-"""W8A8 quantization (port of the per-channel half of `csm_mlx_tpu/ops/quant.py`).
+"""Quantization (port of `csm_mlx_tpu/ops/quant.py`): grouped affine (MLX
+parity) and W8A8.
 
-Weights: per-output-channel signed int8 codes, w[o,i] ~= s[o] * q[o,i] +
-z[o] with z the row midpoint (`quantize_weight_w8`). Activations: each row
-dynamically quantized to int8 at every call. The product runs int8 x int8
--> exact int32, then an fp32 affine fix-up.
+1. Grouped affine (`quantize_weight`, mode="affine", the default: 4-bit,
+   group 64, as the reference's `nn.quantize`). Unsigned codes with
+   W ~= scales * q + biases per input group. 8-bit codes are uint8
+   (OUT, IN); 4-bit codes are packed two to a byte, uint8 (OUT, IN/2), the
+   even column in the low nibble, so that a matvec streams half the bytes.
+   `affine_matvec` is kernel 5 of the port: on CUDA tensors it launches the
+   hand-written kernel of `csrc/affine_matvec.cu` (any group that is a
+   multiple of 16 and divides IN — the JAX Pallas kernel takes only
+   128-aligned groups and sends the default group 64 to its dequant einsum);
+   on CPU tensors it runs `affine_matvec_plain`. `quant_linear` keeps the
+   JAX split on rows: the kernel at <= 64 rows, above that the weight
+   dequantized to x.dtype and one `torch.matmul` (JAX's
+   `_xla_quant_matmul`).
 
-`w8a8_matvec` is kernel 1 of the port: on CUDA tensors it launches the
-hand-written kernel of `csrc/w8a8_matvec.cu`, at ANY number of rows — the
-JAX package's split (Pallas kernel at <= 64 rows, its XLA int8 mirror
-above) has one arithmetic here, so prefill and decode quantize alike; on
-CPU tensors it runs `w8a8_matvec_plain`, the mirror of `_xla_w8a8_matvec`.
+2. W8A8 (`quantize_weight_w8`, mode="w8a8"): per-output-channel signed int8
+   codes, w[o,i] ~= s[o] * q[o,i] + z[o] with z the row midpoint;
+   activations dynamically quantized to int8 at every call; the product
+   runs int8 x int8 -> exact int32, then an fp32 affine fix-up.
+   `w8a8_matvec` is kernel 1 of the port: on CUDA tensors it launches
+   `csrc/w8a8_matvec.cu`, at ANY number of rows — the JAX package's split
+   (Pallas kernel at <= 64 rows, its XLA int8 mirror above) has one
+   arithmetic here, so prefill and decode quantize alike; on CPU tensors it
+   runs `w8a8_matvec_plain`, the mirror of `_xla_w8a8_matvec`.
 
-Not ported yet: the grouped-affine (MLX) mode, W4A8 and
-`quantize_audio_head` (the whole-frame decoder's own int8 head is, in
+Not ported yet: W4A8 (mode="w4a8") and `quantize_audio_head` (the
+whole-frame decoder's own int8 head is, in
 `ops.resident_decoder.set_resident_audio_head`).
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
+DEFAULT_BITS = 4
+DEFAULT_GROUP_SIZE = 64
+# quant_linear's affine split, as in JAX: the kernel up to this many rows
+AFFINE_MAX_ROWS = 64
+
 _INV_254 = float(np.float32(1.0 / 254.0))
+# 1 / n_levels of the affine codes as fp32 constants: under `jax.jit` XLA
+# turns the division by the constant 15 or 255 into a product with its fp32
+# reciprocal, and `quantize_model` runs the jitted quantizer
+_INV_LEVELS = {4: float(np.float32(1.0 / 15.0)),
+               8: float(np.float32(1.0 / 255.0))}
 _NO_QUANT = ("layernorm", "norm", "embeddings", "layer_scale", "codebook")
+
+
+# --- grouped affine ----------------------------------------------------------
+
+
+def pack_uint4(q: torch.Tensor) -> torch.Tensor:
+    """(OUT, IN) codes 0..15 -> uint8 (OUT, IN/2), column 2j in the low
+    nibble of byte j and column 2j+1 in its high nibble."""
+    q = q.to(torch.uint8)
+    return (q[:, 0::2] | (q[:, 1::2] << 4)).contiguous()
+
+
+def unpack_uint4(packed: torch.Tensor) -> torch.Tensor:
+    """uint8 (OUT, IN/2) -> uint8 (OUT, IN) codes 0..15 (`pack_uint4`'s
+    inverse)."""
+    return torch.stack([packed & 0xF, packed >> 4], dim=-1).reshape(
+        packed.shape[0], -1)
+
+
+def code_bits(weight_q: torch.Tensor, in_dim: int) -> int:
+    """The width of affine codes, read from their stored shape against the
+    input width: 8 for (OUT, IN), 4 for packed (OUT, IN/2)."""
+    if weight_q.dtype != torch.uint8:
+        raise ValueError(f"affine codes are uint8, got {weight_q.dtype}")
+    if weight_q.shape[1] == in_dim:
+        return 8
+    if 2 * weight_q.shape[1] == in_dim:
+        return 4
+    raise ValueError(f"affine codes {tuple(weight_q.shape)} fit neither "
+                     f"8-bit nor packed 4-bit codes of IN={in_dim}")
+
+
+def quantize_weight(w: torch.Tensor, bits: int = DEFAULT_BITS,
+                    group_size: int = DEFAULT_GROUP_SIZE
+                    ) -> Dict[str, torch.Tensor]:
+    """(out, in) float -> {"weight_q" uint8, "scales" (out, n_groups) fp32,
+    "biases" (out, n_groups) fp32 (= each group's min)}: 8-bit codes
+    (out, in), 4-bit codes packed (out, in/2). Equal to the JAX
+    `quantize_weight` under `jax.jit`, as `quantize_model` runs it (see
+    `_INV_LEVELS`)."""
+    if bits not in _INV_LEVELS:
+        raise ValueError(f"quantize_weight: bits {bits}; 4 or 8")
+    out_dim, in_dim = w.shape
+    if in_dim % group_size:
+        raise ValueError(f"quantize_weight: IN {in_dim} is not a multiple "
+                         f"of group_size {group_size}")
+    n_levels = (1 << bits) - 1
+    wf = w.float().reshape(out_dim, in_dim // group_size, group_size)
+    w_max = wf.amax(dim=-1)
+    w_min = wf.amin(dim=-1)
+    scale = (w_max - w_min) * _INV_LEVELS[bits]
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    q = torch.clamp(torch.round((wf - w_min[..., None]) / scale[..., None]),
+                    0, n_levels).to(torch.uint8).reshape(out_dim, in_dim)
+    if bits == 4:
+        q = pack_uint4(q)
+    return {"weight_q": q, "scales": scale, "biases": w_min}
+
+
+def dequantize_weight(qp: Dict[str, torch.Tensor], bits: int,
+                      dtype=torch.bfloat16) -> torch.Tensor:
+    """An affine dict -> the (out, in) weight s * q + z in fp32, cast to
+    `dtype`. `bits` is required: uint8 (out, n) codes may be 8-bit codes of
+    IN = n or packed 4-bit codes of IN = 2n (the JAX dict tells them apart
+    by its uint4 dtype; the port's does not)."""
+    q = qp["weight_q"]
+    if bits == 4:
+        q = unpack_uint4(q)
+    elif bits != 8:
+        raise ValueError(f"dequantize_weight: bits {bits}; 4 or 8")
+    out_dim, in_dim = q.shape
+    n_groups = qp["scales"].shape[-1]
+    qf = q.reshape(out_dim, n_groups, in_dim // n_groups).float()
+    w = qf * qp["scales"][..., None] + qp["biases"][..., None]
+    return w.reshape(out_dim, in_dim).to(dtype)
+
+
+def affine_matvec_plain(x: torch.Tensor, weight_q: torch.Tensor,
+                        scales: torch.Tensor, biases: torch.Tensor
+                        ) -> torch.Tensor:
+    """Plain PyTorch version of kernel 5, the arithmetic of the JAX
+    `_pallas_quant_matvec`: the weight dequantized in fp32, an fp32 product,
+    the output in x.dtype. x: (B, IN) -> (B, OUT)."""
+    w = dequantize_weight({"weight_q": weight_q, "scales": scales,
+                           "biases": biases},
+                          code_bits(weight_q, x.shape[-1]), torch.float32)
+    return torch.matmul(x.float(), w.t()).to(x.dtype)
+
+
+def affine_matvec(x: torch.Tensor, weight_q: torch.Tensor,
+                  scales: torch.Tensor, biases: torch.Tensor) -> torch.Tensor:
+    """Kernel 5: grouped-affine dequant matvec, fp32 accumulation. x:
+    (B, IN) fp32/bf16; weight_q: uint8 (OUT, IN) 8-bit or (OUT, IN/2)
+    packed 4-bit codes; scales, biases: (OUT, IN/group) fp32. On CUDA the
+    group must be a multiple of 16. Returns (B, OUT) in x.dtype."""
+    if x.device.type == "cpu":
+        return affine_matvec_plain(x, weight_q, scales, biases)
+    if x.device.type != "cuda":
+        raise ValueError(f"affine_matvec: unsupported device {x.device}")
+    from csm_mlx_tpu_torch.ops import _build
+
+    rows, in_dim = x.shape
+    out_dim, n_groups = scales.shape
+    bits = code_bits(weight_q, in_dim)
+    if weight_q.shape[0] != out_dim or biases.shape != scales.shape:
+        raise ValueError(f"affine_matvec: codes {tuple(weight_q.shape)}, "
+                         f"scales {tuple(scales.shape)} and biases "
+                         f"{tuple(biases.shape)} do not match")
+    group = in_dim // n_groups
+    if in_dim % n_groups or group % 16:
+        raise ValueError(f"affine_matvec kernel needs a group that is a "
+                         f"multiple of 16 and divides IN; got IN={in_dim}, "
+                         f"{n_groups} groups")
+    if x.dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"affine_matvec: x dtype {x.dtype}; the kernel "
+                         f"takes fp32 or bf16")
+    for name, t in (("weight_q", weight_q), ("scales", scales),
+                    ("biases", biases)):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"affine_matvec: {name} must be contiguous on "
+                             f"{x.device}")
+    if scales.dtype != torch.float32 or biases.dtype != torch.float32:
+        raise ValueError("affine_matvec: scales/biases must be fp32")
+    x = x.contiguous()
+    if weight_q.data_ptr() % 16 or x.data_ptr() % 16:
+        raise ValueError("affine_matvec: weight_q and x must be 16-byte "
+                         "aligned")
+    out = torch.empty((rows, out_dim), dtype=x.dtype, device=x.device)
+    code = _build.library().csm_affine_matvec(
+        x.data_ptr(), weight_q.data_ptr(), scales.data_ptr(),
+        biases.data_ptr(), out.data_ptr(), rows, in_dim, out_dim, group,
+        bits, _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x.device))
+    _build.check(code, "csm_affine_matvec")
+    affine_matvec.launches += 1
+    return out
+
+
+affine_matvec.launches = 0
+
+
+# --- W8A8 --------------------------------------------------------------------
 
 
 def quantize_weight_w8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -126,70 +292,117 @@ def audio_head_logits(head: torch.Tensor, i: int,
 
 
 def quant_linear(params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-    """Linear over a W8A8 dict ({"weight_q" int8, "scales", "biases"}); every
-    row count goes through `w8a8_matvec`."""
-    if params["weight_q"].dtype != torch.int8:
-        raise ValueError(f"quant_linear: only W8A8 int8 codes are ported, "
-                         f"got {params['weight_q'].dtype}")
+    """Linear over a quantized dict, dispatched on the code type as in JAX:
+    signed int8 codes (W8A8) go through `w8a8_matvec` at every row count;
+    unsigned (affine) codes through `affine_matvec` at <= 64 rows, else the
+    weight dequantized to x.dtype and one matmul. The affine code width and
+    group come from the stored arrays against x's width."""
+    wq = params["weight_q"]
     lead = x.shape[:-1]
-    xf = x.reshape(-1, x.shape[-1])
-    y = w8a8_matvec(xf, params["weight_q"], params["scales"],
-                    params["biases"])
+    in_dim = x.shape[-1]
+    xf = x.reshape(-1, in_dim)
+    if wq.dtype == torch.int8:
+        y = w8a8_matvec(xf, wq, params["scales"], params["biases"])
+    elif wq.dtype == torch.uint8:
+        if xf.shape[0] <= AFFINE_MAX_ROWS:
+            y = affine_matvec(xf, wq, params["scales"], params["biases"])
+        else:
+            w = dequantize_weight(params, code_bits(wq, in_dim), x.dtype)
+            y = torch.matmul(xf, w.t())
+    else:
+        raise ValueError(f"quant_linear: codes of type {wq.dtype} are not "
+                         f"ported (int8 W8A8 or uint8 affine)")
     y = y.reshape(*lead, -1)
     if "bias" in params:
         y = y + params["bias"].to(y.dtype)
     return y
 
 
-def _quantize_tree(tree: Any, min_size: int, path: str = "") -> Any:
+# --- model quantization -----------------------------------------------------
+
+
+def _quantize_tree(tree: Any, bits: int, group_size: int, min_size: int,
+                   path: str = "", mode: str = "affine") -> Any:
     if isinstance(tree, dict):
         # "codebook" guards RVQ codebooks, not the codebook0_head Linear.
         blocked = any(t in path for t in _NO_QUANT) \
             and "codebook0_head" not in path
+        if "dora_m" in tree:
+            warnings.warn(
+                f"quantize_model: skipping DoRA-adapted '{path}' — the "
+                f"per-row renormalization needs the dense weight.")
+            return tree
         w = tree.get("weight")
         if isinstance(w, torch.Tensor) and w.dim() == 2 and not blocked:
-            if w.numel() >= min_size:
+            # w8a8 is per-channel: no input-group alignment needed.
+            align = 1 if mode == "w8a8" else group_size
+            large = w.numel() >= min_size
+            if large and w.shape[-1] % align == 0:
                 new = {k: v for k, v in tree.items() if k != "weight"}
-                new.update(quantize_weight_w8(w))
+                new.update(quantize_weight_w8(w) if mode == "w8a8"
+                           else quantize_weight(w, bits, group_size))
                 return new
+            if large:  # large enough but misaligned: say so
+                warnings.warn(
+                    f"quantize_model: skipping '{path}' — in_dim "
+                    f"{w.shape[-1]} is not a multiple of group_size "
+                    f"{align}; weight stays "
+                    f"{str(w.dtype).replace('torch.', '')}.")
             return tree
-        return {k: _quantize_tree(v, min_size, f"{path}.{k}")
+        return {k: _quantize_tree(v, bits, group_size, min_size,
+                                  f"{path}.{k}", mode)
                 for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_quantize_tree(v, min_size, f"{path}.{i}")
+        return [_quantize_tree(v, bits, group_size, min_size, f"{path}.{i}",
+                               mode)
                 for i, v in enumerate(tree)]
     return tree
 
 
-def quantize_model(model, min_size: int = 1 << 16, mode: str = "w8a8",
+def quantize_model(model, bits: int = DEFAULT_BITS,
+                   group_size: int = DEFAULT_GROUP_SIZE,
+                   min_size: int = 1 << 16, mode: str = "affine",
                    targets=("backbone", "decoder", "projection"),
                    fuse: bool = True) -> None:
-    """Quantize the large Linear weights of `model.params` in place (W8A8),
-    then (with `fuse`) fold q/k/v and gate/up into single wide linears.
+    """Quantize the large Linear weights of `model.params` in place, then
+    (with `fuse`) fold q/k/v and gate/up into single wide linears. The
+    signature and defaults are the JAX package's.
 
-    Embeddings, norms and `audio_head` stay as they are, as in the JAX
-    package with its default targets. On a CUDA model, W8A8 with `fuse` and
-    the decoder among the targets also derives the whole-frame decoder's
-    tables (`params["_resident"]`, `ops.resident_decoder`), as the JAX
-    package does on any backend but the CPU; generation then runs each
-    decoder frame as one kernel-3 launch per chunk of <= 64 rows."""
-    if mode != "w8a8":
+    mode="affine" (default): MLX-parity grouped affine codes, `bits` 4 or 8
+    and `group_size` (4-bit, group 64 by default, as `nn.quantize`); a leaf
+    whose IN is not a multiple of `group_size` stays as it is, with a
+    warning. mode="w8a8": per-channel int8 weights with dynamic int8
+    activations; `bits`/`group_size` are ignored.
+
+    Embeddings, norms and `audio_head` stay as they are (an "audio_head"
+    target is skipped silently in affine mode, as in JAX; its W8A8 form is
+    not ported), and DoRA leaves are skipped with a warning. On a CUDA
+    model, W8A8 with `fuse` and the decoder among the targets also derives
+    the whole-frame decoder's tables (`params["_resident"]`,
+    `ops.resident_decoder`), as the JAX package does on any backend but the
+    CPU; generation then runs each decoder frame as one kernel-3 launch per
+    chunk of <= 64 rows. The affine path runs the dispatched decoder."""
+    if mode not in ("affine", "w8a8"):
         raise ValueError(f"quantize_model: mode {mode!r} is not ported yet; "
-                         f"only 'w8a8'")
-    if "audio_head" in targets:
-        raise ValueError("quantize_model: the int8 audio_head is not ported "
-                         "yet")
+                         f"'affine' or 'w8a8'")
     p = model.params
     for key in targets:
+        if key == "audio_head" and key in p and not isinstance(p[key], dict):
+            if mode == "w8a8":
+                raise ValueError("quantize_model: the int8 audio_head is not "
+                                 "ported yet")
+            continue
         if key in p:
-            p[key] = _quantize_tree(p[key], min_size, path=key)
+            p[key] = _quantize_tree(p[key], bits, group_size, min_size,
+                                    path=key, mode=mode)
     if fuse:
         from csm_mlx_tpu_torch.models.llama import fuse_layer_weights
 
         for key in ("backbone", "decoder"):
             if key in p:
                 fuse_layer_weights(p[key])
-    if fuse and "decoder" in targets and model.device.type == "cuda":
+    if mode == "w8a8" and fuse and "decoder" in targets \
+            and model.device.type == "cuda":
         from csm_mlx_tpu_torch.ops.resident_decoder import \
             prepare_resident_decoder
 

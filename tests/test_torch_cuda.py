@@ -351,3 +351,116 @@ def _to_device(tree, device):
     if isinstance(tree, list):
         return [_to_device(v, device) for v in tree]
     return tree.detach().to(device).clone()
+
+
+# --- kernel 5: the grouped-affine dequant matvec ----------------------------
+
+
+# rows 1, 2, 3 and 8 each take their own row tile (1, 2, 4, 8); 64 takes 8
+@pytest.mark.parametrize("rows", [1, 2, 3, 8, 64])
+@pytest.mark.parametrize("bits,group,in_dim", [(4, 64, 2048), (8, 64, 1024),
+                                               (4, 128, 512), (4, 48, 480),
+                                               (8, 16, 272)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_affine_kernel_matches_plain(cuda_device, dtype, bits, group, in_dim,
+                                     rows):
+    rng = np.random.RandomState(rows + group)
+    w = torch.from_numpy((rng.randn(1000, in_dim) * 0.1).astype(np.float32))
+    x = torch.from_numpy(rng.randn(rows, in_dim).astype(np.float32))
+    q = {k: v.to(cuda_device)
+         for k, v in quant.quantize_weight(w, bits, group).items()}
+    xd = x.to(cuda_device, dtype)
+    before = quant.affine_matvec.launches
+    got = quant.affine_matvec(xd, q["weight_q"], q["scales"], q["biases"])
+    want = quant.affine_matvec_plain(xd, q["weight_q"], q["scales"],
+                                     q["biases"])
+    torch.cuda.synchronize()
+    assert quant.affine_matvec.launches == before + 1
+    assert got.dtype == dtype and got.shape == (rows, 1000)
+    # the same dequantized fp32 weights; fp32 sums in another order, then
+    # bf16 rounds the output
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-5 * scale)
+
+
+def test_affine_quant_linear_routes_on_card(cuda_device):
+    """quant_linear on the card: kernel 5 at <= 64 rows, the dequant matmul
+    above, both near the plain version."""
+    w = torch.randn(256, 512, device=cuda_device) * 0.1
+    q = quant.quantize_weight(w, 4, 64)
+    for rows, launched in ((64, 1), (65, 0)):
+        x = torch.randn(rows, 512, device=cuda_device)
+        before = quant.affine_matvec.launches
+        got = quant.quant_linear(q, x)
+        assert quant.affine_matvec.launches - before == launched
+        want = quant.affine_matvec_plain(x, q["weight_q"], q["scales"],
+                                         q["biases"])
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+def test_affine_kernel_rejects_what_it_does_not_take(cuda_device):
+    q = {k: v.to(cuda_device)
+         for k, v in quant.quantize_weight(torch.randn(64, 72), 8, 24).items()}
+    with pytest.raises(ValueError, match="multiple of 16"):
+        quant.affine_matvec(torch.randn(2, 72, device=cuda_device),
+                            q["weight_q"], q["scales"], q["biases"])
+    q = {k: v.to(cuda_device)
+         for k, v in quant.quantize_weight(torch.randn(64, 64)).items()}
+    with pytest.raises(ValueError, match="fit neither"):
+        quant.affine_matvec(torch.randn(2, 96, device=cuda_device),
+                            q["weight_q"], q["scales"], q["biases"])
+
+
+# --- kernel 4: flash-decode attention -------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,n_kv,cap,index", [(8, 32, 8, 157, 140),
+                                                (3, 8, 2, 1000, 999),
+                                                (2, 8, 8, 64, 0),
+                                                (4, 16, 2, 77, 30)])
+def test_flash_decode_kernel_matches_plain(cuda_device, dtype, b, h, n_kv,
+                                           cap, index):
+    """Per-row pads up to index (one row past it: no valid key, a uniform
+    average as in the masked softmax); k/v are the layer views of a
+    2-layer cache, q a transposed projection."""
+    rng = np.random.RandomState(cap)
+    q = torch.from_numpy(rng.randn(b, 1, h, 64).astype(np.float32))
+    kc = torch.from_numpy(rng.randn(2, b, n_kv, cap, 64).astype(np.float32))
+    vc = torch.from_numpy(rng.randn(2, b, n_kv, cap, 64).astype(np.float32))
+    q, kc, vc = (t.to(cuda_device, dtype) for t in (q, kc, vc))
+    q = q.transpose(1, 2)
+    pads = rng.randint(0, index + 1, (b,))
+    pads[-1] = index + 1 if index + 1 < cap else pads[-1]
+    pad = torch.from_numpy(pads).to(cuda_device)
+    before = attention.flash_decode_sdpa.launches
+    got = attention.flash_decode_sdpa(q, kc[1], vc[1], 0.125, pad, index)
+    want = attention.flash_decode_plain(q, kc[1], vc[1], 0.125, pad, index)
+    torch.cuda.synchronize()
+    assert attention.flash_decode_sdpa.launches == before + 1
+    assert got.shape == (b, h, 1, 64) and torch.isfinite(got).all()
+    # fp32: sum order and expf; bf16: the plain version rounds the
+    # probabilities to bf16 before P.V (as the JAX sdpa), the kernel keeps
+    # them in fp32, and both round the output. bf16's absolute part shrinks
+    # with the output's largest magnitude: averages over ~1000 keys are small
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    atol = tol if dtype == torch.float32 else \
+        tol * min(1.0, want.float().abs().max().item())
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=atol)
+
+
+def test_flash_decode_kernel_rejects_what_it_does_not_take(cuda_device):
+    q = torch.zeros((2, 8, 1, 32), device=cuda_device)
+    k = torch.zeros((2, 2, 40, 32), device=cuda_device)
+    pad = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="D=64"):
+        attention.flash_decode_sdpa(q, k, k, 1.0, pad, 3)
+    q = torch.zeros((2, 6, 1, 64), device=cuda_device)
+    k = torch.zeros((2, 2, 40, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="H/n_kv"):
+        attention.flash_decode_sdpa(q, k, k, 1.0, pad, 3)
+    q = torch.zeros((2, 8, 1, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="index"):
+        attention.flash_decode_sdpa(q, k, k, 1.0, pad, 40)
