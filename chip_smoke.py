@@ -132,14 +132,25 @@ BATCH_ROWS, BATCH_FRAMES = 64, 8  # the batch flash-decode phase
 STEP_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 # Kernels 6 and 7 at the backbone's shape: (B, S) cases; H = 32, n_kv = 8,
 # D = 64, scale 1/8. Tolerances on max |kernel - plain| over max |plain|,
-# for O, dq, dk and dv. fp32: both sum in fp32 in other orders (exp, the
-# online softmax against a one-pass one); 2e-5 is ~10x what fp32 runs at
-# S = 2048 show. bf16 is looser: the inputs are the same bf16 values, both
-# compute in fp32 and round the outputs to bf16 (2^-8 of each value), and
-# the kernel's delta = rowsum(dO * O) reads the bf16 O where the plain one
-# reads its fp32 O.
+# for O, dq, dk and dv. fp32 (CUDA cores): both sum in fp32 in other orders
+# (exp, the online softmax against a one-pass one); 2e-5 is ~10x what fp32
+# runs at S = 2048 show. bf16 (tensor cores) is looser: the inputs are the
+# same bf16 values and every sum is fp32, but the kernels round P and dS to
+# bf16 where they feed their second products (the plain versions keep them
+# fp32), both round the outputs to bf16 (2^-8 of each value), and the
+# kernel's delta = rowsum(dO * O) reads the bf16 O where the plain one
+# reads its fp32 O. The logsumexp is held to FLASH_TRAIN_LSE_TOL absolute
+# in both types.
 FLASH_TRAIN_CASES = ((2, 575), (1, 2048))
 FLASH_TRAIN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_TRAIN_LSE_TOL = 1e-4
+# the device kernels of csrc/flash_train.cu, by name, for the traces
+FLASH_TRAIN_KERNELS = ("flash_fwd_tc_kernel", "flash_delta_tc_kernel",
+                       "flash_bwd_tc_kernel", "flash_dkdv_reduce_kernel",
+                       "flash_fwd_kernel", "flash_delta_kernel",
+                       "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+FLASH_TRAIN_ROUTE = {torch.float32: "CUDA cores, fp32",
+                     torch.bfloat16: "tensor cores, mma.sync bf16"}
 TRAIN_B, TRAIN_S = 2, 576  # the 64-bucket of 575 frames
 # H100 SXM, NVIDIA's data sheet: HBM bytes/s and dense peak ops/s by type
 HBM_BYTES_PER_S = 3.35e12
@@ -1259,12 +1270,37 @@ def flash_train_bounds(q, k, dtype) -> dict:
                 bwd=bound_ms(4 * qb + 4 * kb + lse, 2.5 * flops, kind))
 
 
+def launch_split(fn, reps: int = 5) -> str:
+    """torch.profiler over `reps` calls of fn: the mean device us of each
+    kernel it launches, by name, largest first, over the launches the
+    profiler recorded (it can drop some; their count is printed)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0][:40]
+            n, us = by_name.get(name, (0, 0))
+            by_name[name] = (n + 1, us + e.time_range.elapsed_us())
+    return "; ".join(f"{k} {us / n:.1f} us x{n}" for k, (n, us) in
+                     sorted(by_name.items(), key=lambda kv: -kv[1][1]))
+
+
 def check_flash_train(dev, gen) -> dict:
     """Kernels 6 and 7 against their plain versions at the backbone's
     shape, with random dO: max_abs_err and max |err| / max |plain| of O,
-    dq, dk and dv within FLASH_TRAIN_TOL; device times of the kernels, the
-    plain versions and the library call, and the bound. Returns the JSON
-    entries' numbers at the training path's case, (B=2, S=575) bf16."""
+    dq, dk and dv within FLASH_TRAIN_TOL, the logsumexp within
+    FLASH_TRAIN_LSE_TOL, and a second call of each bit-equal to the first;
+    device times of the kernels, the plain versions and the library call,
+    the bound, the kernels' share of it and their ratio to the library;
+    in bf16, the profiler's split of each kernel by launch. Returns the
+    JSON entries' numbers at the training path's case, (B=2, S=575) bf16."""
     scale = 64 ** -0.5
     out = {}
     for b, s in FLASH_TRAIN_CASES:
@@ -1272,9 +1308,14 @@ def check_flash_train(dev, gen) -> dict:
             q, k, v, do = flash_train_inputs(gen, dev, dtype, b, s)
             o, lse = flash_train.flash_train_fwd(q, k, v, scale)
             grads = flash_train.flash_train_bwd(q, k, v, o, lse, do, scale)
-            want_o, _ = flash_train.flash_train_fwd_plain(q, k, v, scale)
+            o2, lse2 = flash_train.flash_train_fwd(q, k, v, scale)
+            grads2 = flash_train.flash_train_bwd(q, k, v, o, lse, do, scale)
+            want_o, want_lse = flash_train.flash_train_fwd_plain(q, k, v,
+                                                                 scale)
             want = flash_train.flash_train_bwd_plain(q, k, v, do, scale)
             torch.cuda.synchronize()
+            repeat_equal = torch.equal(o, o2) and torch.equal(lse, lse2) \
+                and all(torch.equal(x, y) for x, y in zip(grads, grads2))
             errs = {}
             for name, got, ref in zip(("O", "dq", "dk", "dv"),
                                       (o, *grads), (want_o, *want)):
@@ -1283,8 +1324,10 @@ def check_flash_train(dev, gen) -> dict:
                 if not bool(torch.isfinite(got).all()):
                     abs_err = float("inf")
                 errs[name] = (abs_err, abs_err / ref.abs().max().item())
+            lse_err = (lse - want_lse).abs().max().item()
             tol = FLASH_TRAIN_TOL[dtype]
-            ok = all(rel <= tol for _, rel in errs.values())
+            ok = all(rel <= tol for _, rel in errs.values()) \
+                and lse_err <= FLASH_TRAIN_LSE_TOL
             ms_f = time_ms(lambda: flash_train.flash_train_fwd(q, k, v, scale),
                            reps=10)[0]
             ms_b = time_ms(lambda: flash_train.flash_train_bwd(
@@ -1296,18 +1339,32 @@ def check_flash_train(dev, gen) -> dict:
             lib_f, lib_b, lib_fb = time_sdpa_train(q, k, v, do, scale)
             bounds = flash_train_bounds(q, k, dtype)
             log(f"flash_train B={b} S={s} {str(dtype):14s} "
+                f"({FLASH_TRAIN_ROUTE[dtype]}) "
                 + "  ".join(f"{n} max_abs_err {a:.3e} rel {r:.3e}"
                             for n, (a, r) in errs.items())
-                + f" (tol rel {tol:g})  kernel fwd {ms_f:.4f} bwd {ms_b:.4f}"
+                + f" (tol rel {tol:g})  lse max_abs_err {lse_err:.3e} (tol "
+                f"{FLASH_TRAIN_LSE_TOL:g})  repeat bit-equal {repeat_equal}"
+                f"  kernel fwd {ms_f:.4f} bwd {ms_b:.4f}"
                 f" ms device  plain fwd {pl_f:.4f} bwd {pl_b:.4f}  sdpa fwd "
                 f"{lib_f:.4f} bwd {lib_b:.4f} fwd+bwd {lib_fb:.4f}  bound fwd "
                 f"{bounds['fwd'][0]:.4f} ({bounds['fwd'][1]}) bwd "
                 f"{bounds['bwd'][0]:.4f} ({bounds['bwd'][1]}) = "
                 f"{bounds['fwd'][0] / ms_f:.1%} / {bounds['bwd'][0] / ms_b:.1%}"
-                f" of the kernels  {'ok' if ok else 'MISMATCH'}")
+                f" of the kernels; kernel / sdpa fwd {ms_f / lib_f:.2f}x bwd "
+                f"{ms_b / lib_b:.2f}x  {'ok' if ok else 'MISMATCH'}")
             if not ok:
                 raise AssertionError(f"flash_train kernels disagree at B={b} "
                                      f"S={s} {dtype}")
+            if not repeat_equal:
+                raise AssertionError(f"flash_train kernels gave other bits on "
+                                     f"a second call at B={b} S={s} {dtype}")
+            if dtype == torch.bfloat16:
+                split_f = launch_split(
+                    lambda: flash_train.flash_train_fwd(q, k, v, scale))
+                split_b = launch_split(lambda: flash_train.flash_train_bwd(
+                    q, k, v, o, lse, do, scale))
+                log(f"flash_train B={b} S={s} bf16 by launch: fwd {split_f}"
+                    f"  bwd {split_b}")
             if (b, s, dtype) == (2, 575, torch.bfloat16):
                 for key, ms, pl, lib, bd in (
                         ("fwd", ms_f, pl_f, lib_f, bounds["fwd"]),
@@ -1317,7 +1374,7 @@ def check_flash_train(dev, gen) -> dict:
                     out[key] = dict(max_abs_err=err, ms=ms, plain_ms=pl,
                                     bound_ms=bd[0], bound_by=bd[1],
                                     library_ms=lib)
-            del q, k, v, do, o, lse, grads, want_o, want
+            del q, k, v, do, o, lse, grads, o2, lse2, grads2, want_o, want
             torch.cuda.empty_cache()
     return out
 
@@ -1374,7 +1431,8 @@ def timed_steps(trainer, batch, n: int) -> tuple[list, list]:
 def trace_step(trainer, batch, label: str) -> None:
     """torch.profiler over one more training step: the card's busy time
     (the profiler slows the host, so the busy share reads low), device
-    events, and the kernels that take the most device time."""
+    events, the share of the busy time in kernels 6 and 7 (every kernel of
+    csrc/flash_train.cu), and the kernels that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1391,10 +1449,13 @@ def trace_step(trainer, batch, label: str) -> None:
             n, us = by_name.get(e.name[:56], (0, 0))
             by_name[e.name[:56]] = (n + 1, us + e.time_range.elapsed_us())
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
+    flash_ms = sum(us for k, (_, us) in by_name.items()
+                   if any(n in k for n in FLASH_TRAIN_KERNELS)) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     log(f"trace, one {label} step: "
         f"{sum(n for n, _ in by_name.values())} device events, device busy "
-        f"{busy_ms:.1f} ms of {wall_ms:.1f} ms profiled wall; top: "
+        f"{busy_ms:.1f} ms of {wall_ms:.1f} ms profiled wall; kernels 6 and "
+        f"7 {flash_ms:.2f} ms = {flash_ms / busy_ms:.1%} of busy; top: "
         + "; ".join(f"{k} {us / 1e3:.2f} ms x{n}" for k, (n, us) in top))
 
 

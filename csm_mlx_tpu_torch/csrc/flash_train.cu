@@ -1,43 +1,68 @@
 // Causal grouped-query flash attention for training, forward and backward,
 // for Hopper (sm_90a).
 //
-// Replaces the TPU kernels `_fwd_impl` and `_bwd_impl` of
-// csm_mlx_tpu/ops/flash_train.py: query i attends key j iff j <= i, with an
-// fp32 softmax, and no (S, S) logits or probabilities written to device
-// memory in either pass. GQA is implicit: query heads g*group .. g*group +
-// group - 1 share kv head g.
+// Replaces the TPU kernels `_fwd_impl` (csm_mlx_tpu/ops/flash_train.py:88)
+// and `_bwd_impl` (:126): query i attends key j iff j <= i, with an fp32
+// softmax, and no (S, S) logits or probabilities written to device memory
+// in either pass. GQA is implicit: query heads g*group .. g*group + group
+// - 1 share kv head g. The forward writes O and the fp32 natural-log
+// logsumexp (B, H, S); the backward recomputes the probabilities from it.
+// (The JAX kernel saves no logsumexp and recomputes it; the outputs are
+// the same.)
 //
-// The TPU kernels walk a sequential grid and carry dk/dv in VMEM from one
-// q block to the next; here blocks run in parallel and in no order, so the
-// design is FlashAttention-2's:
-// - forward: one block per (batch, head, 64-row q tile), one thread per
-//   query row, online softmax over 64-key tiles staged in shared memory;
-//   tiles above the diagonal are skipped, the diagonal tile and the S tail
-//   are masked. It writes O and the fp32 logsumexp (B, H, S). (The JAX
-//   kernel saves no logsumexp and recomputes it; the outputs are the same.)
-// - backward, three launches and no float atomics (deterministic):
-//   delta = rowsum(dO * O); a dk/dv kernel with one block per (batch, kv
-//   head, 64-key tile) that loops over the `group` query heads and the q
-//   tiles on or below the diagonal, accumulating dk/dv in fp32 registers;
-//   a dq kernel with one block per (batch, head, 64-row q tile) that loops
-//   over the key tiles up to the diagonal. Both recompute the probabilities
-//   as exp(s - lse). In the backward kernels two threads share a row: each
-//   holds the interleaved half of D (dims 2t + half) and a shuffle joins
-//   their partial dot products, which keeps 128 fp32 values per thread.
+// What bounds it on the H100. At the training shape (B=2, S=575, H=32,
+// n_kv=8, D=64, bf16) the forward moves 11.9 MB (3.56 us at 3.35 TB/s)
+// for 2.7 GFLOP of causal products (2.74 us at 989 TFLOP/s), the backward
+// 23.6 MB (7.07 us) for 6.8 GFLOP (6.85 us): both sit on the ridge. At
+// (B=1, S=2048) the forward's 17.2 GFLOP take 17.4 us and the backward's
+// 42.9 GFLOP 43.4 us: operations. So the products belong on the tensor
+// cores, and every tile load has to overlap them.
 //
-// What bounds it on the H100: the work is 2*S*S*D multiply-adds per head
-// forward (causal half) and 2.5x that backward, against a few MB of
-// inputs: operations. This first version computes in fp32 on the CUDA
-// cores (67 TFLOP/s peak), not on the tensor cores; wgmma and TMA are for a
-// later version.
+// The design: FlashAttention-2's register layout on `mma.sync` (m16n8k16,
+// bf16 operands, fp32 accumulators). A block is 4 warps; a warp owns 16
+// rows of its 64-row tile and keeps its operand of the first product in
+// registers. (Warps of 32 rows, which share each B fragment between two
+// products, measured slower: fewer warps an SM to hide latency.) The other
+// operand, 64-row bf16 tiles in shared memory (rows padded to 144 bytes,
+// so `ldmatrix` is free of bank conflicts), is double-buffered by 16-byte
+// `cp.async` copies: tile t+1 loads while tile t computes, one barrier a
+// tile. The C fragments of a first product are the A fragments of the
+// second (rounded to bf16 in registers), so P and dS never leave the
+// registers. Softmax sums, row maxima and every accumulator stay fp32; the
+// exponentials are one ex2.approx each, with scale * log2(e) folded in.
+// Masking happens only on the diagonal tile and on the S tail, with the
+// finite NEG_INF = -0.7 * FLT_MAX of the JAX package, never -inf; every
+// real row sees key 0. On a diagonal tile a warp skips the fragments that
+// lie wholly above the diagonal. The tile index is the grid's slowest
+// dimension, so the blocks with the longest loops start first.
+// - forward: one block per (head, batch, 64-row q tile); the key tiles up
+//   to the diagonal stream through.
+// - backward, three launches, no float atomics, each output element
+//   written by one block and summed in a fixed order (deterministic:
+//   bit-equal repeats): delta = rowsum(dO * O), 8 lanes a row; then one
+//   launch of two kinds of block, ordered by the length of their loops:
+//   dk/dv blocks, one per (query head, batch, 64-key tile),
+//   holding K and V as fragments while the head's q tiles on or below the
+//   diagonal stream through (S^T = K Q^T, dP^T = V dO^T, dV += P^T dO,
+//   dK += dS^T Q), and dq blocks, one per (head, batch, q tile), streaming
+//   the key tiles (S = Q K^T, dP = dO V^T, dQ += dS K); last, a pass sums
+//   the dk/dv blocks' fp32 partials over the query group in head order
+//   (with a group of 1, a cast to bf16). Splitting dk/dv over the
+//   query heads rather than looping over them in one block cuts the
+//   longest chain of tile steps by the group size (36 to 9 at the training
+//   shape, where the loop left 144 blocks for 132 SMs); the partials cost
+//   2 * B * H * S * 64 fp32 values, written once and read once.
 //
-// Masking uses the finite NEG_INF = -0.7 * FLT_MAX of the JAX package,
-// never -inf. Every real row sees key 0, so no row is fully masked.
+// fp32 keeps the first version's kernels on the CUDA cores (67 TFLOP/s
+// peak): the tensor cores take fp32 only as TF32, whose 10-bit mantissa
+// cannot meet the fp32 route's 2e-5 / 1e-4 gates. The training path runs
+// bf16.
 //
 // q, k, v and dO are read through the strides the wrapper passes (the
-// innermost dimension contiguous): they arrive as transposed views of the
-// projections and are not copied. O, lse, delta, dq, dk and dv are
-// contiguous. head_dim must be 64 (checked; the wrapper raises first).
+// innermost dimension contiguous; on the bf16 route rows 16-byte aligned):
+// they arrive as transposed views of the projections and are not copied.
+// O, lse, delta, dq, dk and dv are contiguous. head_dim must be 64
+// (checked; the wrapper raises first).
 
 #include <cfloat>
 #include <cstdint>
@@ -56,6 +81,9 @@ constexpr float kNegInf = -0.7f * FLT_MAX;
 struct Strides {
   long long b, h, s;  // element strides of dims 0, 1, 2; dim 3 is contiguous
 };
+
+// ---------------------------------------------------------------------------
+// fp32 route: CUDA cores, one thread (forward) or two (backward) per row.
 
 template <typename T>
 __global__ void __launch_bounds__(kBQ)
@@ -307,6 +335,553 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < kHalf; ++t) dq[row * kD + 2 * t + half] = from_f32<T>(acc[t]);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 route: tensor cores (mma.sync m16n8k16), tiles staged by cp.async.
+//
+// Fragment layout of m16n8k16 (lane = 4 * gr + tq): an A fragment holds
+// rows gr and gr + 8, columns 2tq, 2tq + 1 and 2tq + 8, 2tq + 9 of a 16 x
+// 16 tile; a C fragment c[0..3] holds (gr, 2tq), (gr, 2tq + 1),
+// (gr + 8, 2tq), (gr + 8, 2tq + 1) of a 16 x 8 tile. A warp's 16 x 64
+// product is 8 C fragments, acc[n] for columns 8n .. 8n + 7.
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 128;          // 4 warps x 16 rows of a 64-row tile
+constexpr int kLd = kD + 8;            // shared row stride: 144 bytes
+constexpr int kTile = kBQ * kLd;       // elements of one shared tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros where !ok.
+__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+// 4 bytes global -> shared, asynchronously; zero where !ok.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits for every copy this thread committed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows r0 .. r0 + 63 of one (batch, head) plane (row stride rs elements)
+// into a shared tile, by the block's 128 threads; rows past seq are zeros.
+__device__ __forceinline__ void tile_async(bf16* sm, const bf16* g, long long rs,
+                                           int r0, int seq) {
+#pragma unroll
+  for (int i = 0; i < kBQ * kD / 8 / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int r = e >> 3, c = (e & 7) * 8;
+    const bool ok = r0 + r < seq;
+    cp_async16(sm + r * kLd + c, g + (long long)(ok ? r0 + r : 0) * rs + c, ok);
+  }
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a * b on the tensor cores: a 16 x 16, b 16 x 8, bf16; c fp32.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x in one MUFU instruction; results below FLT_MIN flush to 0, which a
+// probability against a row sum >= 1 can afford.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ void zero(float (&c)[8][4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+}
+
+// A fragments of rows row0 .. row0 + 15 of a shared tile, over its 64
+// columns (4 k-steps of 16).
+__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const bf16* tile,
+                                       int row0, int lane) {
+  const bf16* p = tile + (row0 + (lane & 15)) * kLd + (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) ldsm4(a[kk], p + kk * 16);
+}
+
+// c = a * tile^T: a is 16 x 64 (A fragments), tile 64 x 64 in shared
+// memory; c[n] holds the products with tile rows 8n .. 8n + 7, computed for
+// n_lo <= n < n_hi (warp-uniform; the rest stay 0).
+__device__ __forceinline__ void mma_abt(float (&c)[8][4], const uint32_t (&a)[4][4],
+                                        const bf16* tile, int lane, int n_lo = 0,
+                                        int n_hi = 8) {
+  zero(c);
+  const bf16* p = tile + (lane & 7) * kLd + (lane >> 3) * 8;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    if (n < n_lo || n >= n_hi) continue;
+#pragma unroll
+    for (int kk = 0; kk < 4; kk += 2) {
+      uint32_t b[4];
+      ldsm4(b, p + n * 8 * kLd + kk * 16);
+      mma(c[n], a[kk], b[0], b[1]);
+      mma(c[n], a[kk + 1], b[2], b[3]);
+    }
+  }
+}
+
+// c += a * tile: a is 16 x 64 (A fragments over the tile's 64 rows), tile
+// 64 x 64 in shared memory; c[n] holds columns 8n .. 8n + 7. Only the
+// k-steps kk_lo <= kk < kk_hi (tile rows 16kk .. 16kk + 15; warp-uniform)
+// are summed: on a diagonal tile the others multiply zeros.
+__device__ __forceinline__ void mma_ab(float (&c)[8][4], const uint32_t (&a)[4][4],
+                                       const bf16* tile, int lane, int kk_lo = 0,
+                                       int kk_hi = 4) {
+  const bf16* p = tile + ((lane & 7) + ((lane >> 3) & 1) * 8) * kLd + (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk < kk_lo || kk >= kk_hi) continue;
+#pragma unroll
+    for (int n = 0; n < 8; n += 2) {
+      uint32_t b[4];
+      ldsm4_trans(b, p + kk * 16 * kLd + n * 8);
+      mma(c[n], a[kk], b[0], b[1]);
+      mma(c[n + 1], a[kk], b[2], b[3]);
+    }
+  }
+}
+
+// The C fragments of a 16 x 64 product as bf16 A fragments over its 64
+// columns: the first product's output is the second's operand.
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[4][4], const float (&c)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+// Writes a warp's 16 x 64 C fragments, row gr scaled by f0 and row gr + 8
+// by f1, as bf16 rows r0 .. r0 + 15 of the contiguous (rows, 64) plane at
+// `out` (rows >= seq skipped). `stage` is the warp's own 16 rows of a
+// shared tile, which it no longer reads; 16-byte stores.
+__device__ __forceinline__ void store_rows(bf16* out, int r0, int seq, bf16* stage,
+                                           const float (&c)[8][4], float f0,
+                                           float f1, int lane) {
+  const int gr = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    *reinterpret_cast<__nv_bfloat162*>(stage + gr * kLd + n * 8 + 2 * tq) =
+        __floats2bfloat162_rn(c[n][0] * f0, c[n][1] * f0);
+    *reinterpret_cast<__nv_bfloat162*>(stage + (gr + 8) * kLd + n * 8 + 2 * tq) =
+        __floats2bfloat162_rn(c[n][2] * f1, c[n][3] * f1);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int e = lane + 32 * i;
+    const int r = e >> 3, col = (e & 7) * 8;
+    if (r0 + r < seq)
+      *reinterpret_cast<uint4*>(out + (long long)(r0 + r) * kD + col) =
+          *reinterpret_cast<const uint4*>(stage + r * kLd + col);
+  }
+}
+
+// Kernel 6 on the tensor cores: one block per (head, batch, q tile).
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ out,
+                    float* __restrict__ lse, Strides qs, Strides ks, Strides vs,
+                    int n_heads, int group, int seq, float scale) {
+  __shared__ __align__(16) bf16 sq[kTile];
+  __shared__ __align__(16) bf16 sk[2][kTile];
+  __shared__ __align__(16) bf16 sv[2][kTile];
+
+  // grid = (H, B, tiles): the slowest dimension runs the longest tiles first
+  const int qt = gridDim.z - 1 - blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = qt * kBQ;
+  const bf16* kb = k + b * ks.b + (h / group) * ks.h;
+  const bf16* vb = v + b * vs.b + (h / group) * vs.h;
+
+  tile_async(sq, q + b * qs.b + h * qs.h, qs.s, q0, seq);
+  tile_async(sk[0], kb, ks.s, 0, seq);
+  tile_async(sv[0], vb, vs.s, 0, seq);
+  cp_async_commit();
+
+  const float sl2 = scale * kLog2e;
+  const int row = q0 + warp * 16 + (lane >> 2);  // c[.][0..1]; +8 for [2..3]
+  const int col = 2 * (lane & 3);
+  uint32_t qf[4][4];
+  float acc[8][4];
+  zero(acc);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t <= qt; ++t) {  // key tiles up to the diagonal
+    // Tile t has landed and every warp is past tile t - 1, whose buffer
+    // then takes tile t + 1 while tile t computes: one barrier a tile.
+    cp_async_wait_all();
+    __syncthreads();
+    if (t < qt) {
+      tile_async(sk[(t + 1) & 1], kb, ks.s, (t + 1) * kBK, seq);
+      tile_async(sv[(t + 1) & 1], vb, vs.s, (t + 1) * kBK, seq);
+      cp_async_commit();
+    }
+    if (t == 0) load_a(qf, sq, warp * 16, lane);
+
+    // on the diagonal tile, warp w's rows see keys 0 .. 16w + 15 only
+    const bool diag = t == qt;
+    float s[8][4];
+    mma_abt(s, qf, sk[t & 1], lane, 0, diag ? 2 * warp + 2 : 8);
+    if (diag) {  // the diagonal tile (and the S tail): key > row
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (t * kBK + n * 8 + col + (e & 1) > row + (e >> 1) * 8) s[n][e] = kNegInf;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = ex2((m[r] - m_new) * sl2);
+      const float shift = -m_new * sl2;
+      m[r] = m_new;
+      l[r] *= alpha;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        acc[n][2 * r] *= alpha;
+        acc[n][2 * r + 1] *= alpha;
+        s[n][2 * r] = ex2(fmaf(s[n][2 * r], sl2, shift));
+        s[n][2 * r + 1] = ex2(fmaf(s[n][2 * r + 1], sl2, shift));
+        l[r] += s[n][2 * r] + s[n][2 * r + 1];
+      }
+    }
+    uint32_t pf[4][4];
+    c_to_a(pf, s);
+    mma_ab(acc, pf, sv[t & 1], lane, 0, diag ? warp + 1 : 4);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // l >= 1: the row max contributes exp2(0)
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const long long plane = ((long long)b * n_heads + h) * seq;
+  store_rows(out + plane * kD, q0 + warp * 16, seq, sq + warp * 16 * kLd, acc,
+             1.f / l[0], 1.f / l[1], lane);
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row + 8 * r < seq) lse[plane + row + 8 * r] = m[r] * scale + logf(l[r]);
+  }
+}
+
+// delta[b, h, i] = sum_d dO[b, h, i, d] * O[b, h, i, d] in fp32, for the
+// bf16 route: 8 lanes a row, 16 bytes each, joined by shuffles in a fixed
+// order (coalesced, where flash_delta_kernel reads a row per thread).
+__global__ void __launch_bounds__(256)
+flash_delta_tc_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                      float* __restrict__ delta, Strides dos, int n_heads,
+                      int seq, long long rows) {
+  const long long r = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 3;
+  const int part = threadIdx.x & 7;
+  float s = 0.f;
+  if (r < rows) {
+    const int i = (int)(r % seq);
+    const long long bh = r / seq;
+    const int h = (int)(bh % n_heads), b = (int)(bh / n_heads);
+    float x[8], y[8];
+    load8(dout + b * dos.b + h * dos.h + (long long)i * dos.s + part * 8, x);
+    load8(o + r * kD + part * 8, y);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s = fmaf(x[e], y[e], s);
+  }
+  s += __shfl_xor_sync(0xffffffffu, s, 4);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  if (r < rows && part == 0) delta[r] = s;
+}
+
+// Tensor-core dk/dv of one (key tile kt, query head h, batch b): warp w
+// owns keys 16w .. 16w + 15 of the tile and holds their K and V as A
+// fragments, while head h's q tiles kt .. last stream through,
+// double-buffered. It writes fp32 partials (B, H, S, 64) of dk (scaled)
+// and dv, which flash_dkdv_reduce_kernel sums over the group in a fixed
+// order.
+__device__ __forceinline__ void dkdv_block(
+    bf16 (*sq)[kTile], bf16 (*sdo)[kTile], float (*slse)[kBQ],
+    float (*sdelta)[kBQ], const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ partial, const Strides& qs, const Strides& ks,
+    const Strides& vs, const Strides& dos, int n_heads, int group, int seq,
+    float scale, int kt, int h, int b) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_it = (seq + kBQ - 1) / kBQ - kt;  // q tiles kt .. last
+  const int g = h / group;
+  const long long plane = (long long)b * n_heads + h;
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* dob = dout + b * dos.b + h * dos.h;
+
+  // Q, dO, lse and delta rows of q tile kt + it into buffer `buf`.
+  auto fetch = [&](int it, int buf) {
+    const int r0 = (kt + it) * kBQ;
+    tile_async(sq[buf], qb, qs.s, r0, seq);
+    tile_async(sdo[buf], dob, dos.s, r0, seq);
+    const int r = threadIdx.x & (kBQ - 1);
+    const bool ok = r0 + r < seq;
+    const long long at = plane * seq + (ok ? r0 + r : 0);
+    if (threadIdx.x < kBQ)
+      cp_async4(&slse[buf][r], lse + at, ok);
+    else
+      cp_async4(&sdelta[buf][r], delta + at, ok);
+  };
+
+  // K and V pass through buffer 1 on their way to the registers.
+  const int k0 = kt * kBK;
+  tile_async(sq[1], k + b * ks.b + g * ks.h, ks.s, k0, seq);
+  tile_async(sdo[1], v + b * vs.b + g * vs.h, vs.s, k0, seq);
+  fetch(0, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t kf[4][4], vf[4][4];
+  load_a(kf, sq[1], warp * 16, lane);
+  load_a(vf, sdo[1], warp * 16, lane);
+
+  const float sl2 = scale * kLog2e;
+  const int key = k0 + warp * 16 + (lane >> 2);  // c[.][0..1]; +8 for [2..3]
+  const int col = 2 * (lane & 3);
+  float dk_acc[8][4], dv_acc[8][4];
+  zero(dk_acc);
+  zero(dv_acc);
+
+  for (int it = 0; it < n_it; ++it) {
+    // q tile it has landed and every warp is past the previous one (and
+    // past reading K and V), whose buffer then takes q tile it + 1
+    cp_async_wait_all();
+    __syncthreads();
+    if (it + 1 < n_it) {
+      fetch(it + 1, (it + 1) & 1);
+      cp_async_commit();
+    }
+    const int cur = it & 1;
+    const int r0 = (kt + it) * kBQ;
+    // the diagonal tile masks key > row, the last tile the rows past seq
+    const bool masked = it == 0 || r0 + kBQ > seq;
+    // on the diagonal tile, warp w's keys are seen by rows 16w .. 63 only
+    const int lo = it == 0 ? warp : 0;
+
+    float st[8][4], dpt[8][4];  // S^T and dP^T: 16 keys x 64 query rows
+    mma_abt(st, kf, sq[cur], lane, 2 * lo);
+    mma_abt(dpt, vf, sdo[cur], lane, 2 * lo);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + col + (e & 1);
+        float p = ex2(fmaf(st[n][e], sl2, -slse[cur][c] * kLog2e));
+        if (masked && (key + (e >> 1) * 8 > r0 + c || r0 + c >= seq)) p = 0.f;
+        st[n][e] = p;
+        dpt[n][e] = p * (dpt[n][e] - sdelta[cur][c]);  // dS^T / scale
+      }
+    }
+    uint32_t pf[4][4], dsf[4][4];
+    c_to_a(pf, st);
+    c_to_a(dsf, dpt);
+    mma_ab(dv_acc, pf, sdo[cur], lane, lo);  // dV += P^T dO
+    mma_ab(dk_acc, dsf, sq[cur], lane, lo);  // dK += dS^T Q
+  }
+
+  // fp32 partials straight from the fragments: each quad writes 32 bytes
+  const long long part = (long long)gridDim.y * n_heads * seq * kD;
+  float* pk = partial + plane * seq * kD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = key + 8 * r;
+    if (row >= seq) continue;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float* at = pk + (long long)row * kD + n * 8 + col;
+      *reinterpret_cast<float2*>(at) =
+          make_float2(dk_acc[n][2 * r] * scale, dk_acc[n][2 * r + 1] * scale);
+      *reinterpret_cast<float2*>(at + part) =
+          make_float2(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+    }
+  }
+}
+
+// Tensor-core dq of one (q tile qt, head h, batch b): warp w owns rows
+// 16w .. 16w + 15 and holds their Q and dO as A fragments, while the key
+// tiles up to the diagonal stream through, double-buffered.
+__device__ __forceinline__ void dq_block(
+    bf16 (*sk)[kTile], bf16 (*sv)[kTile], const bf16* __restrict__ q,
+    const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dq, const Strides& qs,
+    const Strides& ks, const Strides& vs, const Strides& dos, int n_heads,
+    int group, int seq, float scale, int qt, int h, int b) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = qt * kBQ;
+  const bf16* kb = k + b * ks.b + (h / group) * ks.h;
+  const bf16* vb = v + b * vs.b + (h / group) * vs.h;
+
+  // Q and dO pass through buffer 1 on their way to the registers.
+  tile_async(sk[1], q + b * qs.b + h * qs.h, qs.s, q0, seq);
+  tile_async(sv[1], dout + b * dos.b + h * dos.h, dos.s, q0, seq);
+  tile_async(sk[0], kb, ks.s, 0, seq);
+  tile_async(sv[0], vb, vs.s, 0, seq);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qf[4][4], dof[4][4];
+  load_a(qf, sk[1], warp * 16, lane);
+  load_a(dof, sv[1], warp * 16, lane);
+
+  const float sl2 = scale * kLog2e;
+  const int row = q0 + warp * 16 + (lane >> 2);  // c[.][0..1]; +8 for [2..3]
+  const int col = 2 * (lane & 3);
+  const long long plane = ((long long)b * n_heads + h) * seq;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = row + 8 * r < seq;
+    lse2[r] = ok ? lse[plane + row + 8 * r] * kLog2e : 0.f;
+    dl[r] = ok ? delta[plane + row + 8 * r] : 0.f;
+  }
+  float acc[8][4];
+  zero(acc);
+
+  for (int t = 0; t <= qt; ++t) {  // key tiles up to the diagonal
+    // tile t has landed and every warp is past tile t - 1 (and past
+    // reading Q and dO), whose buffer then takes tile t + 1
+    cp_async_wait_all();
+    __syncthreads();
+    if (t < qt) {
+      tile_async(sk[(t + 1) & 1], kb, ks.s, (t + 1) * kBK, seq);
+      tile_async(sv[(t + 1) & 1], vb, vs.s, (t + 1) * kBK, seq);
+      cp_async_commit();
+    }
+
+    // on the diagonal tile, warp w's rows see keys 0 .. 16w + 15 only
+    const int hi = t == qt ? warp + 1 : 4;
+    float s[8][4], dp[8][4];  // S and dP: 16 rows x 64 keys
+    mma_abt(s, qf, sk[t & 1], lane, 0, 2 * hi);
+    mma_abt(dp, dof, sv[t & 1], lane, 0, 2 * hi);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float p = ex2(fmaf(s[n][e], sl2, -lse2[r]));
+        if (t == qt && t * kBK + n * 8 + col + (e & 1) > row + 8 * r) p = 0.f;
+        s[n][e] = p * (dp[n][e] - dl[r]);  // dS / scale
+      }
+    }
+    uint32_t dsf[4][4];
+    c_to_a(dsf, s);
+    mma_ab(acc, dsf, sk[t & 1], lane, 0, hi);  // dQ += dS K
+  }
+
+  __syncthreads();  // every warp is done with the tiles it stages through
+  store_rows(dq + plane * kD, q0 + warp * 16, seq, sk[0] + warp * 16 * kLd, acc,
+             scale, scale, lane);
+}
+
+// Kernel 7's dk/dv and dq blocks in one launch. grid = (H, B, 2 * tiles):
+// blockIdx.z = 2 * level + role; at each level the dk/dv block (key tile
+// `level`) and the dq block (q tile tiles - 1 - level) walk tiles - level
+// tiles, and the levels run longest first.
+// 3 blocks an SM: ptxas then spills ~112 bytes a thread, which the extra
+// warps more than pay for (measured 6-9% faster than 2 blocks, unspilled).
+__global__ void __launch_bounds__(kThreads, 3)
+flash_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dq, float* __restrict__ partial,
+                    Strides qs, Strides ks, Strides vs, Strides dos, int n_heads,
+                    int group, int seq, float scale) {
+  __shared__ __align__(16) bf16 sa[2][kTile];  // dk/dv: Q; dq: K
+  __shared__ __align__(16) bf16 sb[2][kTile];  // dk/dv: dO; dq: V
+  __shared__ float slse[2][kBQ];
+  __shared__ float sdelta[2][kBQ];
+  const int level = blockIdx.z >> 1, h = blockIdx.x, b = blockIdx.y;
+  if (blockIdx.z & 1)
+    dq_block(sa, sb, q, k, v, dout, lse, delta, dq, qs, ks, vs, dos, n_heads,
+             group, seq, scale, gridDim.z / 2 - 1 - level, h, b);
+  else
+    dkdv_block(sa, sb, slse, sdelta, q, k, v, dout, lse, delta, partial, qs, ks,
+               vs, dos, n_heads, group, seq, scale, level, h, b);
+}
+
+// dk[b, g] = sum over hh < group of the partials of head g * group + hh,
+// in that order (and dv likewise); 4 elements a thread.
+__global__ void flash_dkdv_reduce_kernel(const float* __restrict__ partial,
+                                         bf16* __restrict__ dk,
+                                         bf16* __restrict__ dv, int n_kv,
+                                         int group, long long plane,
+                                         long long n_out) {
+  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= 2 * n_out) return;
+  const bool is_v = i >= n_out;
+  const long long e = is_v ? i - n_out : i;  // element of (B, n_kv, S, 64)
+  const long long bg = e / plane;
+  const float* src = partial + (is_v ? n_out * group : 0) +
+                     (bg * group) * plane + e % plane;
+  float4 acc = *reinterpret_cast<const float4*>(src);
+  for (int hh = 1; hh < group; ++hh) {
+    const float4 x = *reinterpret_cast<const float4*>(src + hh * plane);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  __nv_bfloat162 out[2] = {__floats2bfloat162_rn(acc.x, acc.y),
+                           __floats2bfloat162_rn(acc.z, acc.w)};
+  *reinterpret_cast<uint2*>((is_v ? dv : dk) + e) = *reinterpret_cast<uint2*>(out);
+}
+
+// ---------------------------------------------------------------------------
+
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                void* lse, Strides qs, Strides ks, Strides vs, int batch,
@@ -316,6 +891,17 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), static_cast<float*>(lse),
       qs, ks, vs, n_heads, n_heads / n_kv, seq, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_fwd_tc(const void* q, const void* k, const void* v, void* out,
+                  void* lse, Strides qs, Strides ks, Strides vs, int batch,
+                  int n_heads, int n_kv, int seq, float scale, cudaStream_t st) {
+  const dim3 grid(n_heads, batch, (seq + kBQ - 1) / kBQ);
+  flash_fwd_tc_kernel<<<grid, kThreads, 0, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out),
+      static_cast<float*>(lse), qs, ks, vs, n_heads, n_heads / n_kv, seq, scale);
   return (int)cudaGetLastError();
 }
 
@@ -350,8 +936,41 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
+int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o,
+                  const void* lse, const void* dout, void* delta, void* partial,
+                  void* dq, void* dk, void* dv, Strides qs, Strides ks,
+                  Strides vs, Strides dos, int batch, int n_heads, int n_kv,
+                  int seq, float scale, cudaStream_t st) {
+  const int group = n_heads / n_kv;
+  const long long rows = (long long)batch * n_heads * seq;
+  flash_delta_tc_kernel<<<(unsigned)((rows * 8 + 255) / 256), 256, 0, st>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+      static_cast<float*>(delta), dos, n_heads, seq, rows);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const int tiles = (seq + kBQ - 1) / kBQ;
+  flash_bwd_tc_kernel<<<dim3(n_heads, batch, 2 * tiles), kThreads, 0, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), static_cast<float*>(partial), qs, ks, vs, dos,
+      n_heads, group, seq, scale);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  const long long n_out = (long long)batch * n_kv * seq * kD;
+  flash_dkdv_reduce_kernel<<<(unsigned)((2 * n_out / 4 + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(partial), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), n_kv, group, (long long)seq * kD, n_out);
+  return (int)cudaGetLastError();
+}
+
 bool bad_shape(int head_dim, int seq, int n_heads, int n_kv) {
   return head_dim != kD || seq < 1 || n_kv < 1 || n_heads % n_kv != 0;
+}
+
+// The bf16 route's 16-byte copies need 16-byte aligned rows.
+bool misaligned(const void* p, Strides s) {
+  return reinterpret_cast<uintptr_t>(p) % 16 || s.b % 8 || s.h % 8 || s.s % 8;
 }
 
 }  // namespace
@@ -373,20 +992,24 @@ extern "C" int csm_flash_train_fwd(const void* q, const void* k, const void* v,
   if (dtype == kF32)
     return launch_fwd<float>(q, k, v, out, lse, qs, ks, vs, batch, n_heads,
                              n_kv, seq, scale, st);
-  if (dtype == kBF16)
-    return launch_fwd<__nv_bfloat16>(q, k, v, out, lse, qs, ks, vs, batch,
-                                     n_heads, n_kv, seq, scale, st);
+  if (dtype == kBF16) {
+    if (misaligned(q, qs) || misaligned(k, ks) || misaligned(v, vs))
+      return (int)cudaErrorMisalignedAddress;
+    return launch_fwd_tc(q, k, v, out, lse, qs, ks, vs, batch, n_heads, n_kv,
+                         seq, scale, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 // The backward of csm_flash_train_fwd: q/k/v/dout strided as above; o and
-// lse as the forward wrote them; delta: (B, H, S) fp32 scratch; dq
-// (B, H, S, 64), dk/dv (B, n_kv, S, 64), contiguous, in the input type.
+// lse as the forward wrote them; delta: (B, H, S) fp32 scratch; partial:
+// (2, B, H, S, 64) fp32 scratch of the bf16 route (fp32 may pass null);
+// dq (B, H, S, 64), dk/dv (B, n_kv, S, 64), contiguous, in the input type.
 // Three launches on `stream`. Returns cudaGetLastError().
 extern "C" int csm_flash_train_bwd(
     const void* q, const void* k, const void* v, const void* o,
-    const void* lse, const void* dout, void* delta, void* dq, void* dk,
-    void* dv, long long qsb, long long qsh, long long qss, long long ksb,
+    const void* lse, const void* dout, void* delta, void* partial, void* dq,
+    void* dk, void* dv, long long qsb, long long qsh, long long qss, long long ksb,
     long long ksh, long long kss, long long vsb, long long vsh, long long vss,
     long long dsb, long long dsh, long long dss, int batch, int n_heads,
     int n_kv, int seq, int head_dim, float scale, int dtype, void* stream) {
@@ -397,9 +1020,12 @@ extern "C" int csm_flash_train_bwd(
   if (dtype == kF32)
     return launch_bwd<float>(q, k, v, o, lse, dout, delta, dq, dk, dv, qs, ks,
                              vs, dos, batch, n_heads, n_kv, seq, scale, st);
-  if (dtype == kBF16)
-    return launch_bwd<__nv_bfloat16>(q, k, v, o, lse, dout, delta, dq, dk, dv,
-                                     qs, ks, vs, dos, batch, n_heads, n_kv,
-                                     seq, scale, st);
+  if (dtype == kBF16) {
+    if (misaligned(q, qs) || misaligned(k, ks) || misaligned(v, vs) ||
+        misaligned(dout, dos) || misaligned(o, Strides{0, 0, 0}))
+      return (int)cudaErrorMisalignedAddress;
+    return launch_bwd_tc(q, k, v, o, lse, dout, delta, partial, dq, dk, dv, qs,
+                         ks, vs, dos, batch, n_heads, n_kv, seq, scale, st);
+  }
   return (int)cudaErrorInvalidValue;
 }

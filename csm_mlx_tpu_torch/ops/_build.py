@@ -56,9 +56,9 @@ _SIGNATURES = {
     # scale, dtype, stream
     "csm_flash_train_fwd": (_VP,) * 5 + (_LL,) * 9 + (_I,) * 5
     + (_F, _I, _VP),
-    # q, k, v, o, lse, dout, delta, dq, dk, dv, 12 strides, batch, n_heads,
-    # n_kv, seq, head_dim, scale, dtype, stream
-    "csm_flash_train_bwd": (_VP,) * 10 + (_LL,) * 12 + (_I,) * 5
+    # q, k, v, o, lse, dout, delta, partial, dq, dk, dv, 12 strides, batch,
+    # n_heads, n_kv, seq, head_dim, scale, dtype, stream
+    "csm_flash_train_bwd": (_VP,) * 11 + (_LL,) * 12 + (_I,) * 5
     + (_F, _I, _VP),
     # x, w, scales, biases, out, rows, in_dim, out_dim, group, bits, dtype,
     # stream

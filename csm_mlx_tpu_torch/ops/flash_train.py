@@ -15,9 +15,13 @@ CUDA tensors and run the plain versions, `flash_train_fwd_plain` and
 mask the tail tile where JAX pads to 128 and slices back.
 
 Types: the softmax and every sum are fp32; O and dq come back in q's type,
-dk and dv are summed in fp32 and cast to k's type. q/k/v/dO are read
-through their strides (they arrive as transposed views of the
-projections); a tensor whose last dim is not contiguous is copied first.
+dk and dv are summed in fp32 and cast to k's type. On the card, bf16 runs
+on the tensor cores, which round P and dS to bf16 where they are the
+operand of their second product (P V, dS K, P^T dO, dS^T Q), as
+FlashAttention-2 does; fp32 runs on the CUDA cores in fp32 throughout.
+q/k/v/dO are read through their strides (they arrive as transposed views
+of the projections); a tensor whose last dim is not contiguous, or, in
+bf16, whose rows are not 16-byte aligned, is copied first.
 """
 
 from __future__ import annotations
@@ -93,12 +97,21 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str):
             raise ValueError(f"{name}: q/k/v lie on different devices")
 
 
-def _inner_contiguous(t: torch.Tensor) -> torch.Tensor:
-    return t if t.stride(-1) == 1 else t.contiguous()
-
-
 def _strides(t: torch.Tensor) -> tuple[int, int, int]:
-    return t.stride(0), t.stride(1), t.stride(2)
+    """Element strides of dims 0-2; 0 for a dim of size 1, which the kernel
+    never steps over (its stride is arbitrary)."""
+    return tuple(t.stride(i) if t.shape[i] > 1 else 0 for i in range(3))
+
+
+def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    """`t` itself where the kernel can read it through its strides: the
+    last dim contiguous and, for the bf16 route's 16-byte copies, rows
+    16-byte aligned; else a fresh contiguous copy (`contiguous()` would
+    return a misaligned contiguous view unchanged)."""
+    ok = t.stride(-1) == 1
+    if ok and t.dtype == torch.bfloat16:
+        ok = t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in _strides(t))
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_train_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -112,7 +125,7 @@ def flash_train_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from csm_mlx_tpu_torch.ops import _build
 
     _check(q, k, v, "flash_train_fwd")
-    q, k, v = (_inner_contiguous(t) for t in (q, k, v))
+    q, k, v = (_kernel_layout(t) for t in (q, k, v))
     b, n_heads, s, d = q.shape
     out = torch.empty((b, n_heads, s, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, n_heads, s), dtype=torch.float32, device=q.device)
@@ -145,18 +158,23 @@ def flash_train_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if do.shape != q.shape or o.shape != q.shape \
             or lse.shape != (b, n_heads, s):
         raise ValueError("flash_train_bwd: o/dO/lse do not match q")
-    q, k, v, do = (_inner_contiguous(t) for t in (q, k, v, do))
-    o = o.to(q.dtype).contiguous()
-    do = do.to(q.dtype)
+    q, k, v, do = (_kernel_layout(t.to(q.dtype)) for t in (q, k, v, do))
+    o = _kernel_layout(o.to(q.dtype).contiguous())
     lse = lse.float().contiguous()
     n_kv = k.shape[1]
     delta = torch.empty((b, n_heads, s), dtype=torch.float32, device=q.device)
+    # fp32 dk/dv of each query head, summed over the group by the kernel's
+    # last pass (the bf16 route only)
+    partial = torch.empty((2, b, n_heads, s, d), dtype=torch.float32,
+                          device=q.device) \
+        if q.dtype == torch.bfloat16 else None
     dq = torch.empty_like(o)
     dk = torch.empty((b, n_kv, s, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     code = _build.library().csm_flash_train_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
+        None if partial is None else partial.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), *_strides(q), *_strides(k),
         *_strides(v), *_strides(do), b, n_heads, n_kv, s, d, float(scale),
         _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q.device))

@@ -235,7 +235,14 @@ def _flash_inputs(device, dtype, b, h, n_kv, s, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,n_kv,s", [(2, 4, 2, 70), (1, 8, 2, 128),
-                                        (2, 32, 8, 575)])
+                                        (2, 32, 8, 575),
+                                        # one tile and its edges, with a
+                                        # group of 1 and of 4
+                                        (1, 4, 4, 1), (2, 8, 2, 1),
+                                        (1, 4, 4, 63), (2, 8, 2, 63),
+                                        (1, 4, 4, 64), (2, 8, 2, 64),
+                                        (1, 4, 4, 65), (2, 8, 2, 65),
+                                        (1, 32, 8, 2048)])
 def test_flash_train_kernels_match_plain(cuda_device, dtype, b, h, n_kv, s):
     q, k, v, do = _flash_inputs(cuda_device, dtype, b, h, n_kv, s, s)
     scale = 64 ** -0.5
@@ -250,16 +257,40 @@ def test_flash_train_kernels_match_plain(cuda_device, dtype, b, h, n_kv, s):
             flash_train.flash_train_bwd.launches) == (before[0] + 1,
                                                       before[1] + 1)
     assert out.dtype == dtype and all(g.dtype == dtype for g in grads)
-    # fp32: sum order and expf only. bf16: both compute in fp32 from the same
-    # bf16 inputs and round the outputs to bf16; the kernel's delta reads the
-    # bf16 O, the plain one its fp32 O
+    # fp32: sum order and expf only. bf16: both take the same bf16 inputs
+    # and sum in fp32; the kernels round P and dS to bf16 where they feed
+    # their second products (P V, dS K, P^T dO, dS^T Q), the plain versions
+    # keep them fp32; both round the outputs to bf16, and the kernel's delta
+    # reads the bf16 O, the plain one its fp32 O. At S = 1 each row attends
+    # only itself, so dq = dk = 0 up to the rounding of dP - delta on both
+    # sides: their error is taken against dv's scale.
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
-    for got, ref in zip((out, *grads), (want_out, *want)):
+    for name, got, ref in zip(("O", "dq", "dk", "dv"), (out, *grads),
+                              (want_out, *want)):
         assert torch.isfinite(got).all()
         ref = ref.float()
+        ref_max = ref.abs().max().item()
+        if s == 1 and name in ("dq", "dk"):
+            ref_max = want[2].abs().max().item()
         torch.testing.assert_close(got.float(), ref, rtol=tol,
-                                   atol=tol * ref.abs().max().item())
+                                   atol=tol * ref_max)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_train_kernels_repeat_bit_equal(cuda_device, dtype):
+    """Two calls on the same inputs give the same bits: no float atomics,
+    every output element summed by one block in a fixed order (KTO's
+    step-0 loss of exactly 0.5 and the bit-equal resume depend on it)."""
+    q, k, v, do = _flash_inputs(cuda_device, dtype, 2, 32, 8, 575, 7)
+    out, lse = flash_train.flash_train_fwd(q, k, v, 0.125)
+    out2, lse2 = flash_train.flash_train_fwd(q, k, v, 0.125)
+    grads = flash_train.flash_train_bwd(q, k, v, out, lse, do, 0.125)
+    grads2 = flash_train.flash_train_bwd(q, k, v, out, lse, do, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    for g, g2 in zip(grads, grads2):
+        assert torch.equal(g, g2)
 
 
 def test_flash_attention_autograd_on_card(cuda_device):
