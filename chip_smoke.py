@@ -4,8 +4,10 @@
 
 From the root of a checkout: builds the port's CUDA kernels from
 `csm_mlx_tpu_torch/csrc/` and holds each against its plain PyTorch version
-at the shapes of the main path — the W8A8 matvec and flash prefill on
-random inputs, the whole-frame decoder (kernel 3) on the full-width CSM-1B
+at the shapes of the main path — the W8A8 matvec and flash prefill (S =
+256, 512, 2048, pads inside, across and past the first 64-row tile, a
+bit-equal repeat, timed beside SDPA) on random inputs, the whole-frame
+decoder (kernel 3) on the full-width CSM-1B
 decoder at B = 1, 8 and 64 (greedy, teacher-forced agreement) and at
 T = 0.8 (a chi-square of its codebook-1 picks) — then checks the main path
 on the card against the CPU on a small model, and drives the main path at
@@ -13,7 +15,9 @@ full CSM-1B width: random weights from a seed, W8A8, greedy
 `generate_tokens` for 125 frames (10 s of audio) from a 32-row prompt and
 10 frames from a 300-row prompt that takes the flash-prefill kernel, each
 decoder frame one kernel-3 launch, and a Mimi decode to a waveform. It
-checks that every kernel ran in it, then drives the dispatched decoder for
+checks that every kernel ran in it, times one prefill of a 300- and a
+1100-row prompt through kernel 2 and through the masked sdpa, alternated,
+then drives the dispatched decoder for
 10 frames (tables removed) and compares it with kernel 3 by teacher-forced
 flips per margin bin, and runs a 65-prompt batch (two kernel-3 chunks a
 frame).
@@ -22,8 +26,10 @@ Then the MLX-affine and batch flash-decode paths: kernel 5 (the
 grouped-affine matvec) against its plain version at the quantized
 linears' shapes, 4- and 8-bit, group 64 (and 128), B = 1, 2, 8, 32, 64,
 timed beside dequant + `torch.matmul` and `torch._weight_int4pack_mm`;
-kernel 4 (flash decode) against its plain version at H=32/8, D=64 over
-several (B, cap), timed beside `scaled_dot_product_attention`; a small
+kernel 4 (flash decode, the cache split over blocks and merged in split
+order) against its plain version at H=32/8, D=64 over several (B, cap)
+and the split edges, with bit-equal repeats, timed beside
+`scaled_dot_product_attention` and split by launch; a small
 affine model card-vs-CPU; 64 prompts through `generate_tokens_batch` with
 `flash_decode_min_b=8` (16 kernel-4 launches a backbone step) and without,
 alternated, the same at 8 prompts and one prompt through `generate_tokens`
@@ -95,9 +101,20 @@ W8A8_SHAPES = {  # (IN, OUT) of the main path's quantized linears
     "projection": (2048, 1024),
 }
 W8A8_ROWS = (1, 8, 64, 512)  # decode batches, and prefill rows at 512
-FLASH_CASES = [(s, dtype) for s in (256, 512)
+# Kernel 2 (flash prefill), B=2, H=32, n_kv=8, D=64: S of the 256-, 512-
+# and 2048-row prompt buckets; the left pads of the two rows: none, inside
+# the first 64-row tile, inside a later tile (200: q tile 3 straddles it),
+# a whole first tile (64) and pads past it on both rows. Timed at
+# FLASH_TIMED_PADS.
+FLASH_CASES = [(s, dtype) for s in (256, 512, 2048)
                for dtype in (torch.bfloat16, torch.float32)]
-FLASH_PADS = (0, 37, 200)
+FLASH_PADS = ((0, 0), (0, 37), (0, 200), (64, 100), (130, 255))
+FLASH_TIMED_PADS = (0, 200)
+# The first cases of kernels 2 and 4 draw their inputs from the phase's
+# generator, in their first order, so that every later phase keeps the
+# inputs it had before the other cases came; those draw from a generator
+# of their own.
+FLASH_EARLIER_PADS = ((0, 0), (0, 37), (0, 200))
 COLD_BYTES = 160 << 20  # weights cycled per timing run, > the 50 MB L2
 RESIDENT_ROWS = (1, 8, 64)
 # Kernel 3 against its plain version teacher-forced on the kernel's tokens.
@@ -123,12 +140,21 @@ AFFINE_FRAMES = {4: 20, 8: 5}  # frames of the full-width affine runs
 # run. Tolerances: the JAX tests' own (tests/test_flash_attention.py).
 FLASH_DECODE_CASES = ((8, 157), (64, 40), (64, 157), (64, 1024), (8, 2048))
 FLASH_DECODE_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# Kernel 4's split edges, (B, cap, index, pads): at (8, 2048) the cache
+# splits into 8 chunks of 256 keys — an index on the last slot of a chunk
+# and on the first of the next, pad and index inside one chunk, a row with
+# pad > index (no valid key: the average of all cap V rows); cap 1000
+# (16 chunks of 64, the last of 40) divides by no split count.
+FLASH_DECODE_EDGES = ((8, 2048, 255, None), (8, 2048, 256, None),
+                      (8, 2048, 1000, "one chunk"), (8, 2048, 500, "pad > index"),
+                      (3, 1000, 999, "pad > index"))
 BATCH_ROWS, BATCH_FRAMES = 64, 8  # the batch flash-decode phase
+PREFILL_ROWS = (300, 1100)  # prompts of the 512- and 2048-row buckets
 # One backbone step through kernel 4 against the masked sdpa on an
 # unquantized CSM-1B, max |hidden err| / max |hidden| through 16 layers.
-# fp32: sum order and expf only. bf16: the JAX tests' bf16 tolerance (the
-# plain version rounds P to bf16 before P.V, the kernel keeps it in fp32,
-# and each layer rounds its output).
+# fp32: sum order and expf only. bf16: the JAX tests' bf16 tolerance (both
+# round the normalised P to bf16 before P.V, but sum in other orders, and
+# each layer rounds its output).
 STEP_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 # Kernels 6 and 7 at the backbone's shape: (B, S) cases; H = 32, n_kv = 8,
 # D = 64, scale 1/8. Tolerances on max |kernel - plain| over max |plain|,
@@ -142,6 +168,10 @@ STEP_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 # reads its fp32 O. The logsumexp is held to FLASH_TRAIN_LSE_TOL absolute
 # in both types.
 FLASH_TRAIN_CASES = ((2, 575), (1, 2048))
+# Recorded bf16 times of kernels 6 and 7 at those cases, us (fwd, bwd), on
+# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6), printed beside this
+# run's: kernel 6's code is shared with kernel 2
+FLASH_TRAIN_RECORDED_US = {(2, 575): (21.9, 74.7), (1, 2048): (82.1, 314.9)}
 FLASH_TRAIN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 FLASH_TRAIN_LSE_TOL = 1e-4
 # the device kernels of csrc/flash_train.cu, by name, for the traces
@@ -296,56 +326,69 @@ def check_w8a8(dev, gen) -> dict:
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
-def check_flash(dev, gen) -> dict:
+def check_flash(dev, gen, gen_new) -> dict:
     """Kernel 2 vs `flash_prefill_plain` at B=2, H=32, n_kv=8, D=64, over
-    k/v slices of a cache-shaped buffer, on rows past each pad. fp32:
-    atol 1e-4 (sum order; exp). bf16: atol 3e-2 — the plain version rounds
-    the probabilities to bf16 before P.V as the JAX sdpa does, the kernel
-    keeps them in fp32, and both round the output to bf16."""
-    worst, timing = 0.0, None
+    k/v slices of a cache-shaped buffer and a transposed q projection, on
+    rows past each pad; every row finite, a second call bit-equal. fp32
+    (CUDA cores): atol 1e-4 (sum order; exp). bf16 (tensor cores): atol
+    3e-2 — both round P to bf16 before P.V, in other places, and both round
+    the output to bf16. Timed at FLASH_TIMED_PADS beside the plain version,
+    and in bf16 beside SDPA with the same mask and the bound (the causal
+    pairs' products at the bf16 peak against the bytes). Inputs: `gen` for
+    the first cases, `gen_new` for the rest (FLASH_EARLIER_PADS)."""
+    worst, out = 0.0, None
     b, h, n_kv, d = 2, 32, 8, 64
     for s, dtype in FLASH_CASES:
-        for pad_row1 in FLASH_PADS:
+        for pads in FLASH_PADS:
+            g = gen if s < 2048 and pads in FLASH_EARLIER_PADS else gen_new
             cap = s + 125
-            q = torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
-            kc = torch.randn((b, n_kv, cap, d), generator=gen,
+            # q as the projection gives it: (B, S, H, D) seen as (B, H, S, D)
+            q = torch.randn((b, h, s, d), generator=g, device=dev).to(dtype)
+            q = q.transpose(1, 2).contiguous().transpose(1, 2)
+            kc = torch.randn((b, n_kv, cap, d), generator=g,
                              device=dev).to(dtype)
-            vc = torch.randn((b, n_kv, cap, d), generator=gen,
+            vc = torch.randn((b, n_kv, cap, d), generator=g,
                              device=dev).to(dtype)
-            pads = (0, pad_row1)
-            pad = torch.tensor(pads, dtype=torch.int32, device=dev)
+            pad = torch.tensor(pads, dtype=torch.long, device=dev)  # as
+            # generation holds the pads: the wrapper passes them on as they are
             k, v = kc[:, :, :s], vc[:, :, :s]
             got = attention.flash_prefill_sdpa(q, k, v, d ** -0.5, pad)
+            again = attention.flash_prefill_sdpa(q, k, v, d ** -0.5, pad)
             want = attention.flash_prefill_plain(q, k, v, d ** -0.5, pad)
             torch.cuda.synchronize()
             tol = 1e-4 if dtype == torch.float32 else 3e-2
             err = max((got[i, :, p:].float() - want[i, :, p:].float()).abs()
                       .max().item() for i, p in enumerate(pads))
-            ok = err <= tol and bool(torch.isfinite(got).all())
-            ms_k, wall_k = time_ms(lambda: attention.flash_prefill_sdpa(
-                q, k, v, d ** -0.5, pad))
-            ms_p, wall_p = time_ms(lambda: attention.flash_prefill_plain(
-                q, k, v, d ** -0.5, pad))
-            log(f"flash S={s} {str(dtype):14s} pads={pads}"
-                f"  max_abs_err={err:.3e} (tol {tol:g})"
-                f"  kernel {ms_k:.4f} ms device, {wall_k:.4f} ms wall"
-                f"  plain {ms_p:.4f} ms device, {wall_p:.4f} ms wall"
-                f"  {'ok' if ok else 'MISMATCH'}")
+            repeat = torch.equal(got, again)
+            ok = err <= tol and bool(torch.isfinite(got).all()) and repeat
+            line = (f"flash S={s} {str(dtype):14s} pads={pads}  max_abs_err="
+                    f"{err:.3e} (tol {tol:g}), every row finite, repeat "
+                    f"bit-equal {repeat}")
+            if pads == FLASH_TIMED_PADS:
+                ms_k, wall_k = time_ms(lambda: attention.flash_prefill_sdpa(
+                    q, k, v, d ** -0.5, pad))
+                ms_p = time_ms(lambda: attention.flash_prefill_plain(
+                    q, k, v, d ** -0.5, pad), reps=5, warmup=1)[0]
+                line += (f"  kernel {ms_k:.4f} ms device, {wall_k:.4f} ms "
+                         f"wall  plain {ms_p:.4f} ms")
+                if dtype == torch.bfloat16:
+                    library = time_sdpa(q, k, v, pad, d ** -0.5)
+                    pairs = sum((s - p) * (s - p + 1) // 2 for p in pads)
+                    n_bytes = 2 * (q.numel() * 2 + k.numel() + v.numel()) \
+                        + 4 * b
+                    b_ms, b_by = bound_ms(n_bytes, 4 * h * d * pairs, "bf16")
+                    line += (f"  sdpa {library:.4f} ms  bound {b_ms:.4f} ms "
+                             f"({b_by}) = {b_ms / ms_k:.1%} of the kernel; "
+                             f"kernel / sdpa {ms_k / library:.2f}x")
+                    if s == 512:  # the JSON line: the main path's bucket
+                        out = dict(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                                   bound_by=b_by, library_ms=library)
+            log(line + f"  {'ok' if ok else 'MISMATCH'}")
             worst = max(worst, err)
             if not ok:
-                raise AssertionError(f"flash kernel disagrees at S={s} {dtype}")
-            if s == 512 and dtype == torch.bfloat16 and pad_row1 == 200:
-                timing = (ms_k, ms_p)
-                library = time_sdpa(q, k, v, pad, d ** -0.5)
-                pairs = sum((s - p) * (s - p + 1) // 2 for p in pads)
-                n_bytes = 2 * (q.numel() * 2 + k.numel() + v.numel()) + 4 * b
-                b_ms, b_by = bound_ms(n_bytes, 4 * h * d * pairs, "bf16")
-    # the JSON line times the main path's case: S=512 bf16 with a pad
-    log(f"flash S=512 bf16 pads (0, 200): library sdpa {library:.4f} ms "
-        f"device; bound {b_ms:.4f} ms ({b_by}); kernel {timing[0]:.4f} ms ="
-        f" {b_ms / timing[0]:.1%} of it")
-    return dict(max_abs_err=worst, ms=timing[0], plain_ms=timing[1],
-                bound_ms=b_ms, bound_by=b_by, library_ms=library)
+                raise AssertionError(f"flash kernel disagrees at S={s} "
+                                     f"{dtype} pads {pads}")
+    return dict(max_abs_err=worst, **out)
 
 
 def time_sdpa(q, k, v, pad, scale) -> float:
@@ -485,28 +528,49 @@ def int4pack(x, q, group, want) -> None:
         f"|y| {want.float().abs().max().item():.3e}")
 
 
-def check_flash_decode(dev, gen) -> dict:
+def decode_inputs(gen, dev, dtype, b, cap, index, pads):
+    """q as a transposed projection, k/v the layer views of a 2-layer
+    cache, H=32, n_kv=8, D=64; pads random below 32 (prompts of a 32-row
+    bucket), all index - 20 for "one chunk", the last row's index + 1 for
+    "pad > index"."""
+    h, n_kv, d = 32, 8, 64
+    q = torch.randn((b, 1, h, d), generator=gen,
+                    device=dev).to(dtype).transpose(1, 2)
+    kc, vc = (torch.randn((2, b, n_kv, cap, d), generator=gen,
+                          device=dev).to(dtype) for _ in range(2))
+    pad = torch.randint(0, min(32, index + 1), (b,), generator=gen,
+                        device=dev)
+    if pads == "one chunk":
+        pad.fill_(index - 20)
+    elif pads == "pad > index":
+        pad[-1] = index + 1
+    return q, kc[1], vc[1], pad
+
+
+def check_flash_decode(dev, gen, gen_new) -> dict:
     """Kernel 4 vs `flash_decode_plain` at H=32, n_kv=8, D=64 over the
-    layer views of a 2-layer cache, index = cap - 1 and random pads below
-    32 (prompts of a 32-row bucket), fp32 and bf16, tolerances
+    layer views of a 2-layer cache, fp32 and bf16: FLASH_DECODE_CASES at
+    index = cap - 1, then the split edges FLASH_DECODE_EDGES; tolerances
     FLASH_DECODE_TOL on max |err| (bf16: times max |plain| where that is
-    below 1); timed beside the plain version and
-    `F.scaled_dot_product_attention` with the same boolean mask and
-    `enable_gqa`. The bound counts the keys each row needs, [pad, index]."""
+    below 1), every output finite, a second call bit-equal. The cases are
+    timed beside the plain version and `F.scaled_dot_product_attention`
+    with the same boolean mask and `enable_gqa`; the bound counts the keys
+    each row needs, [pad, index]. At (8, 2048) bf16 the profiler splits the
+    time between the split and merge launches. Inputs: `gen` for the
+    cases, `gen_new` for the edges."""
     import torch.nn.functional as F
 
     h, n_kv, d = 32, 8, 64
     worst, out = 0.0, None
-    for b, cap in FLASH_DECODE_CASES:
+    cases = [(b, cap, cap - 1, None) for b, cap in FLASH_DECODE_CASES]
+    for b, cap, index, pads in cases + list(FLASH_DECODE_EDGES):
+        timed = pads is None and index == cap - 1
         for dtype in (torch.float32, torch.bfloat16):
-            index = cap - 1
-            q = torch.randn((b, 1, h, d), generator=gen,
-                            device=dev).to(dtype).transpose(1, 2)
-            kc, vc = (torch.randn((2, b, n_kv, cap, d), generator=gen,
-                                  device=dev).to(dtype) for _ in range(2))
-            k, v = kc[1], vc[1]
-            pad = torch.randint(0, 32, (b,), generator=gen, device=dev)
+            q, k, v, pad = decode_inputs(gen if timed else gen_new, dev,
+                                         dtype, b, cap, index, pads)
             got = attention.flash_decode_sdpa(q, k, v, d ** -0.5, pad, index)
+            again = attention.flash_decode_sdpa(q, k, v, d ** -0.5, pad,
+                                                index)
             want = attention.flash_decode_plain(q, k, v, d ** -0.5, pad,
                                                 index)
             torch.cuda.synchronize()
@@ -517,36 +581,48 @@ def check_flash_decode(dev, gen) -> dict:
             tol = FLASH_DECODE_TOL[dtype] * (
                 min(1.0, want.float().abs().max().item())
                 if dtype == torch.bfloat16 else 1.0)
-            ok = err <= tol and bool(torch.isfinite(got).all())
-            pos = torch.arange(cap, device=dev)
-            keep = ((pos[None] >= pad[:, None])
-                    & (pos[None] <= index))[:, None, None]
-            ms_k, wall_k = time_ms(lambda: attention.flash_decode_sdpa(
-                q, k, v, d ** -0.5, pad, index))
-            ms_p = time_ms(lambda: attention.flash_decode_plain(
-                q, k, v, d ** -0.5, pad, index))[0]
-            ms_l = time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=keep, scale=d ** -0.5,
-                enable_gqa=True))[0]
-            keys = int((index + 1 - pad).sum())
-            e = q.element_size()
-            n_bytes = 2 * keys * n_kv * d * e + 2 * b * h * d * e + 8 * b
-            b_ms, b_by = bound_ms(n_bytes, 4 * keys * h * d,
-                                  "bf16" if dtype == torch.bfloat16
-                                  else "fp32")
-            log(f"flash_decode B={b:2d} cap={cap:4d} {str(dtype):14s} "
-                f"max_abs_err={err:.3e} (tol {tol:.3e})  kernel {ms_k:.4f} ms"
-                f" device, {wall_k:.4f} ms wall  plain {ms_p:.4f} ms  sdpa "
-                f"{ms_l:.4f} ms  bound {b_ms:.4f} ms ({b_by}, "
-                f"{n_bytes / 1e6:.2f} MB) = {b_ms / ms_k:.1%} of the kernel;"
-                f" {n_kv * b} blocks  {'ok' if ok else 'MISMATCH'}")
+            repeat = torch.equal(got, again)
+            ok = err <= tol and bool(torch.isfinite(got).all()) and repeat
+            splits, chunk = attention.decode_splits(b, n_kv, cap)
+            line = (f"flash_decode B={b:2d} cap={cap:4d} index={index:4d} "
+                    f"{pads or 'pads < 32'} {str(dtype):14s} {splits} "
+                    f"split(s) of {chunk}  max_abs_err={err:.3e} (tol "
+                    f"{tol:.3e}), repeat bit-equal {repeat}")
+            if timed:
+                pos = torch.arange(cap, device=dev)
+                keep = ((pos[None] >= pad[:, None])
+                        & (pos[None] <= index))[:, None, None]
+                ms_k, wall_k = time_ms(lambda: attention.flash_decode_sdpa(
+                    q, k, v, d ** -0.5, pad, index))
+                ms_p = time_ms(lambda: attention.flash_decode_plain(
+                    q, k, v, d ** -0.5, pad, index))[0]
+                ms_l = time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=keep, scale=d ** -0.5,
+                    enable_gqa=True))[0]
+                keys = int((index + 1 - pad).sum())
+                e = q.element_size()
+                n_bytes = 2 * keys * n_kv * d * e + 2 * b * h * d * e + 8 * b
+                b_ms, b_by = bound_ms(n_bytes, 4 * keys * h * d,
+                                      "bf16" if dtype == torch.bfloat16
+                                      else "fp32")
+                line += (f"  kernel {ms_k:.4f} ms device, {wall_k:.4f} ms "
+                         f"wall  plain {ms_p:.4f} ms  sdpa {ms_l:.4f} ms  "
+                         f"bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.2f} "
+                         f"MB) = {b_ms / ms_k:.1%} of the kernel; kernel / "
+                         f"sdpa {ms_k / ms_l:.2f}x")
+                if (b, cap, dtype) == (64, 157, torch.bfloat16):
+                    out = dict(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=ms_l)
+            log(line + f"  {'ok' if ok else 'MISMATCH'}")
             worst = max(worst, err)
             if not ok:
                 raise AssertionError(f"flash decode kernel disagrees at B={b}"
-                                     f" cap={cap} {dtype}")
-            if (b, cap, dtype) == (64, 157, torch.bfloat16):
-                out = dict(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
-                           bound_by=b_by, library_ms=ms_l)
+                                     f" cap={cap} index={index} {dtype}")
+            if timed and (b, cap, dtype) == (8, 2048, torch.bfloat16):
+                log("flash_decode B=8 cap=2048 bf16 by launch (K pass, V "
+                    "pass, merge): " + launch_split(
+                        lambda: attention.flash_decode_sdpa(
+                            q, k, v, d ** -0.5, pad, index), 3))
     return dict(max_abs_err=worst, **out)
 
 
@@ -897,6 +973,73 @@ def run_dispatched(model: CSM) -> dict:
         f"frame")
     return dict(ms_per_frame=1e3 * t / n,
                 w8a8_per_frame=quant.w8a8_matvec.launches / n)
+
+
+def time_prefill(model: CSM) -> None:
+    """What kernel 2 does to a prefill: one CSM-1B W8A8 backbone prefill at
+    B=1 of a PREFILL_ROWS prompt (left-padded to the 512- and 2048-row
+    buckets, a cache of bucket + 125 slots) through kernel 2 and through
+    `_prefill`'s masked branch (`CSM_TPU_FLASH_PREFILL=0`: the plain fp32
+    `sdpa` over the whole cache), alternated flash, masked, masked, flash;
+    device and wall ms of each (`time_ms`, 5 calls over the same cache
+    slots), the kernel-2 launches, and how far the two last hidden states
+    lie apart (W8A8 amplifies last-bit differences; not gated)."""
+    args, dev = model.args, model.device
+    bcfg = args.backbone_config
+    saved = os.environ.get("CSM_TPU_FLASH_PREFILL")
+    try:
+        for rows in PREFILL_ROWS:
+            prompt, mask = synthetic_prompt(rows, args.n_text_vocab, SEED + 3)
+            tokens, masks, pad_len, bucket = generation._pad_prompt(prompt,
+                                                                    mask)
+            t, m, pad = (torch.from_numpy(a).long().to(dev)
+                         for a in (tokens, masks, pad_len))
+            cap = bucket + 125
+            cos_b, sin_b = rope_cache_for(
+                bcfg, max(cap, bcfg.max_position_embeddings), dev)
+            cache = KVCache.init(bcfg, 1, cap, dtype=model.dtype, device=dev)
+
+            def run():  # a fresh write index over the same buffers
+                fresh = KVCache(k=cache.k, v=cache.v, index=0)
+                return generation._prefill(model.params, args, t, m, pad,
+                                           fresh, cos_b, sin_b)[0]
+
+            runs: dict = {True: [], False: []}
+            for flash in (True, False, False, True):
+                os.environ["CSM_TPU_FLASH_PREFILL"] = "1" if flash else "0"
+                before = attention.flash_prefill_sdpa.launches
+                with torch.no_grad():
+                    hidden = run().float()
+                    launched = attention.flash_prefill_sdpa.launches - before
+                    ms, wall = time_ms(run, reps=5, warmup=1)
+                runs[flash].append((ms, wall, hidden, launched))
+            n_layers = bcfg.num_hidden_layers
+            for flash, want in ((True, n_layers), (False, 0)):
+                if any(r[3] != want for r in runs[flash]):
+                    raise AssertionError(
+                        f"prefill of {rows} rows: expected {want} kernel-2 "
+                        f"launches {'with' if flash else 'without'} it")
+            h_k, h_p = runs[True][0][2], runs[False][0][2]
+            if not bool(torch.isfinite(h_k).all() & torch.isfinite(h_p).all()):
+                raise AssertionError(f"prefill of {rows} rows: not finite")
+            rel = ((h_k - h_p).abs().max() / h_p.abs().max()).item()
+
+            def fmt(rs):
+                return (f"{np.mean([r[0] for r in rs]):.3f} ms device ("
+                        + ", ".join(f"{r[0]:.3f}" for r in rs) + "), "
+                        f"{np.mean([r[1] for r in rs]):.3f} ms wall ("
+                        + ", ".join(f"{r[1]:.3f}" for r in rs) + ")")
+
+            log(f"prefill CSM-1B W8A8 B=1, {rows}-row prompt in the {bucket}"
+                f"-row bucket, cache {cap}, alternated flash/masked/masked/"
+                f"flash: kernel 2 {fmt(runs[True])}; masked sdpa "
+                f"{fmt(runs[False])}; {n_layers} kernel-2 launches a "
+                f"prefill; max |hidden diff| / max |hidden| {rel:.3e}")
+    finally:
+        if saved is None:
+            os.environ.pop("CSM_TPU_FLASH_PREFILL", None)
+        else:
+            os.environ["CSM_TPU_FLASH_PREFILL"] = saved
 
 
 def check_divergence(model: CSM, gen) -> None:
@@ -1270,26 +1413,38 @@ def flash_train_bounds(q, k, dtype) -> dict:
                 bwd=bound_ms(4 * qb + 4 * kb + lse, 2.5 * flops, kind))
 
 
-def launch_split(fn, reps: int = 5) -> str:
-    """torch.profiler over `reps` calls of fn: the mean device us of each
-    kernel it launches, by name, largest first, over the launches the
-    profiler recorded (it can drop some; their count is printed)."""
+def launch_split(fn, per_call: int, reps: int = 5) -> str:
+    """torch.profiler over `reps` calls of fn (warm), each of `per_call`
+    kernel launches: the mean device us of each kernel, by name, largest
+    first, and how many of the reps * per_call launches the profiler kept;
+    beside it the device us of a call from CUDA events (`time_ms`), which
+    count every launch: for a one-launch call, that launch's time.
+    Events accumulate across the session (`acc_events`) and the card
+    synchronizes after every call. (Late in this script the profiler has
+    kept as few as none of 5 kernel-6 launches and 9 of 15 kernel-7 ones,
+    where a fresh process kept all: the CUDA-event time counts every
+    launch.)"""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
     by_name: dict = {}
+    kept = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             name = e.name.replace("(anonymous namespace)::", "")
-            name = name.removeprefix("void ").split("(")[0][:40]
+            name = name.removeprefix("void ").split("(")[0][:48]
             n, us = by_name.get(name, (0, 0))
             by_name[name] = (n + 1, us + e.time_range.elapsed_us())
-    return "; ".join(f"{k} {us / n:.1f} us x{n}" for k, (n, us) in
-                     sorted(by_name.items(), key=lambda kv: -kv[1][1]))
+            kept += 1
+    call_us = 1e3 * time_ms(fn, reps=reps)[0]
+    return (f"a call {call_us:.1f} us by CUDA events; profiler: {kept} of "
+            f"{reps * per_call} launches kept" + "".join(
+                f"; {k} {us / n:.1f} us x{n}" for k, (n, us) in
+                sorted(by_name.items(), key=lambda kv: -kv[1][1])))
 
 
 def check_flash_train(dev, gen) -> dict:
@@ -1351,7 +1506,11 @@ def check_flash_train(dev, gen) -> dict:
                 f"{bounds['bwd'][0]:.4f} ({bounds['bwd'][1]}) = "
                 f"{bounds['fwd'][0] / ms_f:.1%} / {bounds['bwd'][0] / ms_b:.1%}"
                 f" of the kernels; kernel / sdpa fwd {ms_f / lib_f:.2f}x bwd "
-                f"{ms_b / lib_b:.2f}x  {'ok' if ok else 'MISMATCH'}")
+                f"{ms_b / lib_b:.2f}x"
+                + (" (recorded: fwd {:.1f} bwd {:.1f} us)".format(
+                    *FLASH_TRAIN_RECORDED_US[(b, s)])
+                   if dtype == torch.bfloat16 else "")
+                + f"  {'ok' if ok else 'MISMATCH'}")
             if not ok:
                 raise AssertionError(f"flash_train kernels disagree at B={b} "
                                      f"S={s} {dtype}")
@@ -1360,9 +1519,9 @@ def check_flash_train(dev, gen) -> dict:
                                      f"a second call at B={b} S={s} {dtype}")
             if dtype == torch.bfloat16:
                 split_f = launch_split(
-                    lambda: flash_train.flash_train_fwd(q, k, v, scale))
+                    lambda: flash_train.flash_train_fwd(q, k, v, scale), 1)
                 split_b = launch_split(lambda: flash_train.flash_train_bwd(
-                    q, k, v, o, lse, do, scale))
+                    q, k, v, o, lse, do, scale), 3)
                 log(f"flash_train B={b} S={s} bf16 by launch: fwd {split_f}"
                     f"  bwd {split_b}")
             if (b, s, dtype) == (2, 575, torch.bfloat16):
@@ -1667,14 +1826,17 @@ def main() -> None:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
+    # the kernel cases added with the redesign of kernels 2 and 4
+    gen_new = torch.Generator(device=dev)
+    gen_new.manual_seed(SEED + 60)
     w8a8 = check_w8a8(dev, gen)
-    flash = check_flash(dev, gen)
+    flash = check_flash(dev, gen, gen_new)
     # the phases added with kernels 4 and 5 draw from their own generator,
     # so the earlier phases keep their inputs
     gen45 = torch.Generator(device=dev)
     gen45.manual_seed(SEED + 40)
     affine = check_affine(dev, gen45)
-    decode = check_flash_decode(dev, gen45)
+    decode = check_flash_decode(dev, gen45, gen_new)
     mimi = Mimi(mimi_202407(32), dtype=torch.float32,
                 generator=torch.Generator(device=dev).manual_seed(SEED + 2),
                 device=dev)
@@ -1690,6 +1852,7 @@ def main() -> None:
         f"{main_path['counts']['w8a8_matvec'] / main_path['frames']:.0f} "
         f"with kernel 3; ms per frame: {disp['ms_per_frame']:.2f} dispatched,"
         f" {main_path['ms_per_frame']:.2f} with kernel 3")
+    time_prefill(model)
     check_divergence(model, gen)
     run_batch(model)
     batch = run_batch_flash_decode(model, gen45)

@@ -7,49 +7,45 @@
 //
 // What bounds it on the H100: at the prompt lengths of the main path
 // (S = 256..2048, D = 64) the K/V bytes are small (S*D*2 bytes per kv head)
-// and the work is the S*S*D products and the S*S exponentials. This first
-// version computes in fp32 on the CUDA cores, not on the tensor cores: one
-// block of 64 threads per (batch row, query head, 64-row query tile), one
-// thread per query row holding its query and its output accumulator in
+// and the work is the causal pairs' products and exponentials: at (B=2,
+// S=2048) bf16 4*H*D*pairs = 34 GFLOP, 35 us at 989 TFLOP/s, against 3 us
+// of bytes. So the products belong on the tensor cores.
+//
+// bf16 route: the causal forward of kernel 6, `flash_fwd_tc_kernel<true>`
+// of flash_common.cuh (mma.sync m16n8k16, ldmatrix, cp.async double
+// buffers, ex2.approx), instantiated with the left-pad mask: a block skips
+// the key tiles wholly below pad_len[b], masks keys below it on the tile
+// that holds it, and writes zeros, a finite value, for the rows i < pad_len[b]
+// that have no valid key (see the kernel's comment). P is rounded to bf16
+// as the operand of P.V, as the plain version's masked sdpa does.
+//
+// fp32 route: the CUDA cores, since TF32 cannot meet the fp32 gate (1e-4):
+// one block of 64 threads per (batch row, query head, 64-row query tile),
+// one thread per query row holding its query and its output accumulator in
 // registers. K and V stream through shared memory in 64-key tiles,
 // converted to fp32 once per tile, and the online softmax runs over chunks
 // of 16 keys. Key tiles entirely past the query tile's last row are causally
 // masked for every row of the tile and are skipped.
 //
 // Masking uses the finite NEG_INF = -0.7 * FLT_MAX of the JAX package, not
-// -inf: a row i < pad_len[b] has no valid key, and with -inf its softmax
-// would be 0/0 = NaN, which would then poison valid rows through 0 * NaN
-// once that row's K/V are read. With the finite value a fully masked row
-// averages the V rows it saw and stays finite; a masked key that precedes
-// the first valid key is weighted exp(NEG_INF - m) = 0 once m is real.
-// (The JAX kernel averages all S rows for such a row, this one only the
-// tiles it visits; neither output is ever attended to.)
+// -inf. On the fp32 route a row i < pad_len[b] then averages the V rows it
+// saw and stays finite (the JAX kernel averages all S rows; no output of
+// such a row is ever attended to); a masked key that precedes the first
+// valid key is weighted exp(NEG_INF - m) = 0 once m is real.
 //
 // q, k and v are read through the strides the wrapper passes (the innermost
-// dimension must be contiguous), so k[:, :, :S] slices of a KV cache are
-// read in place without a copy.
+// dimension must be contiguous, rows 16-byte aligned), so k[:, :, :S]
+// slices of a KV cache and the transposed query projection are read in
+// place without a copy.
 
-#include <cfloat>
-#include <cstdint>
-
-#include "common.cuh"
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr int kD = 64;       // head dim
-constexpr int kBQ = 64;      // query rows per block (one per thread)
-constexpr int kBK = 64;      // keys per shared-memory tile
-constexpr int kChunk = 16;   // keys per online-softmax update
-constexpr float kNegInf = -0.7f * FLT_MAX;
-
-struct Strides {
-  long long b, h, s;  // element strides of dims 0, 1, 2; dim 3 is contiguous
-};
 
 template <typename T>
 __global__ void __launch_bounds__(kBQ)
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int* __restrict__ pad_len,
+                     const T* __restrict__ v, const long long* __restrict__ pad_len,
                      T* __restrict__ out, Strides qs, Strides ks, Strides vs,
                      int n_heads, int group, int seq, float scale) {
   __shared__ float k_tile[kBK][kD];
@@ -58,7 +54,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / group;
   const int i = qt * kBQ + threadIdx.x;  // this thread's query row
-  const int pad = pad_len[b];
+  const int pad = (int)pad_len[b];
 
   float qr[kD], acc[kD];
   const T* qp = q + b * qs.b + h * qs.h + (long long)i * qs.s;
@@ -118,8 +114,8 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }  // namespace
 
 // q: (B, H, S, 64), k/v: (B, n_kv, S, 64) with the given element strides
-// (innermost contiguous); pad_len: (B,) int32; out: (B, H, S, 64)
-// contiguous. S % 64 == 0 (checked by the wrapper). Returns
+// (innermost contiguous, rows 16-byte aligned); pad_len: (B,) int64; out:
+// (B, H, S, 64) contiguous. S % 64 == 0 (checked by the wrapper). Returns
 // cudaGetLastError().
 extern "C" int csm_flash_prefill(const void* q, const void* k, const void* v,
                                  const void* pad_len, void* out,
@@ -129,25 +125,23 @@ extern "C" int csm_flash_prefill(const void* q, const void* k, const void* v,
                                  int batch, int n_heads, int n_kv, int seq,
                                  int head_dim, float scale, int dtype,
                                  void* stream) {
-  if (head_dim != kD || seq % kBQ != 0 || n_heads % n_kv != 0)
+  if (head_dim != kD || seq % kBQ != 0 || n_kv <= 0 || n_heads % n_kv != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
-  dim3 grid(seq / kBQ, n_heads, batch);
   const int group = n_heads / n_kv;
-  const int* pl = static_cast<const int*>(pad_len);
-  if (dtype == kF32)
-    flash_prefill_kernel<float><<<grid, kBQ, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), pl, static_cast<float*>(out), qs, ks, vs,
-        n_heads, group, seq, scale);
-  else if (dtype == kBF16)
-    flash_prefill_kernel<__nv_bfloat16><<<grid, kBQ, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), pl,
-        static_cast<__nv_bfloat16*>(out), qs, ks, vs, n_heads, group, seq,
-        scale);
-  else
-    return (int)cudaErrorInvalidValue;
+  const long long* pl = static_cast<const long long*>(pad_len);
+  if (dtype == kBF16) {
+    if (misaligned(q, qs) || misaligned(k, ks) || misaligned(v, vs))
+      return (int)cudaErrorMisalignedAddress;
+    return launch_fwd_tc<true>(q, k, v, out, nullptr, pl, qs, ks, vs, batch,
+                               n_heads, n_kv, seq, scale, st);
+  }
+  if (dtype != kF32) return (int)cudaErrorInvalidValue;
+  const dim3 grid(seq / kBQ, n_heads, batch);
+  flash_prefill_kernel<float><<<grid, kBQ, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), pl, static_cast<float*>(out), qs, ks, vs,
+      n_heads, group, seq, scale);
   return (int)cudaGetLastError();
 }

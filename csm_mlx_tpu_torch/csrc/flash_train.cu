@@ -36,7 +36,8 @@
 // lie wholly above the diagonal. The tile index is the grid's slowest
 // dimension, so the blocks with the longest loops start first.
 // - forward: one block per (head, batch, 64-row q tile); the key tiles up
-//   to the diagonal stream through.
+//   to the diagonal stream through (flash_fwd_tc_kernel<false> in
+//   flash_common.cuh; its pad instantiation is kernel 2's bf16 route).
 // - backward, three launches, no float atomics, each output element
 //   written by one block and summed in a fixed order (deterministic:
 //   bit-equal repeats): delta = rowsum(dO * O), 8 lanes a row; then one
@@ -64,23 +65,11 @@
 // O, lse, delta, dq, dk and dv are contiguous. head_dim must be 64
 // (checked; the wrapper raises first).
 
-#include <cfloat>
-#include <cstdint>
-
-#include "common.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kD = 64;       // head dim
 constexpr int kHalf = kD / 2;
-constexpr int kBQ = 64;      // query rows per tile
-constexpr int kBK = 64;      // keys per tile
-constexpr int kChunk = 16;   // keys per online-softmax update (forward)
-constexpr float kNegInf = -0.7f * FLT_MAX;
-
-struct Strides {
-  long long b, h, s;  // element strides of dims 0, 1, 2; dim 3 is contiguous
-};
 
 // ---------------------------------------------------------------------------
 // fp32 route: CUDA cores, one thread (forward) or two (backward) per row.
@@ -337,283 +326,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ---------------------------------------------------------------------------
 // bf16 route: tensor cores (mma.sync m16n8k16), tiles staged by cp.async.
-//
-// Fragment layout of m16n8k16 (lane = 4 * gr + tq): an A fragment holds
-// rows gr and gr + 8, columns 2tq, 2tq + 1 and 2tq + 8, 2tq + 9 of a 16 x
-// 16 tile; a C fragment c[0..3] holds (gr, 2tq), (gr, 2tq + 1),
-// (gr + 8, 2tq), (gr + 8, 2tq + 1) of a 16 x 8 tile. A warp's 16 x 64
-// product is 8 C fragments, acc[n] for columns 8n .. 8n + 7.
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kThreads = 128;          // 4 warps x 16 rows of a 64-row tile
-constexpr int kLd = kD + 8;            // shared row stride: 144 bytes
-constexpr int kTile = kBQ * kLd;       // elements of one shared tile
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros where !ok.
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-// 4 bytes global -> shared, asynchronously; zero where !ok.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits for every copy this thread committed.
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Rows r0 .. r0 + 63 of one (batch, head) plane (row stride rs elements)
-// into a shared tile, by the block's 128 threads; rows past seq are zeros.
-__device__ __forceinline__ void tile_async(bf16* sm, const bf16* g, long long rs,
-                                           int r0, int seq) {
-#pragma unroll
-  for (int i = 0; i < kBQ * kD / 8 / kThreads; ++i) {
-    const int e = threadIdx.x + i * kThreads;
-    const int r = e >> 3, c = (e & 7) * 8;
-    const bool ok = r0 + r < seq;
-    cp_async16(sm + r * kLd + c, g + (long long)(ok ? r0 + r : 0) * rs + c, ok);
-  }
-}
-
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a * b on the tensor cores: a 16 x 16, b 16 x 8, bf16; c fp32.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x in one MUFU instruction; results below FLT_MIN flush to 0, which a
-// probability against a row sum >= 1 can afford.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ void zero(float (&c)[8][4]) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
-}
-
-// A fragments of rows row0 .. row0 + 15 of a shared tile, over its 64
-// columns (4 k-steps of 16).
-__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const bf16* tile,
-                                       int row0, int lane) {
-  const bf16* p = tile + (row0 + (lane & 15)) * kLd + (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) ldsm4(a[kk], p + kk * 16);
-}
-
-// c = a * tile^T: a is 16 x 64 (A fragments), tile 64 x 64 in shared
-// memory; c[n] holds the products with tile rows 8n .. 8n + 7, computed for
-// n_lo <= n < n_hi (warp-uniform; the rest stay 0).
-__device__ __forceinline__ void mma_abt(float (&c)[8][4], const uint32_t (&a)[4][4],
-                                        const bf16* tile, int lane, int n_lo = 0,
-                                        int n_hi = 8) {
-  zero(c);
-  const bf16* p = tile + (lane & 7) * kLd + (lane >> 3) * 8;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    if (n < n_lo || n >= n_hi) continue;
-#pragma unroll
-    for (int kk = 0; kk < 4; kk += 2) {
-      uint32_t b[4];
-      ldsm4(b, p + n * 8 * kLd + kk * 16);
-      mma(c[n], a[kk], b[0], b[1]);
-      mma(c[n], a[kk + 1], b[2], b[3]);
-    }
-  }
-}
-
-// c += a * tile: a is 16 x 64 (A fragments over the tile's 64 rows), tile
-// 64 x 64 in shared memory; c[n] holds columns 8n .. 8n + 7. Only the
-// k-steps kk_lo <= kk < kk_hi (tile rows 16kk .. 16kk + 15; warp-uniform)
-// are summed: on a diagonal tile the others multiply zeros.
-__device__ __forceinline__ void mma_ab(float (&c)[8][4], const uint32_t (&a)[4][4],
-                                       const bf16* tile, int lane, int kk_lo = 0,
-                                       int kk_hi = 4) {
-  const bf16* p = tile + ((lane & 7) + ((lane >> 3) & 1) * 8) * kLd + (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    if (kk < kk_lo || kk >= kk_hi) continue;
-#pragma unroll
-    for (int n = 0; n < 8; n += 2) {
-      uint32_t b[4];
-      ldsm4_trans(b, p + kk * 16 * kLd + n * 8);
-      mma(c[n], a[kk], b[0], b[1]);
-      mma(c[n + 1], a[kk], b[2], b[3]);
-    }
-  }
-}
-
-// The C fragments of a 16 x 64 product as bf16 A fragments over its 64
-// columns: the first product's output is the second's operand.
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4][4], const float (&c)[8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-  }
-}
-
-// Writes a warp's 16 x 64 C fragments, row gr scaled by f0 and row gr + 8
-// by f1, as bf16 rows r0 .. r0 + 15 of the contiguous (rows, 64) plane at
-// `out` (rows >= seq skipped). `stage` is the warp's own 16 rows of a
-// shared tile, which it no longer reads; 16-byte stores.
-__device__ __forceinline__ void store_rows(bf16* out, int r0, int seq, bf16* stage,
-                                           const float (&c)[8][4], float f0,
-                                           float f1, int lane) {
-  const int gr = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    *reinterpret_cast<__nv_bfloat162*>(stage + gr * kLd + n * 8 + 2 * tq) =
-        __floats2bfloat162_rn(c[n][0] * f0, c[n][1] * f0);
-    *reinterpret_cast<__nv_bfloat162*>(stage + (gr + 8) * kLd + n * 8 + 2 * tq) =
-        __floats2bfloat162_rn(c[n][2] * f1, c[n][3] * f1);
-  }
-  __syncwarp();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int e = lane + 32 * i;
-    const int r = e >> 3, col = (e & 7) * 8;
-    if (r0 + r < seq)
-      *reinterpret_cast<uint4*>(out + (long long)(r0 + r) * kD + col) =
-          *reinterpret_cast<const uint4*>(stage + r * kLd + col);
-  }
-}
-
-// Kernel 6 on the tensor cores: one block per (head, batch, q tile).
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ out,
-                    float* __restrict__ lse, Strides qs, Strides ks, Strides vs,
-                    int n_heads, int group, int seq, float scale) {
-  __shared__ __align__(16) bf16 sq[kTile];
-  __shared__ __align__(16) bf16 sk[2][kTile];
-  __shared__ __align__(16) bf16 sv[2][kTile];
-
-  // grid = (H, B, tiles): the slowest dimension runs the longest tiles first
-  const int qt = gridDim.z - 1 - blockIdx.z;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = qt * kBQ;
-  const bf16* kb = k + b * ks.b + (h / group) * ks.h;
-  const bf16* vb = v + b * vs.b + (h / group) * vs.h;
-
-  tile_async(sq, q + b * qs.b + h * qs.h, qs.s, q0, seq);
-  tile_async(sk[0], kb, ks.s, 0, seq);
-  tile_async(sv[0], vb, vs.s, 0, seq);
-  cp_async_commit();
-
-  const float sl2 = scale * kLog2e;
-  const int row = q0 + warp * 16 + (lane >> 2);  // c[.][0..1]; +8 for [2..3]
-  const int col = 2 * (lane & 3);
-  uint32_t qf[4][4];
-  float acc[8][4];
-  zero(acc);
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-
-  for (int t = 0; t <= qt; ++t) {  // key tiles up to the diagonal
-    // Tile t has landed and every warp is past tile t - 1, whose buffer
-    // then takes tile t + 1 while tile t computes: one barrier a tile.
-    cp_async_wait_all();
-    __syncthreads();
-    if (t < qt) {
-      tile_async(sk[(t + 1) & 1], kb, ks.s, (t + 1) * kBK, seq);
-      tile_async(sv[(t + 1) & 1], vb, vs.s, (t + 1) * kBK, seq);
-      cp_async_commit();
-    }
-    if (t == 0) load_a(qf, sq, warp * 16, lane);
-
-    // on the diagonal tile, warp w's rows see keys 0 .. 16w + 15 only
-    const bool diag = t == qt;
-    float s[8][4];
-    mma_abt(s, qf, sk[t & 1], lane, 0, diag ? 2 * warp + 2 : 8);
-    if (diag) {  // the diagonal tile (and the S tail): key > row
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (t * kBK + n * 8 + col + (e & 1) > row + (e >> 1) * 8) s[n][e] = kNegInf;
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = ex2((m[r] - m_new) * sl2);
-      const float shift = -m_new * sl2;
-      m[r] = m_new;
-      l[r] *= alpha;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        acc[n][2 * r] *= alpha;
-        acc[n][2 * r + 1] *= alpha;
-        s[n][2 * r] = ex2(fmaf(s[n][2 * r], sl2, shift));
-        s[n][2 * r + 1] = ex2(fmaf(s[n][2 * r + 1], sl2, shift));
-        l[r] += s[n][2 * r] + s[n][2 * r + 1];
-      }
-    }
-    uint32_t pf[4][4];
-    c_to_a(pf, s);
-    mma_ab(acc, pf, sv[t & 1], lane, 0, diag ? warp + 1 : 4);
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {  // l >= 1: the row max contributes exp2(0)
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  const long long plane = ((long long)b * n_heads + h) * seq;
-  store_rows(out + plane * kD, q0 + warp * 16, seq, sq + warp * 16 * kLd, acc,
-             1.f / l[0], 1.f / l[1], lane);
-  if ((lane & 3) == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (row + 8 * r < seq) lse[plane + row + 8 * r] = m[r] * scale + logf(l[r]);
-  }
-}
+// The helpers and the forward (flash_fwd_tc_kernel<false>) are in
+// flash_common.cuh.
 
 // delta[b, h, i] = sum_d dO[b, h, i, d] * O[b, h, i, d] in fp32, for the
 // bf16 route: 8 lanes a row, 16 bytes each, joined by shuffles in a fixed
@@ -894,17 +608,6 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-int launch_fwd_tc(const void* q, const void* k, const void* v, void* out,
-                  void* lse, Strides qs, Strides ks, Strides vs, int batch,
-                  int n_heads, int n_kv, int seq, float scale, cudaStream_t st) {
-  const dim3 grid(n_heads, batch, (seq + kBQ - 1) / kBQ);
-  flash_fwd_tc_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out),
-      static_cast<float*>(lse), qs, ks, vs, n_heads, n_heads / n_kv, seq, scale);
-  return (int)cudaGetLastError();
-}
-
 template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* lse, const void* dout, void* delta, void* dq,
@@ -968,11 +671,6 @@ bool bad_shape(int head_dim, int seq, int n_heads, int n_kv) {
   return head_dim != kD || seq < 1 || n_kv < 1 || n_heads % n_kv != 0;
 }
 
-// The bf16 route's 16-byte copies need 16-byte aligned rows.
-bool misaligned(const void* p, Strides s) {
-  return reinterpret_cast<uintptr_t>(p) % 16 || s.b % 8 || s.h % 8 || s.s % 8;
-}
-
 }  // namespace
 
 // q: (B, H, S, 64), k/v: (B, n_kv, S, 64) with the given element strides
@@ -995,8 +693,8 @@ extern "C" int csm_flash_train_fwd(const void* q, const void* k, const void* v,
   if (dtype == kBF16) {
     if (misaligned(q, qs) || misaligned(k, ks) || misaligned(v, vs))
       return (int)cudaErrorMisalignedAddress;
-    return launch_fwd_tc(q, k, v, out, lse, qs, ks, vs, batch, n_heads, n_kv,
-                         seq, scale, st);
+    return launch_fwd_tc<false>(q, k, v, out, lse, nullptr, qs, ks, vs, batch,
+                                n_heads, n_kv, seq, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }

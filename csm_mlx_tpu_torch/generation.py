@@ -14,10 +14,10 @@ decoder, a Python loop of eager steps.
 
 Prompts are left-padded to the same buckets as in the JAX package, so a
 prompt gets the same positions and masks on both sides. Prefill runs the
-flash-prefill kernel on CUDA for buckets of >= 256 rows (multiples of 128),
-the masked `sdpa` otherwise. A backbone step runs the flash-decode kernel
-when the caller sets `flash_decode_min_b` and the batch reaches it (off by
-default, as in JAX).
+flash-prefill kernel on CUDA for buckets of >= 256 rows (multiples of 128)
+unless `CSM_TPU_FLASH_PREFILL=0`, the masked `sdpa` otherwise. A backbone
+step runs the flash-decode kernel when the caller sets
+`flash_decode_min_b` and the batch reaches it (off by default, as in JAX).
 
 Not ported yet: streaming, context audio, long-form generation and the
 watermark.
@@ -25,6 +25,7 @@ watermark.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
@@ -63,7 +64,10 @@ def _prefill(params, args: ModelArgs, tokens, token_mask, pad_len,
     embeds = masked_input_embeds(params, args, tokens, token_mask)
     pad_len = pad_len.reshape(-1)
     positions = torch.arange(p, device=device)[None, :] - pad_len[:, None]
-    if device.type == "cuda" and p >= 256 and p % 128 == 0:
+    # As in the JAX package, CSM_TPU_FLASH_PREFILL=0 keeps long prompts on
+    # the masked path too.
+    if device.type == "cuda" and p >= 256 and p % 128 == 0 \
+            and os.environ.get("CSM_TPU_FLASH_PREFILL", "1") == "1":
         hidden, cache = llama_forward(params["backbone"], bcfg, embeds, cos_b,
                                       sin_b, positions, None, cache,
                                       flash_pad_len=pad_len)
@@ -348,24 +352,31 @@ def generate(
     model: CSM,
     text: str,
     speaker: int,
-    mimi,
-    tokenizer_path: str,
+    context: Sequence = (),
     max_audio_length_ms: float = 90_000,
     *,
     temperature: float = 0.8,
     sampler: Optional[Any] = None,
     logits_processors: Optional[Sequence] = None,
     generator: Optional[torch.Generator] = None,
+    mimi=None,
 ) -> torch.Tensor:
-    """Text -> 24 kHz waveform (1-D tensor) with no context audio.
+    """Text -> 24 kHz waveform (1-D tensor), in JAX's argument order.
 
-    `tokenizer_path` is a local directory (or `tokenizer.json` file) of the
-    Llama-3.2 text tokenizer; `mimi` the codec (`models.mimi.Mimi`). Neither
-    is downloaded."""
-    from csm_mlx_tpu_torch.tokenizers import tokenize_text_segment
+    The text goes through the canonical tokenizer
+    (`tokenizers.get_text_tokenizer`: a local path installed earlier or
+    `CSM_TPU_TEXT_TOKENIZER`); `mimi` is the codec, by default the
+    `get_audio_tokenizer` singleton on the model's device. Context audio
+    needs the Mimi encoder, not ported yet: a non-empty `context` raises."""
+    from csm_mlx_tpu_torch.tokenizers import (get_audio_tokenizer,
+                                              tokenize_text_segment)
 
+    if len(context):
+        raise NotImplementedError(
+            "generate with context segments needs the Mimi encoder, not "
+            "ported yet (ROADMAP queue 1, item 5)")
     max_frames = int(max_audio_length_ms / FRAME_MS)
-    prompt, mask = tokenize_text_segment(text, speaker, tokenizer_path,
+    prompt, mask = tokenize_text_segment(text, speaker,
                                          model.n_audio_codebooks)
     frames, n = generate_tokens(
         model, prompt, mask, max_frames, temperature=temperature,
@@ -373,5 +384,8 @@ def generate(
         generator=generator)
     if n == 0:
         return torch.zeros((0,), dtype=torch.float32)
+    if mimi is None:
+        mimi = get_audio_tokenizer(model.n_audio_codebooks,
+                                   device=model.device)
     codes = torch.from_numpy(frames.T[None].copy()).long()  # (1, K, F)
     return mimi.decode(codes)[0, 0]

@@ -8,7 +8,9 @@ averages V instead of turning into NaN).
 `flash_prefill_sdpa` is kernel 2 of the port: on a CUDA tensor it launches
 the hand-written kernel of `csrc/flash_prefill.cu`; on a CPU tensor it runs
 its plain PyTorch version, `flash_prefill_plain`. `flash_decode_sdpa` is
-kernel 4 (`csrc/flash_decode.cu`), with `flash_decode_plain` beside it.
+kernel 4 (`csrc/flash_decode.cu`), with `flash_decode_plain` beside it; it
+splits the cache over `decode_splits(B, n_kv, cap)` blocks a (row, kv head):
+a K pass, a V pass and a merge of the splits in split order.
 """
 
 from __future__ import annotations
@@ -16,6 +18,15 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+# Kernel 4's split of the cache (flash-decoding), for the H100's 132 SMs:
+# from DECODE_ONE_SPLIT_BLOCKS (row, kv head) blocks up (2 an SM; B >= 33
+# at 8 kv heads) one split fills the card and there is no merge launch;
+# below, the cache is cut into chunks of a multiple of 64 keys, aiming at
+# DECODE_TARGET_BLOCKS blocks (4 an SM), one tile of 64 keys at least each.
+DECODE_ONE_SPLIT_BLOCKS = 264
+DECODE_TARGET_BLOCKS = 528
+DECODE_CHUNK_ALIGN = 64
 
 
 def causal_mask_bias(q_len: int, k_len: int, q_offset: int = 0,
@@ -81,6 +92,27 @@ def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return sdpa(q, k, v, scale, bias)
 
 
+def _strides(t: torch.Tensor) -> tuple[int, int, int]:
+    """Element strides of dims 0-2 as the kernels take them: 0 for a dim of
+    size 1, which they never step over (its stride is arbitrary)."""
+    return tuple(t.stride(i) if t.shape[i] > 1 else 0 for i in range(3))
+
+
+def _check_rows(name: str, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor) -> None:
+    """Raise unless q, k and v lie on q's device with contiguous, 16-byte
+    aligned rows, as the kernels read them in place through their strides:
+    they never copy."""
+    vec = 16 // q.element_size()  # elements of one 16-byte load
+    for label, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1 or t.device != q.device:
+            raise ValueError(f"{name}: {label} must lie on {q.device} with a "
+                             f"contiguous last dim")
+        if t.data_ptr() % 16 or any(st % vec for st in _strides(t)):
+            raise ValueError(f"{name}: {label}'s rows must be 16-byte "
+                             f"aligned")
+
+
 def flash_prefill_sdpa(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -93,8 +125,9 @@ def flash_prefill_sdpa(
     q: (B, H, S, D); k, v: (B, n_kv, S, D) — may be `cache[:, :, :S]`
     views: the kernel reads them through their strides (no copy).
     pad_len: (B,) left pads; query i attends key j iff pad_len[b] <= j <= i.
-    On CUDA: D == 64, S % 64 == 0, fp32 or bf16. Returns (B, H, S, D) in
-    q.dtype, contiguous.
+    On CUDA: D == 64, S % 64 == 0, fp32 or bf16, rows 16-byte aligned.
+    Returns (B, H, S, D) in q.dtype, contiguous; on CUDA in bf16 the rows
+    i < pad_len[b], which no valid row attends to, are zeros.
     """
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, scale, pad_len)
@@ -115,27 +148,32 @@ def flash_prefill_sdpa(
             or v.dtype != q.dtype:
         raise ValueError(f"flash_prefill_sdpa: dtypes {q.dtype}/{k.dtype}/"
                          f"{v.dtype}; the kernel takes fp32 or bf16")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1 or t.device != q.device:
-            raise ValueError(f"flash_prefill_sdpa: {name} must lie on "
-                             f"{q.device} with a contiguous last dim")
-    pad = pad_len.reshape(b).to(device=q.device, dtype=torch.int32).contiguous()
+    _check_rows("flash_prefill_sdpa", q, k, v)
+    pad = pad_len.reshape(b).to(device=q.device, dtype=torch.int64).contiguous()
     out = torch.empty((b, n_heads, s, d), dtype=q.dtype, device=q.device)
-    lib = _build.library()
-    code = lib.csm_flash_prefill(
+    code = _build.library().csm_flash_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
         out.data_ptr(),
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        b, n_heads, n_kv, s, d, float(scale), _build.DTYPE_CODES[q.dtype],
-        _build.stream_ptr(q.device))
+        *_strides(q), *_strides(k), *_strides(v), b, n_heads, n_kv, s, d,
+        float(scale), _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q.device))
     _build.check(code, "csm_flash_prefill")
     flash_prefill_sdpa.launches += 1
     return out
 
 
 flash_prefill_sdpa.launches = 0
+
+
+def decode_splits(batch: int, n_kv: int, cap: int) -> tuple[int, int]:
+    """(splits, chunk) of kernel 4 for a cache of `cap` slots: `splits`
+    blocks a (row, kv head), each over `chunk` keys (a multiple of 64; the
+    last chunk may be shorter). A function of the cache's shape only, never
+    of the decode index, so a cache keeps one grid for all its steps."""
+    blocks = batch * n_kv
+    want = 1 if blocks >= DECODE_ONE_SPLIT_BLOCKS else min(
+        -(-DECODE_TARGET_BLOCKS // blocks), -(-cap // DECODE_CHUNK_ALIGN))
+    chunk = DECODE_CHUNK_ALIGN * -(-cap // (DECODE_CHUNK_ALIGN * want))
+    return -(-cap // chunk), chunk
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -163,8 +201,8 @@ def flash_decode_sdpa(
     after this step's write — read through their strides (no copy);
     pad_len: (B,) left pads; index: the cache's pre-advance write slot.
     Key j is valid iff pad_len[b] <= j <= index. On CUDA: D == 64,
-    H / n_kv in {1, 2, 4, 8}, fp32 or bf16. Returns (B, H, 1, D) in
-    q.dtype, contiguous.
+    H / n_kv in {1, 2, 4, 8}, fp32 or bf16, rows 16-byte aligned. Returns
+    (B, H, 1, D) in q.dtype, contiguous.
     """
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, scale, pad_len, index)
@@ -190,23 +228,21 @@ def flash_decode_sdpa(
             or v.dtype != q.dtype:
         raise ValueError(f"flash_decode_sdpa: dtypes {q.dtype}/{k.dtype}/"
                          f"{v.dtype}; the kernel takes fp32 or bf16")
-    vec = 16 // q.element_size()  # elements of one 16-byte load
-    for name, t, dims in (("q", q, 2), ("k", k, 3), ("v", v, 3)):
-        if t.stride(-1) != 1 or t.device != q.device:
-            raise ValueError(f"flash_decode_sdpa: {name} must lie on "
-                             f"{q.device} with a contiguous last dim")
-        if t.data_ptr() % 16 or any(st % vec for st in t.stride()[:dims]):
-            raise ValueError(f"flash_decode_sdpa: {name}'s rows must be "
-                             f"16-byte aligned")
-    pad = pad_len.reshape(b).to(device=q.device, dtype=torch.int32).contiguous()
+    _check_rows("flash_decode_sdpa", q, k, v)
+    pad = pad_len.reshape(b).to(device=q.device, dtype=torch.int64).contiguous()
     out = torch.empty((b, n_heads, 1, d), dtype=q.dtype, device=q.device)
+    splits, chunk = decode_splits(b, n_kv, cap)
+    # fp32 scratch: the scores (B, H, cap), and with splits their partials,
+    # (max, sum, P.V[64]) a (row, head, split)
+    n_scores = -(-b * n_heads * cap // 4) * 4
+    scratch = torch.empty(n_scores + (b * n_heads * splits * (d + 2)
+                                      if splits > 1 else 0),
+                          dtype=torch.float32, device=q.device)
     code = _build.library().csm_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
-        out.data_ptr(),
-        q.stride(0), q.stride(1),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        b, n_heads, n_kv, cap, int(index), d, float(scale),
+        out.data_ptr(), scratch.data_ptr(),
+        *_strides(q)[:2], *_strides(k), *_strides(v), b, n_heads, n_kv, cap,
+        int(index), splits, chunk, d, float(scale),
         _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q.device))
     _build.check(code, "csm_flash_decode")
     flash_decode_sdpa.launches += 1

@@ -64,8 +64,12 @@ def test_w8a8_kernel_rejects_what_it_does_not_take(cuda_device):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s,pads", [(64, (0, 63)), (256, (0, 37)),
-                                    (512, (200, 5))])
+                                    (512, (200, 5)), (512, (64, 130)),
+                                    (256, (100, 255)), (2048, (0, 200))])
 def test_flash_prefill_kernel_matches_plain(cuda_device, dtype, s, pads):
+    """Pads inside the first 64-row tile, across a later one and past the
+    first (64: a whole tile; 255: all but one row); a second call
+    bit-equal."""
     rng = np.random.RandomState(s)
     b, h, kv, d, cap = 2, 8, 2, 64, s + 40
     q = torch.from_numpy(rng.randn(b, h, s, d).astype(np.float32))
@@ -77,18 +81,36 @@ def test_flash_prefill_kernel_matches_plain(cuda_device, dtype, s, pads):
     # k/v are strided slices of cache-shaped buffers, read in place
     got = attention.flash_prefill_sdpa(q, kc[:, :, :s], vc[:, :, :s],
                                        d ** -0.5, pad)
+    again = attention.flash_prefill_sdpa(q, kc[:, :, :s], vc[:, :, :s],
+                                         d ** -0.5, pad)
     want = attention.flash_prefill_plain(q, kc[:, :, :s], vc[:, :, :s],
                                          d ** -0.5, pad)
     torch.cuda.synchronize()
-    assert attention.flash_prefill_sdpa.launches == before + 1
+    assert attention.flash_prefill_sdpa.launches == before + 2
     assert torch.isfinite(got).all()  # also rows before the pad
-    # fp32: sum order and expf; bf16: the plain version rounds the
-    # probabilities to bf16 before P.V, and both round the output
+    assert torch.equal(got, again)
+    # fp32: sum order and expf; bf16: both round the probabilities to bf16
+    # before P.V (in other places), and both round the output
     atol = 1e-4 if dtype == torch.float32 else 3e-2
     for bi, p0 in enumerate(pads):
         torch.testing.assert_close(got[bi, :, p0:].float(),
                                    want[bi, :, p0:].float(), rtol=0,
                                    atol=atol)
+
+
+def test_flash_prefill_kernel_rejects_what_it_does_not_take(cuda_device):
+    """Rows that are not 16-byte aligned raise: the kernel reads q, k and v
+    in place and never copies."""
+    pad = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    q = torch.zeros((2, 8, 64, 64), device=cuda_device, dtype=torch.bfloat16)
+    k = torch.zeros((2, 2, 64, 64), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="S%64"):
+        attention.flash_prefill_sdpa(q[:, :, :40], k[:, :, :40],
+                                     k[:, :, :40], 1.0, pad)
+    odd = torch.zeros((2, 2, 64 * 65 + 4), device=cuda_device,
+                      dtype=torch.bfloat16)[..., 4:].view(2, 2, 65, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        attention.flash_prefill_sdpa(q, odd[:, :, :64], k, 1.0, pad)
 
 
 # --- kernel 3: the whole-frame decoder --------------------------------------
@@ -451,12 +473,19 @@ def test_affine_kernel_rejects_what_it_does_not_take(cuda_device):
 @pytest.mark.parametrize("b,h,n_kv,cap,index", [(8, 32, 8, 157, 140),
                                                 (3, 8, 2, 1000, 999),
                                                 (2, 8, 8, 64, 0),
-                                                (4, 16, 2, 77, 30)])
+                                                (4, 16, 2, 77, 30),
+                                                (8, 32, 8, 2048, 255),
+                                                (8, 32, 8, 2048, 256),
+                                                (2, 32, 8, 2048, 1000)])
 def test_flash_decode_kernel_matches_plain(cuda_device, dtype, b, h, n_kv,
                                            cap, index):
     """Per-row pads up to index (one row past it: no valid key, a uniform
     average as in the masked softmax); k/v are the layer views of a
-    2-layer cache, q a transposed projection."""
+    2-layer cache, q a transposed projection. The cache splits over
+    blocks (8 chunks of 256 keys at B=8, cap 2048: index on the last slot
+    of a chunk and on the first of the next; 16 of 64 at cap 1000, which
+    no split count divides); at cap 2048, B=2 the first row's pad lies in
+    index's chunk. A second call is bit-equal."""
     rng = np.random.RandomState(cap)
     q = torch.from_numpy(rng.randn(b, 1, h, 64).astype(np.float32))
     kc = torch.from_numpy(rng.randn(2, b, n_kv, cap, 64).astype(np.float32))
@@ -465,16 +494,20 @@ def test_flash_decode_kernel_matches_plain(cuda_device, dtype, b, h, n_kv,
     q = q.transpose(1, 2)
     pads = rng.randint(0, index + 1, (b,))
     pads[-1] = index + 1 if index + 1 < cap else pads[-1]
+    if cap == 2048 and b == 2:
+        pads[0] = index - 20
     pad = torch.from_numpy(pads).to(cuda_device)
     before = attention.flash_decode_sdpa.launches
     got = attention.flash_decode_sdpa(q, kc[1], vc[1], 0.125, pad, index)
+    again = attention.flash_decode_sdpa(q, kc[1], vc[1], 0.125, pad, index)
     want = attention.flash_decode_plain(q, kc[1], vc[1], 0.125, pad, index)
     torch.cuda.synchronize()
-    assert attention.flash_decode_sdpa.launches == before + 1
+    assert attention.flash_decode_sdpa.launches == before + 2
     assert got.shape == (b, h, 1, 64) and torch.isfinite(got).all()
-    # fp32: sum order and expf; bf16: the plain version rounds the
-    # probabilities to bf16 before P.V (as the JAX sdpa), the kernel keeps
-    # them in fp32, and both round the output. bf16's absolute part shrinks
+    assert torch.equal(got, again)
+    # fp32: sum order and expf; bf16: both round the normalised
+    # probabilities to bf16 before P.V (as the JAX sdpa), summing in other
+    # orders, and both round the output. bf16's absolute part shrinks
     # with the output's largest magnitude: averages over ~1000 keys are small
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     atol = tol if dtype == torch.float32 else \

@@ -78,6 +78,27 @@ def test_flash_decode_plain_is_the_masked_sdpa():
     torch.testing.assert_close(got[2, :, 0], want_avg)
 
 
+@pytest.mark.parametrize("b,n_kv", [(1, 8), (8, 8), (32, 8), (33, 8),
+                                    (64, 8), (3, 2)])
+def test_flash_decode_split_covers_the_cache(b, n_kv):
+    """Kernel 4's split of a cache: chunks of a multiple of 64 keys that
+    cover the `cap` slots with no empty chunk, one split from 264 (row, kv
+    head) blocks up, else enough splits for ~528 blocks where the cache
+    has the keys for them; a function of the shape only."""
+    for cap in (1, 40, 64, 65, 157, 1000, 1024, 2048, 2173):
+        splits, chunk = tattn.decode_splits(b, n_kv, cap)
+        assert chunk % 64 == 0 and splits >= 1
+        assert (splits - 1) * chunk < cap <= splits * chunk
+        if b * n_kv >= tattn.DECODE_ONE_SPLIT_BLOCKS:
+            assert splits == 1
+        else:
+            want = -(-tattn.DECODE_TARGET_BLOCKS // (b * n_kv))
+            assert splits <= min(want, -(-cap // 64))
+            assert splits * chunk < cap + 64 * splits  # chunks even to 64
+    assert tattn.decode_splits(8, 8, 2048) == (8, 256)
+    assert tattn.decode_splits(64, 8, 157) == (1, 192)
+
+
 @pytest.fixture(scope="module")
 def jax_model():
     """A tiny JAX CSM (fp32) with a random audio_head: a zero head would

@@ -211,23 +211,43 @@ def test_mimi_decode_matches_jax():
                                   got)
 
 
-def test_generate_text_to_waveform(base_params, tmp_path):
-    """`generate` = local-path text tokenizer (BOS/EOS template, text in
-    column 32) + `generate_tokens` + Mimi decode."""
-    import dataclasses
-
+def _word_tokenizer(directory) -> str:
+    """A local WordLevel `tokenizer.json` with Llama's BOS/EOS names."""
     from tokenizers import Tokenizer
     from tokenizers.models import WordLevel
     from tokenizers.pre_tokenizers import Whitespace
 
-    from csm_mlx_tpu_torch.tokenizers import tokenize_text_segment
-
     vocab = {"<|begin_of_text|>": 0, "<|end_of_text|>": 1, "[": 2, "0": 3,
-             "]": 4, "hello": 5, "world": 6, "[UNK]": 7}
+             "]": 4, "hello": 5, "world": 6, "[UNK]": 7, "hi": 8}
     tok = Tokenizer(WordLevel(vocab, unk_token="[UNK]"))
     tok.pre_tokenizer = Whitespace()
-    tok.save(str(tmp_path / "tokenizer.json"))
-    prompt, mask = tokenize_text_segment("hello world", 0, str(tmp_path), 8)
+    tok.save(str(directory / "tokenizer.json"))
+    return str(directory)
+
+
+@pytest.fixture
+def fresh_tokenizers(monkeypatch):
+    """The port's tokenizer and codec singletons empty, and neither path
+    variable set, before and after the test."""
+    from csm_mlx_tpu_torch import tokenizers as ttok
+
+    monkeypatch.delenv(ttok.TEXT_TOKENIZER_ENV, raising=False)
+    monkeypatch.delenv(ttok.MIMI_WEIGHTS_ENV, raising=False)
+    ttok.get_text_tokenizer.cache_clear()
+    ttok.get_audio_tokenizer.cache_clear()
+    yield ttok
+    ttok.get_text_tokenizer.cache_clear()
+    ttok.get_audio_tokenizer.cache_clear()
+
+
+def test_generate_text_to_waveform(base_params, tmp_path, fresh_tokenizers):
+    """`generate` = the canonical local-path text tokenizer (BOS/EOS
+    template, text in column 32) + `generate_tokens` + Mimi decode."""
+    import dataclasses
+
+    ttok = fresh_tokenizers
+    ttok.get_text_tokenizer(_word_tokenizer(tmp_path))  # installs it
+    prompt, mask = ttok.tokenize_text_segment("hello world", 0, 8)
     np.testing.assert_array_equal(prompt[:, -1], [0, 2, 3, 4, 5, 6, 1])
     assert not prompt[:, :-1].any() and (mask[:, -1] == 1).all()
 
@@ -235,9 +255,70 @@ def test_generate_text_to_waveform(base_params, tmp_path):
     cfg = mimi_config_from(dataclasses.replace(TINY_MIMI, num_quantizers=8))
     mimi = TMimi(cfg, generator=torch.Generator().manual_seed(3),
                  device="cpu")
-    wav = tgen.generate(tm, "hello world", 0, mimi, str(tmp_path),
-                        max_audio_length_ms=320, temperature=0.0)
+    wav = tgen.generate(tm, "hello world", 0, max_audio_length_ms=320,
+                        mimi=mimi, temperature=0.0)
     frames, n = tgen.generate_tokens(tm, prompt, mask, 4, temperature=0.0)
     want = mimi.decode(torch.from_numpy(frames.T[None].copy()))[0, 0]
     assert wav.shape == (n * cfg.frame_size,) and n == 4
     torch.testing.assert_close(wav, want, rtol=0, atol=0)
+
+
+def test_text_tokenizer_singleton_in_jax_argument_order(tmp_path,
+                                                        monkeypatch,
+                                                        fresh_tokenizers):
+    """JAX's contract: `tokenize_text_segment(text, speaker,
+    n_audio_codebooks)` positionally, the tokenizer from
+    `CSM_TPU_TEXT_TOKENIZER` read once and cached; a given path that does
+    not exist raises, and so does a call with no path at all."""
+    ttok = fresh_tokenizers
+    with pytest.raises(FileNotFoundError, match=ttok.TEXT_TOKENIZER_ENV):
+        ttok.tokenize_text_segment("hi", 0, 32)
+    with pytest.raises(FileNotFoundError):
+        ttok.get_text_tokenizer(str(tmp_path / "missing"))
+    monkeypatch.setenv(ttok.TEXT_TOKENIZER_ENV, _word_tokenizer(tmp_path))
+    frame, mask = ttok.tokenize_text_segment("hi", 0, 32)
+    assert frame.shape == mask.shape == (6, 33)
+    np.testing.assert_array_equal(frame[:, 32], [0, 2, 3, 4, 8, 1])
+    assert not frame[:, :32].any() and mask[:, 32].all()
+    first = ttok.get_text_tokenizer()
+    (tmp_path / "tokenizer.json").unlink()  # never read again
+    assert ttok.get_text_tokenizer() is first
+    assert ttok.tokenize_text_segment("hi", 0, 8)[0].shape == (6, 9)
+
+
+def test_generate_in_jax_argument_order(base_params, tmp_path, monkeypatch,
+                                        fresh_tokenizers):
+    """`generate(model, text, speaker, context, max_audio_length_ms,
+    mimi=...)` as JAX calls it, with the codec from the
+    `get_audio_tokenizer` singleton when none is given: one random-init
+    codec per codebook count and device; a given weights path raises
+    (FileNotFoundError when it is missing, NotImplementedError until the
+    loader is ported), and so does context audio."""
+    ttok = fresh_tokenizers
+    monkeypatch.setenv(ttok.TEXT_TOKENIZER_ENV, _word_tokenizer(tmp_path))
+    tm = torch_model_from_jax(_jax_model(base_params))
+    codec = ttok.get_audio_tokenizer(tm.n_audio_codebooks, device="cpu")
+    assert ttok.get_audio_tokenizer(tm.n_audio_codebooks,
+                                    device="cpu") is codec
+    assert codec.cfg.num_quantizers == tm.n_audio_codebooks
+
+    wav = tgen.generate(tm, "hello world", 0, (), 800, mimi=codec,
+                        temperature=0)
+    default = tgen.generate(tm, "hello world", 0, (), 800, temperature=0)
+    prompt, mask = ttok.tokenize_text_segment("hello world", 0,
+                                              tm.n_audio_codebooks)
+    frames, n = tgen.generate_tokens(tm, prompt, mask, 10, temperature=0.0)
+    want = codec.decode(torch.from_numpy(frames.T[None].copy()))[0, 0]
+    assert n >= 1 and wav.shape == (n * codec.frame_size,)
+    torch.testing.assert_close(wav, want, rtol=0, atol=0)
+    torch.testing.assert_close(default, wav, rtol=0, atol=0)
+
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tgen.generate(tm, "hello world", 0, [object()], 800, mimi=codec)
+    with pytest.raises(FileNotFoundError):
+        ttok.get_audio_tokenizer(8, str(tmp_path / "missing.safetensors"))
+    weights = tmp_path / "mimi.safetensors"
+    weights.write_bytes(b"")
+    monkeypatch.setenv(ttok.MIMI_WEIGHTS_ENV, str(weights))
+    with pytest.raises(NotImplementedError, match="item 5"):
+        ttok.get_audio_tokenizer(8, device="cpu")
