@@ -4,12 +4,15 @@
 
 From the root of a checkout: builds the port's CUDA kernels from
 `csm_mlx_tpu_torch/csrc/` and holds each against its plain PyTorch version
-at the shapes of the main path — the W8A8 matvec and flash prefill (S =
-256, 512, 2048, pads inside, across and past the first 64-row tile, a
-bit-equal repeat, timed beside SDPA) on random inputs, the whole-frame
-decoder (kernel 3) on the full-width CSM-1B
-decoder at B = 1, 8 and 64 (greedy, teacher-forced agreement) and at
-T = 0.8 (a chi-square of its codebook-1 picks) — then checks the main path
+at the shapes of the main path — the W8A8 matvec (decode rows, and prefill
+rows above 64 on its int8 tensor-core GEMM route, timed beside
+`torch._int_mm`) and flash prefill (S = 256, 512, 2048, pads inside,
+across and past the first 64-row tile, a bit-equal repeat, timed beside
+SDPA) on random inputs, the whole-frame decoder (kernel 3) on the
+full-width CSM-1B decoder at B = 1, 8, 16, 32 and 64 (greedy,
+teacher-forced agreement, its phase split from its own records and its
+streaming floor) and at T = 0.8 (a
+chi-square of its codebook-1 picks) — then checks the main path
 on the card against the CPU on a small model, and drives the main path at
 full CSM-1B width: random weights from a seed, W8A8, greedy
 `generate_tokens` for 125 frames (10 s of audio) from a 32-row prompt and
@@ -100,7 +103,12 @@ W8A8_SHAPES = {  # (IN, OUT) of the main path's quantized linears
     "decoder qkv": (1024, 1536),
     "projection": (2048, 1024),
 }
-W8A8_ROWS = (1, 8, 64, 512)  # decode batches, and prefill rows at 512
+# decode batches (the matvec), and prefill rows (the tensor-core GEMM above
+# 64 rows: 65 its lower edge, 300 and 2048 ragged and full tiles, 512 the
+# recorded case)
+W8A8_ROWS = (1, 8, 64, 65, 300, 512, 2048)
+# the gate-up before the GEMM route (PERF.md §6), H100 80GB HBM3, 700 W
+W8A8_RECORDED_US = {1: 17.45, 512: 1045.0}
 # Kernel 2 (flash prefill), B=2, H=32, n_kv=8, D=64: S of the 256-, 512-
 # and 2048-row prompt buckets; the left pads of the two rows: none, inside
 # the first 64-row tile, inside a later tile (200: q tile 3 straddles it),
@@ -116,7 +124,26 @@ FLASH_TIMED_PADS = (0, 200)
 # of their own.
 FLASH_EARLIER_PADS = ((0, 0), (0, 37), (0, 200))
 COLD_BYTES = 160 << 20  # weights cycled per timing run, > the 50 MB L2
-RESIDENT_ROWS = (1, 8, 64)
+RESIDENT_ROWS = (1, 8, 16, 32, 64)
+# rows whose inputs come from a generator of their own (16 and 32 came with
+# the spread per-row phases), so that later phases keep their inputs
+RESIDENT_NEW_ROWS = (16, 32)
+# Kernel 3 before its redesign (per-row phases on one block a row, dp4a
+# matvecs; PERF.md §6) on an NVIDIA H100 80GB HBM3 at 700 W: ms of one
+# frame, and its phase split by kind (ms of the frame, from the kernel's
+# phase records), printed beside this run's
+RESIDENT_RECORDED_MS = {1: 7.649, 8: 16.58, 64: 76.11}
+RESIDENT_RECORDED_SPLIT = {
+    1: {"attention": 3.4706, "barrier": 1.0995, "gate-up": 1.0793,
+        "prep": 0.9375, "down": 0.7452, "qkv": 0.3064, "o": 0.2616,
+        "pick": 0.1426, "head": 0.0801},
+    8: {"down": 4.2926, "gate-up": 3.9818, "attention": 3.6716,
+        "prep": 1.2864, "barrier": 1.0593, "qkv": 1.0440, "o": 0.9021,
+        "head": 0.5432, "pick": 0.2422},
+    64: {"down": 31.4772, "gate-up": 24.4608, "qkv": 6.4136, "o": 6.1105,
+         "attention": 3.8175, "head": 2.4704, "prep": 1.4845,
+         "barrier": 1.0493, "pick": 0.2371},
+}
 # Kernel 3 against its plain version teacher-forced on the kernel's tokens.
 # The plain version sums in the kernel's order and agrees with it to the
 # bit on the H100 with torch 2.11. The tolerance is for a torch whose exp
@@ -150,6 +177,14 @@ FLASH_DECODE_EDGES = ((8, 2048, 255, None), (8, 2048, 256, None),
                       (3, 1000, 999, "pad > index"))
 BATCH_ROWS, BATCH_FRAMES = 64, 8  # the batch flash-decode phase
 PREFILL_ROWS = (300, 1100)  # prompts of the 512- and 2048-row buckets
+# End-to-end times before kernel 1's GEMM route and kernel 3's redesign, on
+# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §5), printed beside this
+# run's: device ms of one B=1 prefill with kernel 2 and with the masked
+# path, by prompt rows; ms per frame with kernel 4 on / off, by batch label
+PREFILL_RECORDED_MS = {300: (33.93, 38.25), 1100: (142.21, 197.37)}
+FRAME_RECORDED_MS = {"batch of 64": (119.91, 124.14),
+                     "batch of 8": (45.85, 52.05),
+                     "single stream": (35.06, 36.13)}
 # One backbone step through kernel 4 against the masked sdpa on an
 # unquantized CSM-1B, max |hidden err| / max |hidden| through 16 layers.
 # fp32: sum order and expf only. bf16: the JAX tests' bf16 tolerance (both
@@ -207,6 +242,7 @@ def reset_counts() -> None:
     """Every launch counter to 0, just before a path is driven."""
     for fn in WRAPPERS.values():
         fn.launches = 0
+    quant.w8a8_matvec.gemm_launches = 0
 
 
 def read_counts() -> dict:
@@ -265,12 +301,27 @@ def bound_ms(n_bytes: float, n_ops: float, kind: str) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def int_mm_ms(x, weight_q) -> float:
+    """Device ms of `torch._int_mm` (cuBLASLt) on the same int8 codes as
+    kernel 1's GEMM route: the yardstick, without the quantization and the
+    fix-up; the port never calls it."""
+    xf = x.float()
+    absmax = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-6)
+    xq = torch.clamp(torch.round(xf * (127.0 / absmax)), -127,
+                     127).to(torch.int8)
+    wt = weight_q.t()
+    return time_ms(lambda: torch._int_mm(xq, wt))[0]
+
+
 def check_w8a8(dev, gen) -> dict:
-    """Kernel 1 vs `w8a8_matvec_plain` on bf16 activations. Both compute
-    the same int32 products (exact) and the same fp32 fix-up, up to the
-    order of the fp32 row sum; the outputs are then rounded to bf16, so
-    they may differ by one bf16 step: tolerance 2**-7 of each value plus
-    1e-3 of the output's largest magnitude."""
+    """Kernel 1 vs `w8a8_matvec_plain`, on bf16 activations at every row
+    count and fp32 ones above 64 rows (the GEMM route). Both compute the
+    same int32 products (exact) and the same fp32 fix-up, up to the order of
+    the fp32 row sum; bf16 outputs may then differ by one bf16 step:
+    tolerance 2**-7 of each value plus 1e-3 of the output's largest
+    magnitude. Above 64 rows: the route's launches, its bound and
+    `torch._int_mm`'s time; the 512-row gate-up beside its recorded time
+    before the GEMM route."""
     worst, timing = 0.0, None
     for name, (in_dim, out_dim) in W8A8_SHAPES.items():
         w = torch.randn((out_dim, in_dim), generator=gen, device=dev) * 0.02
@@ -279,42 +330,73 @@ def check_w8a8(dev, gen) -> dict:
         for _ in range(n_copies - 1):
             copies.append({k: v.clone() for k, v in copies[0].items()})
         for rows in W8A8_ROWS:
-            x = torch.randn((rows, in_dim), generator=gen,
-                            device=dev).to(torch.bfloat16)
-            q = copies[0]
-            got = quant.w8a8_matvec(x, q["weight_q"], q["scales"], q["biases"])
-            want = quant.w8a8_matvec_plain(x, q["weight_q"], q["scales"],
-                                           q["biases"])
-            torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs()
-            scale = want.float().abs().max().item()
-            bound = 2.0 ** -7 * want.float().abs() + 1e-3 * scale
-            err = diff.max().item()
-            ok = bool((diff <= bound).all()) and bool(torch.isfinite(got).all())
-            it = iter(range(1 << 30))
+            x32 = torch.randn((rows, in_dim), generator=gen, device=dev)
+            dtypes = (torch.bfloat16, torch.float32) \
+                if rows > quant.W8A8_MATVEC_MAX_ROWS else (torch.bfloat16,)
+            for dtype in dtypes:
+                x = x32.to(dtype)
+                q = copies[0]
+                gemm_before = quant.w8a8_matvec.gemm_launches
+                got = quant.w8a8_matvec(x, q["weight_q"], q["scales"],
+                                        q["biases"])
+                routed = quant.w8a8_matvec.gemm_launches - gemm_before
+                want = quant.w8a8_matvec_plain(x, q["weight_q"], q["scales"],
+                                               q["biases"])
+                torch.cuda.synchronize()
+                diff = (got.float() - want.float()).abs()
+                scale = want.float().abs().max().item()
+                bound = 2.0 ** -7 * want.float().abs() + 1e-3 * scale
+                err = diff.max().item()
+                ok = bool((diff <= bound).all()) \
+                    and bool(torch.isfinite(got).all()) \
+                    and routed == (rows > quant.W8A8_MATVEC_MAX_ROWS)
+                it = iter(range(1 << 30))
 
-            def run_kernel():
-                c = copies[next(it) % n_copies]
-                quant.w8a8_matvec(x, c["weight_q"], c["scales"], c["biases"])
+                def run_kernel():
+                    c = copies[next(it) % n_copies]
+                    quant.w8a8_matvec(x, c["weight_q"], c["scales"],
+                                      c["biases"])
 
-            def run_plain():
-                c = copies[next(it) % n_copies]
-                quant.w8a8_matvec_plain(x, c["weight_q"], c["scales"],
-                                        c["biases"])
+                def run_plain():
+                    c = copies[next(it) % n_copies]
+                    quant.w8a8_matvec_plain(x, c["weight_q"], c["scales"],
+                                            c["biases"])
 
-            ms_k, wall_k = time_ms(run_kernel)
-            ms_p, wall_p = time_ms(run_plain)
-            gbs = in_dim * out_dim / (ms_k * 1e-3) / 1e9
-            log(f"w8a8 {name:17s} B={rows:4d} IN={in_dim:5d} OUT={out_dim:5d}"
-                f"  max_abs_err={err:.3e} (tol 2^-7*|y| + {1e-3 * scale:.2e})"
-                f"  kernel {ms_k:.4f} ms device ({gbs:.0f} GB/s of weights),"
-                f" {wall_k:.4f} ms wall  plain {ms_p:.4f} ms device,"
-                f" {wall_p:.4f} ms wall  {'ok' if ok else 'MISMATCH'}")
-            worst = max(worst, err)
-            if not ok:
-                raise AssertionError(f"w8a8 kernel disagrees at {name} B={rows}")
-            if name == "backbone gate-up" and rows == 1:
-                timing = (ms_k, ms_p)
+                ms_k, wall_k = time_ms(run_kernel)
+                ms_p, wall_p = time_ms(run_plain)
+                gbs = in_dim * out_dim / (ms_k * 1e-3) / 1e9
+                route = ("tensor cores" if routed else "matvec")
+                extra = ""
+                if routed:
+                    esz = x.element_size()
+                    n_bytes = (in_dim * out_dim + 8 * out_dim
+                               + rows * (in_dim + out_dim) * esz)
+                    b_ms, b_by = bound_ms(n_bytes, 2 * rows * in_dim
+                                          * out_dim, "int8")
+                    lib = int_mm_ms(x, q["weight_q"])
+                    extra = (f"  bound {b_ms:.4f} ms ({b_by}) = "
+                             f"{b_ms / ms_k:.1%} of the kernel; "
+                             f"torch._int_mm on the same codes {lib:.4f} ms")
+                log(f"w8a8 {name:17s} B={rows:4d} {str(dtype)[6:]:8s} "
+                    f"IN={in_dim:5d} OUT={out_dim:5d} [{route}]"
+                    f"  max_abs_err={err:.3e} (tol 2^-7*|y| + "
+                    f"{1e-3 * scale:.2e})  kernel {ms_k:.4f} ms device "
+                    f"({gbs:.0f} GB/s of weights), {wall_k:.4f} ms wall  "
+                    f"plain {ms_p:.4f} ms device, {wall_p:.4f} ms wall"
+                    f"{extra}  {'ok' if ok else 'MISMATCH'}")
+                if name == "backbone gate-up" and rows in W8A8_RECORDED_US \
+                        and dtype == torch.bfloat16:
+                    log(f"w8a8 backbone gate-up B={rows} record: kernel "
+                        f"{1e3 * ms_k:.2f} us (before the GEMM route, H100 "
+                        f"80GB HBM3, 700 W: {W8A8_RECORDED_US[rows]} us), "
+                        f"plain "
+                        f"{1e3 * ms_p:.2f} us{extra}")
+                worst = max(worst, err)
+                if not ok:
+                    raise AssertionError(f"w8a8 kernel disagrees at {name} "
+                                         f"B={rows} {dtype}")
+                if name == "backbone gate-up" and rows == 1:
+                    timing = (ms_k, ms_p)
         del copies
     # the JSON line times the widest decode matvec: B=1 on gate-up
     in_dim, out_dim = W8A8_SHAPES["backbone gate-up"]
@@ -698,7 +780,60 @@ def forced_flips(res, args, proj01, tokens, kernel_logits):
             (err.amax(-1) / std).max().item(), err.max().item())
 
 
-def check_resident(model: CSM, gen) -> dict:
+STAMP_CAP = 4096  # phase records a kernel-3 call may write
+
+
+def phase_split(res, args, proj01, want_tokens) -> dict:
+    """Kernel 3's own phase records over one greedy call (its
+    `stamps` buffer): ms of the whole call, of each phase kind (a phase
+    from its start to the latest block's arrival at its closing barrier; a
+    prologue recorded by block 0 counts to its own kind), and of the
+    barriers (the latest arrival to the release), summed over the frame
+    and over step 0. The tokens must equal `want_tokens`, the call without
+    records."""
+    stamps = torch.zeros((STAMP_CAP, 4), dtype=torch.int64,
+                         device=proj01.device)
+    resident.resident_decode_frame.stamps = stamps
+    try:
+        toks = resident.resident_decode_frame(res, args, proj01, 0, 0.0)
+    finally:
+        resident.resident_decode_frame.stamps = None
+    torch.cuda.synchronize()
+    if not torch.equal(toks, want_tokens):
+        raise AssertionError("kernel 3's tokens changed with its phase "
+                             "records on")
+    rec = stamps.cpu().numpy().astype(np.float64)
+    n = int((rec[:, 0] != 0).sum())
+    rec, codes = rec[:n], stamps[:n, 3].cpu().numpy()
+    frame: dict = {}
+    step0: dict = {}
+    step = -1
+    for i in range(n):
+        kind = resident.PHASE_KINDS[codes[i] & 0xFF]
+        start, pro, arrive = rec[i, 0], rec[i, 1], rec[i, 2]
+        if kind == "pick" or (pro and (codes[i] >> 8) & 0xFF == 0):
+            step += 1  # a step starts with the pick (or its prologue)
+        parts = {}
+        if pro:
+            parts[resident.PHASE_KINDS[(codes[i] >> 8) & 0xFF]] = pro - start
+            parts[kind] = arrive - pro
+        else:
+            parts[kind] = arrive - start
+        if i + 1 < n:
+            parts["barrier"] = rec[i + 1, 0] - arrive
+        for out in (frame, step0) if step == 0 else (frame,):
+            for k, ns in parts.items():
+                out[k] = out.get(k, 0.0) + ns / 1e6
+    return dict(total_ms=(rec[n - 1, 2] - rec[0, 0]) / 1e6, barriers=n - 1,
+                frame=frame, step0=step0)
+
+
+def fmt_split(split: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+        split.items(), key=lambda kv: -kv[1]))
+
+
+def check_resident(model: CSM, gen, gen_new) -> dict:
     """Kernel 3 against its plain version at full CSM-1B width, greedy, on
     random proj01 rows, the plain version teacher-forced on the kernel's
     tokens: every logit within FLIP_MARGIN_TOL of its row's std, >= 99% of
@@ -709,7 +844,8 @@ def check_resident(model: CSM, gen) -> dict:
     d = args.decoder_config.hidden_size
     out = {}
     for rows in RESIDENT_ROWS:
-        proj01 = torch.randn((2, rows, d), generator=gen, device=model.device)
+        g = gen_new if rows in RESIDENT_NEW_ROWS else gen
+        proj01 = torch.randn((2, rows, d), generator=g, device=model.device)
         toks, k_logits = resident.resident_decode_frame(
             res, args, proj01, 0, 0.0, return_logits=True)
         again = resident.resident_decode_frame(res, args, proj01, 0, 0.0)
@@ -718,7 +854,7 @@ def check_resident(model: CSM, gen) -> dict:
                                                        toks, k_logits)
         # the plain version against itself, its input moved by 1e-6
         nudged = proj01 * (1 + 1e-6 * torch.randn(
-            proj01.shape, generator=gen, device=proj01.device))
+            proj01.shape, generator=g, device=proj01.device))
         _, p_logits = resident.resident_decode_frame_plain(
             res, args, nudged, 0.0, forced=toks.long())
         base = forced_flips(res, args, proj01, toks, p_logits)[2]
@@ -746,15 +882,28 @@ def check_resident(model: CSM, gen) -> dict:
         if not ok:
             raise AssertionError(f"kernel 3 disagrees with its plain version "
                                  f"at B={rows}")
+        split = phase_split(res, args, proj01, toks)
+        log(f"resident B={rows:2d} phases (kernel's own records, tokens equal"
+            f" to the call without them): {split['total_ms']:.4f} ms, "
+            f"{split['barriers']} barriers; frame ms: "
+            f"{fmt_split(split['frame'])}; step 0 ms: "
+            f"{fmt_split(split['step0'])}")
+        if rows in RESIDENT_RECORDED_SPLIT:
+            log(f"resident B={rows:2d} before the redesign (H100 80GB HBM3, "
+                f"700 W): {RESIDENT_RECORDED_MS[rows]} ms, 1086 barriers; "
+                f"frame ms: {fmt_split(RESIDENT_RECORDED_SPLIT[rows])}")
         out[rows] = dict(max_abs_err=abs_err, agreement=agree, ms=ms_k,
                          wall_ms=wall_k,
                          plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)
     codes = sum(t.numel() for lw in res["layers"] for t in lw
                 if t.dtype == torch.int8)
-    log(f"resident: decoder weights {codes / 1e6:.1f} MB int8, re-streamed "
-        f"each of {args.n_audio_codebooks} steps: "
-        f"{args.n_audio_codebooks * codes / HBM_BYTES_PER_S * 1e3:.3f} ms a "
-        f"frame at the HBM rate")
+    n_cb = args.n_audio_codebooks
+    head = res["audio_head_q"][0].numel()
+    floor = (n_cb * codes + (n_cb - 1) * head) / HBM_BYTES_PER_S * 1e3
+    log(f"resident: decoder weights {codes / 1e6:.1f} MB int8, streamed by "
+        f"each of {n_cb} steps, and a {head / 1e6:.3f} MB head by each of "
+        f"{n_cb - 1}: floor {floor:.3f} ms a frame at the HBM rate (weights "
+        f"alone {n_cb * codes / HBM_BYTES_PER_S * 1e3:.3f})")
     return out
 
 
@@ -900,7 +1049,10 @@ def run_main_path(model: CSM, mimi: Mimi) -> dict:
               if k in ("w8a8_matvec", "flash_prefill_sdpa",
                        "resident_decode_frame")}
 
-    log(f"launches on the main path: {counts} over {n} + {n_long} frames")
+    gemm = quant.w8a8_matvec.gemm_launches
+    log(f"launches on the main path: {counts} over {n} + {n_long} frames; "
+        f"w8a8 by route: matvec {counts['w8a8_matvec'] - gemm}, tensor-core "
+        f"GEMM (prefill, > {quant.W8A8_MATVEC_MAX_ROWS} rows) {gemm}")
     if n < 1 or n_long < 1:
         raise AssertionError(f"no frames generated ({n}, {n_long})")
     for f in (frames, long_frames):
@@ -1030,11 +1182,18 @@ def time_prefill(model: CSM) -> None:
                         f"{np.mean([r[1] for r in rs]):.3f} ms wall ("
                         + ", ".join(f"{r[1]:.3f}" for r in rs) + ")")
 
+            gemm = quant.w8a8_matvec.gemm_launches
+            with torch.no_grad():
+                run()
+            gemm = quant.w8a8_matvec.gemm_launches - gemm
             log(f"prefill CSM-1B W8A8 B=1, {rows}-row prompt in the {bucket}"
                 f"-row bucket, cache {cap}, alternated flash/masked/masked/"
                 f"flash: kernel 2 {fmt(runs[True])}; masked sdpa "
-                f"{fmt(runs[False])}; {n_layers} kernel-2 launches a "
-                f"prefill; max |hidden diff| / max |hidden| {rel:.3e}")
+                f"{fmt(runs[False])}; {n_layers} kernel-2 launches and "
+                f"{gemm} kernel-1 GEMM-route launches a prefill; max |hidden "
+                f"diff| / max |hidden| {rel:.3e}; before the GEMM route (H100 "
+                f"80GB HBM3, 700 W): kernel 2 {PREFILL_RECORDED_MS[rows][0]} "
+                f"ms, masked {PREFILL_RECORDED_MS[rows][1]} ms device")
     finally:
         if saved is None:
             os.environ.pop("CSM_TPU_FLASH_PREFILL", None)
@@ -1339,7 +1498,10 @@ def run_batch_flash_decode(model: CSM, gen) -> dict:
             f"{np.mean(ms['off']):.2f} "
             f"({', '.join(f'{t:.2f}' for t in ms['off'])}); {launched} "
             f"kernel-4 launches ({launched / steps:.0f} a step), launches "
-            f"{on['counts']}; code agreement of the two settings {agree:.4f}")
+            f"{on['counts']}; code agreement of the two settings {agree:.4f}; "
+            f"before kernel 3's redesign (H100 80GB HBM3, 700 W): "
+            f"{FRAME_RECORDED_MS[label][0]} / {FRAME_RECORDED_MS[label][1]} "
+            f"ms per frame")
         for r in (on, off):
             if int(r["n"].max()) != BATCH_FRAMES or r["frames"].min() < 0 \
                     or r["frames"].max() >= args.n_audio_vocab:
@@ -1843,7 +2005,7 @@ def main() -> None:
     check_small_vs_cpu(dev, mimi)
     check_small_affine_vs_cpu(dev)
     model = build_csm_1b(dev)
-    frame = check_resident(model, gen)
+    frame = check_resident(model, gen, gen_new)
     check_resident_temperature(model, gen)
     main_path = run_main_path(model, mimi)
     trace_main_path(model)

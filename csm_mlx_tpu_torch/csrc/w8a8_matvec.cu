@@ -19,8 +19,15 @@
 // __dp4a into int32 registers. The quantized activations (at most B*IN
 // bytes, 512 KB at B=64, IN=8192) are read through L1/L2 rather than
 // staged in shared memory, so no tile of them has to fit in 227 KB. Rows
-// are taken RB at a time (grid.y); past RB rows the weights are re-read,
-// mostly from the 50 MB L2.
+// are taken RB at a time (grid.y).
+//
+// Above 64 rows (prefill) the product is a GEMM with 2*rows ops a weight
+// byte, past the point where the tensor cores bound it (the JAX package
+// sends these rows to an int8 XLA dot on the MXU): `w8a8_gemm_kernel` runs
+// it on the int8 tensor cores (csrc/int8_mma.cuh, mma.sync m16n8k32) in
+// 128 x 128 block tiles, 64 bytes of IN a step, through a 3-stage cp.async
+// ring, each warp a 64 x 32 tile; the fix-up is its epilogue, in the
+// matvec's order. Its int32 products equal the __dp4a ones exactly.
 //
 // Rounding: rintf rounds half to even, like jnp.round (CUDA's roundf would
 // round half away from zero and change the codes at every .5). The fix-up
@@ -30,6 +37,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "int8_mma.cuh"
 
 namespace {
 
@@ -156,14 +164,140 @@ void launch_matvec(const int8_t* qx, const float2* aux, const int8_t* w,
       qx, aux, w, s, z, out, rows, in_dim, out_dim);
 }
 
+constexpr int kGemmM = 128, kGemmN = 128, kGemmK = 64, kGemmStages = 3;
+constexpr int kGemmStride = kGemmK + 16;  // 80 bytes: ldmatrix rows on distinct banks
+constexpr int kGemmThreads = 256;         // 8 warps: 2 (rows) x 4 (channels)
+constexpr int kGemmTile = kGemmM * kGemmStride;
+constexpr int kGemmSmem = kGemmStages * 2 * kGemmTile;
+
+// out = fix-up(qx . w^T) for rows > 64: block tile 128 rows x 128 channels.
+template <typename T>
+__global__ void __launch_bounds__(kGemmThreads)
+w8a8_gemm_kernel(const int8_t* __restrict__ qx, const float2* __restrict__ aux,
+                 const int8_t* __restrict__ w, const float* __restrict__ s,
+                 const float* __restrict__ z, T* __restrict__ out, int rows,
+                 int in_dim, int out_dim) {
+  extern __shared__ __align__(128) int8_t gsm[];
+  int8_t* sa = gsm;                             // stages x (128 rows x 64 bytes)
+  int8_t* sb = gsm + kGemmStages * kGemmTile;   // stages x (128 channels x 64 bytes)
+  const int m0 = blockIdx.y * kGemmM, n0 = blockIdx.x * kGemmN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, tg = lane & 3;
+  const int k_tiles = (in_dim + kGemmK - 1) / kGemmK;
+
+  // one k-tile of both operands; 16-byte pieces past the edges are zeros
+  auto load = [&](int stage, int kt) {
+    const int k0 = kt * kGemmK;
+    for (int i = threadIdx.x; i < kGemmM * 4; i += kGemmThreads) {
+      const int r = i >> 2, k = k0 + (i & 3) * 16;
+      const bool ok = m0 + r < rows && k < in_dim;
+      cp_async16(sa + stage * kGemmTile + r * kGemmStride + (i & 3) * 16,
+                 ok ? qx + (size_t)(m0 + r) * in_dim + k : qx, ok);
+    }
+    for (int i = threadIdx.x; i < kGemmN * 4; i += kGemmThreads) {
+      const int r = i >> 2, k = k0 + (i & 3) * 16;
+      const bool ok = n0 + r < out_dim && k < in_dim;
+      cp_async16(sb + stage * kGemmTile + r * kGemmStride + (i & 3) * 16,
+                 ok ? w + (size_t)(n0 + r) * in_dim + k : w, ok);
+    }
+  };
+
+  int acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0;
+
+#pragma unroll
+  for (int st = 0; st < kGemmStages - 1; ++st) {
+    if (st < k_tiles) load(st, st);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    cp_async_wait<kGemmStages - 2>();
+    __syncthreads();  // tile kt has landed; every warp is done with kt - 1
+    const int next = kt + kGemmStages - 1;
+    if (next < k_tiles) load(next % kGemmStages, next);
+    cp_async_commit();
+    const int8_t* at = sa + (kt % kGemmStages) * kGemmTile + wm * 64 * kGemmStride;
+    const int8_t* bt = sb + (kt % kGemmStages) * kGemmTile + wn * 32 * kGemmStride;
+#pragma unroll
+    for (int ks = 0; ks < kGemmK / 32; ++ks) {
+      uint32_t af[4][4], bf[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        load_a_frag(af[mi], at + mi * 16 * kGemmStride + ks * 32, kGemmStride, lane);
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj)
+        load_b_frag2(bf[nj], bt + nj * 16 * kGemmStride + ks * 32, kGemmStride, lane);
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma_s8(acc[mi][ni], af[mi], bf[ni >> 1][(ni & 1) * 2], bf[ni >> 1][(ni & 1) * 2 + 1]);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int b = m0 + wm * 64 + mi * 16 + g + (i >> 1) * 8;
+        const int o = n0 + wn * 32 + ni * 8 + tg * 2 + (i & 1);
+        if (b < rows && o < out_dim) {
+          const float2 a = aux[b];  // (absmax / 127, sum of the row)
+          const float y = __fadd_rn(__fmul_rn(__fmul_rn((float)acc[mi][ni][i], s[o]), a.x),
+                                    __fmul_rn(z[o], a.y));
+          out[(size_t)b * out_dim + o] = from_f32<T>(y);
+        }
+      }
+    }
+  }
+}
+
+constexpr int kMaxDevices = 64;
+
+template <typename T>
+cudaError_t launch_gemm(const int8_t* qx, const float2* aux, const int8_t* w,
+                        const float* s, const float* z, T* out, int rows,
+                        int in_dim, int out_dim, cudaStream_t stream) {
+  // the shared-memory opt-in, once per device
+  static bool ready[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    e = cudaFuncSetAttribute(w8a8_gemm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kGemmSmem);
+    if (e != cudaSuccess) return e;
+    ready[dev] = true;
+  }
+  dim3 grid((out_dim + kGemmN - 1) / kGemmN, (rows + kGemmM - 1) / kGemmM);
+  w8a8_gemm_kernel<T><<<grid, kGemmThreads, kGemmSmem, stream>>>(
+      qx, aux, w, s, z, out, rows, in_dim, out_dim);
+  return cudaSuccess;
+}
+
+constexpr int kMaxMatvecRows = 64;  // W8A8_MATVEC_MAX_ROWS of ops/quant.py
+
 template <typename T>
 void run(const void* x, int8_t* qx, float2* aux, const int8_t* w,
          const float* s, const float* z, void* out, int rows, int in_dim,
-         int out_dim, cudaStream_t stream) {
+         int out_dim, cudaStream_t stream, cudaError_t* err) {
   quant_rows_kernel<T><<<rows, kQuantThreads, 0, stream>>>(
       static_cast<const T*>(x), qx, aux, in_dim);
   T* o = static_cast<T*>(out);
-  if (rows == 1)
+  if (rows > kMaxMatvecRows) {
+    const cudaError_t e = launch_gemm<T>(qx, aux, w, s, z, o, rows, in_dim, out_dim, stream);
+    if (e != cudaSuccess) *err = e;
+  } else if (rows == 1)
     launch_matvec<T, 1>(qx, aux, w, s, z, o, rows, in_dim, out_dim, stream);
   else if (rows == 2)
     launch_matvec<T, 2>(qx, aux, w, s, z, o, rows, in_dim, out_dim, stream);
@@ -178,7 +312,8 @@ void run(const void* x, int8_t* qx, float2* aux, const int8_t* w,
 // x: (rows, in_dim) fp32 or bf16, contiguous; qx: (rows, in_dim) int8 and
 // aux: (rows, 2) fp32 scratch; w: (out_dim, in_dim) int8, contiguous, 16-byte
 // aligned; s, z: (out_dim,) fp32; out: (rows, out_dim) in x's type.
-// in_dim % 16 == 0 (checked by the wrapper). Returns cudaGetLastError().
+// in_dim % 16 == 0 (checked by the wrapper). Up to 64 rows the matvec runs,
+// above that the tensor-core GEMM. Returns cudaGetLastError().
 extern "C" int csm_w8a8_matvec(const void* x, void* qx, void* aux,
                                const void* w, const void* s, const void* z,
                                void* out, int rows, int in_dim, int out_dim,
@@ -189,11 +324,13 @@ extern "C" int csm_w8a8_matvec(const void* x, void* qx, void* aux,
   auto* w8 = static_cast<const int8_t*>(w);
   auto* sf = static_cast<const float*>(s);
   auto* zf = static_cast<const float*>(z);
+  cudaError_t err = cudaSuccess;
   if (dtype == kF32)
-    run<float>(x, q8, a2, w8, sf, zf, out, rows, in_dim, out_dim, st);
+    run<float>(x, q8, a2, w8, sf, zf, out, rows, in_dim, out_dim, st, &err);
   else if (dtype == kBF16)
-    run<__nv_bfloat16>(x, q8, a2, w8, sf, zf, out, rows, in_dim, out_dim, st);
+    run<__nv_bfloat16>(x, q8, a2, w8, sf, zf, out, rows, in_dim, out_dim, st, &err);
   else
     return (int)cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

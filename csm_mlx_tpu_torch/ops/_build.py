@@ -47,11 +47,12 @@ _SIGNATURES = {
     # scale, dtype, stream
     "csm_flash_prefill": (_VP,) * 5 + (_LL,) * 9 + (_I,) * 5
     + (ctypes.c_float, _I, _VP),
-    # layer pointers, n_layers, norm, rope_cs, head_q, head_s, embed, proj01,
-    # x, q, act, xq, aux, kc, vc, part, part_cap, tokens, logits, rows,
-    # heads, n_kv, hd, d, f, n_cb, v, v_pad, eps, scale, inv_t, seed, stream
-    "csm_resident_frame": (ctypes.POINTER(_VP), _I) + (_VP,) * 14
-    + (_I, _VP, _VP) + (_I,) * 9 + (_F,) * 3 + (ctypes.c_uint, _VP),
+    # layer pointers, n_layers, norm, rope_cs, head_q, head_s, embed,
+    # proj01, x, q, ao, act, xq, aux, kc, vc, part, tokens, logits, rows,
+    # heads, n_kv, hd, d, f, n_cb, v, v_pad, eps, scale, inv_t, seed, grid,
+    # stamps, stamp_cap, stream
+    "csm_resident_frame": (ctypes.POINTER(_VP), _I) + (_VP,) * 17
+    + (_I,) * 9 + (_F,) * 3 + (ctypes.c_uint, _I, _VP, _I, _VP),
     # q, k, v, out, lse, 9 strides, batch, n_heads, n_kv, seq, head_dim,
     # scale, dtype, stream
     "csm_flash_train_fwd": (_VP,) * 5 + (_LL,) * 9 + (_I,) * 5

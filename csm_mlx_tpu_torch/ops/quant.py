@@ -22,7 +22,9 @@ parity) and W8A8.
    `w8a8_matvec` is kernel 1 of the port: on CUDA tensors it launches
    `csrc/w8a8_matvec.cu`, at ANY number of rows — the JAX package's split
    (Pallas kernel at <= 64 rows, its XLA int8 mirror above) has one
-   arithmetic here, so prefill and decode quantize alike; on CPU tensors it
+   arithmetic here, so prefill and decode quantize alike: up to
+   W8A8_MATVEC_MAX_ROWS rows the __dp4a matvec, above them a GEMM on the
+   int8 tensor cores, with the same exact int32 products; on CPU tensors it
    runs `w8a8_matvec_plain`, the mirror of `_xla_w8a8_matvec`.
 
 Not ported yet: W4A8 (mode="w4a8") and `quantize_audio_head` (the
@@ -42,6 +44,9 @@ DEFAULT_BITS = 4
 DEFAULT_GROUP_SIZE = 64
 # quant_linear's affine split, as in JAX: the kernel up to this many rows
 AFFINE_MAX_ROWS = 64
+# kernel 1's route: the matvec up to this many rows, the tensor-core GEMM
+# above (kMaxMatvecRows of csrc/w8a8_matvec.cu)
+W8A8_MATVEC_MAX_ROWS = 64
 
 _INV_254 = float(np.float32(1.0 / 254.0))
 # 1 / n_levels of the affine codes as fp32 constants: under `jax.jit` XLA
@@ -276,10 +281,14 @@ def w8a8_matvec(x: torch.Tensor, weight_q: torch.Tensor,
         out_dim, _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x.device))
     _build.check(code, "csm_w8a8_matvec")
     w8a8_matvec.launches += 1
+    if rows > W8A8_MATVEC_MAX_ROWS:
+        w8a8_matvec.gemm_launches += 1
     return out
 
 
 w8a8_matvec.launches = 0
+# the launches above that took the tensor-core GEMM (rows > 64)
+w8a8_matvec.gemm_launches = 0
 
 
 def audio_head_logits(head: torch.Tensor, i: int,

@@ -11,9 +11,10 @@ the tokens (n_cb, B) int32: row 0 zeros (c0 is sampled by the caller),
 rows 1..31 codebooks 1..31.
 
 On CUDA tensors `resident_decode_frame` launches the hand-written kernel of
-`csrc/resident_frame.cu`: ONE cooperative launch per call, whose phases
-(row quantization, the W8A8 matvecs, attention, the head and the pick) are
-separated by grid-wide barriers. On CPU tensors it runs
+`csrc/resident_frame.cu`: ONE cooperative launch per call, one block per
+SM, whose phases (the W8A8 matvecs on the int8 tensor cores, each with its
+per-row preparation, attention, the head and the pick) are separated by
+grid-wide barriers; every step streams the codes. On CPU tensors it runs
 `resident_decode_frame_plain`, the same arithmetic step by step in torch.
 
 The arithmetic is the JAX kernel's default variant set at B <= 8, for every
@@ -54,10 +55,14 @@ from csm_mlx_tpu_torch.ops.sampling import SamplerConfig
 NEG = -1e30
 RESIDENT_MAX_BATCH = 64  # rows per kernel call; larger batches are chunked
 MAX_LAYERS = 8  # kMaxLayers of csrc/resident_frame.cu
-_BLOCKS_PER_SM = 2  # kBlocksPerSM: the kernel's cap on co-resident blocks
+_BLOCKS_PER_SM = 1  # the kernel's grid: one block per SM
 # The JAX kernel's `absmax * (1.0 / 127.0)`: a product with the fp32 constant.
 _INV_127 = float(np.float32(1.0 / 127.0))
 _EMBED_CHUNK = 8192  # embed_tab rows projected per kernel-1 call, as in JAX
+# The kinds of the kernel's phase records (enum Phase of
+# csrc/resident_frame.cu), by code.
+PHASE_KINDS = ("pick", "prep", "qkv", "attention", "o", "gate-up", "down",
+               "head", "end")
 
 
 def rope_cs(head_dim: int, rope_theta: float, rope_scaling, cap: int
@@ -366,11 +371,12 @@ def _check_tables(res: Dict[str, Any], args, device: torch.device) -> None:
     if n_cb > 32 or n_cb < 3:
         raise ValueError(f"resident_decode_frame: {n_cb} codebooks; the "
                          f"kernel takes 3..32 (one KV slot per lane)")
-    if attn != d or heads % n_kv or hd % 2 or any(
-            n % 16 for n in (d, f, attn)):
+    if attn != d or heads % n_kv or hd % 4 or any(
+            n % 32 for n in (d, f, attn)) or (attn + 2 * kvd) % 16:
         raise ValueError("resident_decode_frame: the kernel needs heads*hd "
-                         "== d, whole kv groups, an even head_dim and d, f "
-                         "multiples of 16")
+                         "== d, whole kv groups, a head_dim multiple of 4, d "
+                         "and f multiples of 32 and qkv rows a multiple of "
+                         "16")
     v_pad = res["audio_head_q"].shape[1]
     want = [
         ("norm", res["norm"], (1, d), torch.float32),
@@ -403,9 +409,9 @@ def _check_tables(res: Dict[str, Any], args, device: torch.device) -> None:
         if t.dtype == torch.int8 and t.data_ptr() % 16:
             raise ValueError(f"resident_decode_frame: {name} must be "
                              f"16-byte aligned")
-    if v_pad < v or v_pad % 2:
-        raise ValueError(f"resident_decode_frame: v_pad {v_pad} must be an "
-                         f"even count >= {v}")
+    if v_pad < v or v_pad % 16:
+        raise ValueError(f"resident_decode_frame: v_pad {v_pad} must be a "
+                         f"multiple of 16 >= {v}")
 
 
 def resident_decode_frame(res: Dict[str, Any], args, proj01: torch.Tensor,
@@ -449,38 +455,55 @@ def resident_decode_frame(res: Dict[str, Any], args, proj01: torch.Tensor,
     proj01 = proj01.contiguous()
     n_layers = len(res["layers"])
     v_pad = res["audio_head_q"].shape[1]
-    part_cap = (torch.cuda.get_device_properties(dev).multi_processor_count
-                * _BLOCKS_PER_SM)
+    grid = (torch.cuda.get_device_properties(dev).multi_processor_count
+            * _BLOCKS_PER_SM)
     max_in = max(d, f)
     x = torch.empty((b, d), dtype=torch.float32, device=dev)
     q = torch.empty((b, d), dtype=torch.float32, device=dev)
+    ao = torch.empty((b, d), dtype=torch.float32, device=dev)
     act = torch.empty((b, f), dtype=torch.float32, device=dev)
     xq = torch.empty((b, max_in), dtype=torch.int8, device=dev)
     aux = torch.empty((b, 2), dtype=torch.float32, device=dev)
     kc = torch.empty((n_layers, n_cb, b, kvd), dtype=torch.float32,
                      device=dev)
     vc = torch.empty_like(kc)
-    part = torch.empty((part_cap, b, 2), dtype=torch.int32, device=dev)
+    part = torch.empty((grid, b, 2), dtype=torch.int32, device=dev)
     tokens = torch.empty((n_cb, b), dtype=torch.int32, device=dev)
     logits = torch.empty((n_cb - 1, b, v), dtype=torch.float32,
                          device=dev) if return_logits else None
     ptrs = [t.data_ptr() for lw in res["layers"] for t in lw]
     inv_t = 0.0 if temperature == 0.0 else 1.0 / temperature
+    stamps = resident_decode_frame.stamps
+    if stamps is not None:
+        if stamps.dtype != torch.int64 or stamps.dim() != 2 \
+                or stamps.shape[1] != 4 or stamps.device != dev \
+                or not stamps.is_contiguous():
+            raise ValueError("resident_decode_frame.stamps must be a "
+                             f"contiguous (n, 4) int64 tensor on {dev}")
+        stamps.zero_()
     code = _build.library().csm_resident_frame(
         (ctypes.c_void_p * len(ptrs))(*ptrs), n_layers,
         res["norm"].data_ptr(), res["rope_cs"].data_ptr(),
         res["audio_head_q"].data_ptr(), res["audio_head_s"].data_ptr(),
         res["embed_tab"].data_ptr(), proj01.data_ptr(), x.data_ptr(),
-        q.data_ptr(), act.data_ptr(), xq.data_ptr(), aux.data_ptr(),
-        kc.data_ptr(), vc.data_ptr(), part.data_ptr(), part_cap,
-        tokens.data_ptr(), None if logits is None else logits.data_ptr(), b,
-        dcfg.num_attention_heads,
-        dcfg.num_key_value_heads, dcfg.head_dim, d, f, n_cb, v, v_pad,
-        dcfg.rms_norm_eps, dcfg.head_dim ** -0.5, inv_t,
-        int(seed) & 0xFFFFFFFF, _build.stream_ptr(dev))
+        q.data_ptr(), ao.data_ptr(), act.data_ptr(), xq.data_ptr(),
+        aux.data_ptr(), kc.data_ptr(), vc.data_ptr(), part.data_ptr(),
+        tokens.data_ptr(),
+        None if logits is None else logits.data_ptr(), b,
+        dcfg.num_attention_heads, dcfg.num_key_value_heads, dcfg.head_dim,
+        d, f, n_cb, v, v_pad, dcfg.rms_norm_eps, dcfg.head_dim ** -0.5,
+        inv_t, int(seed) & 0xFFFFFFFF, grid,
+        None if stamps is None else stamps.data_ptr(),
+        0 if stamps is None else stamps.shape[0], _build.stream_ptr(dev))
     _build.check(code, "csm_resident_frame")
     resident_decode_frame.launches += 1
     return (tokens, logits) if return_logits else tokens
 
 
 resident_decode_frame.launches = 0
+# A (n, 4) int64 CUDA tensor, or None. When set, each launch fills one
+# record per phase: [start ns (release of the previous barrier, block 0),
+# end of block 0's prologue ns (0 where a phase has none), latest arrival
+# of any block at the phase's closing barrier ns, kind (PHASE_KINDS)]; a
+# last record of kind "end" closes the call. The tokens do not change.
+resident_decode_frame.stamps = None

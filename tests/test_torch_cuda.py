@@ -33,19 +33,29 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("rows", [1, 3, 8, 64, 100])
+@pytest.mark.parametrize("in_dim", [512, 528])
+@pytest.mark.parametrize("rows", [1, 3, 8, 64, 65, 100, 128, 300, 513])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_w8a8_kernel_matches_plain(cuda_device, rows, dtype):
+def test_w8a8_kernel_matches_plain(cuda_device, rows, dtype, in_dim):
+    """Up to 64 rows the matvec, above them the tensor-core GEMM (its 128-row
+    and 128-channel tiles ragged at 65, 300, 513 rows and 1000 channels;
+    IN = 528 is a multiple of 16 but not of its 64-byte k-tile); a second
+    call bit-equal."""
     rng = np.random.RandomState(rows)
-    w = torch.from_numpy((rng.randn(1000, 512) * 0.1).astype(np.float32))
-    x = torch.from_numpy(rng.randn(rows, 512).astype(np.float32))
+    w = torch.from_numpy((rng.randn(1000, in_dim) * 0.1).astype(np.float32))
+    x = torch.from_numpy(rng.randn(rows, in_dim).astype(np.float32))
     q = {k: v.to(cuda_device) for k, v in quant.quantize_weight_w8(w).items()}
     xd = x.to(cuda_device, dtype)
     before = quant.w8a8_matvec.launches
+    gemm_before = quant.w8a8_matvec.gemm_launches
     got = quant.w8a8_matvec(xd, q["weight_q"], q["scales"], q["biases"])
+    again = quant.w8a8_matvec(xd, q["weight_q"], q["scales"], q["biases"])
     want = quant.w8a8_matvec_plain(xd, q["weight_q"], q["scales"], q["biases"])
     torch.cuda.synchronize()
-    assert quant.w8a8_matvec.launches == before + 1
+    assert quant.w8a8_matvec.launches == before + 2
+    assert quant.w8a8_matvec.gemm_launches == gemm_before + (
+        2 if rows > quant.W8A8_MATVEC_MAX_ROWS else 0)
+    assert torch.equal(got, again)
     # the int32 products are exact on both sides; the fp32 fix-up differs
     # in the order of the row sum only, then bf16 rounds the output
     rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
@@ -163,9 +173,13 @@ def forced_agreement(model, proj01, tokens, kernel_logits):
     return 1.0 - flips.float().mean().item(), worst, err
 
 
-@pytest.mark.parametrize("rows", [1, 8, 64])
+@pytest.mark.parametrize("rows", [1, 2, 8, 9, 16, 17, 64])
 @pytest.mark.parametrize("name", ["tiny", "medium"])
 def test_resident_kernel_matches_plain(cuda_device, name, rows):
+    """Every block prepares every row up to 8 rows (and recomputes the
+    attention at 1 row, and 2 on the tiny model); from 9 rows the per-row
+    phases spread over the blocks; the n8 tensor-core tiles are ragged at 2,
+    9 and 17 rows. A second launch is bit-equal."""
     model = resident_model(name, cuda_device)
     d = model.args.decoder_config.hidden_size
     gen = torch.Generator(device=cuda_device).manual_seed(rows)
@@ -174,14 +188,16 @@ def test_resident_kernel_matches_plain(cuda_device, name, rows):
     toks, logits = resident.resident_decode_frame(
         model.params["_resident"], model.args, proj01, 0, 0.0,
         return_logits=True)
-    again = resident.resident_decode_frame(model.params["_resident"],
-                                           model.args, proj01, 0, 0.0)
+    again, logits_again = resident.resident_decode_frame(
+        model.params["_resident"], model.args, proj01, 0, 0.0,
+        return_logits=True)
     torch.cuda.synchronize()
     assert resident.resident_decode_frame.launches == before + 2
     assert toks.shape == (model.args.n_audio_codebooks, rows)
     assert not toks[0].any() and int(toks.min()) >= 0
     assert int(toks.max()) < model.args.n_audio_vocab
     torch.testing.assert_close(again, toks, rtol=0, atol=0)  # deterministic
+    assert torch.equal(logits_again, logits)
     # The plain version sums in the kernel's order (bit-equal on the H100).
     # For a torch whose exp rounds otherwise: int8 requantization turns an
     # ulp into a code step now and then, which grows to ~0.1 of the logits'
@@ -223,6 +239,34 @@ def test_resident_kernel_samples_at_temperature(cuda_device):
     assert big.sum() >= 5 and p >= 1e-3, (big.sum(), p)
 
 
+@pytest.mark.parametrize("rows", [1, 9])
+def test_resident_kernel_phase_records(cuda_device, rows):
+    """With the phase-record buffer set, the tokens equal those of the call
+    without it, and the records are in time order, one per barrier and a
+    last one of kind "end"."""
+    model = resident_model("medium", cuda_device)
+    res, args = model.params["_resident"], model.args
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    proj01 = torch.randn((2, rows, args.decoder_config.hidden_size),
+                         generator=gen, device=cuda_device)
+    want = resident.resident_decode_frame(res, args, proj01, 0, 0.0)
+    stamps = torch.zeros((4096, 4), dtype=torch.int64, device=cuda_device)
+    resident.resident_decode_frame.stamps = stamps
+    try:
+        got = resident.resident_decode_frame(res, args, proj01, 0, 0.0)
+    finally:
+        resident.resident_decode_frame.stamps = None
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    rec = stamps.cpu()
+    n = int((rec[:, 0] != 0).sum())
+    assert n > 4 * args.n_audio_codebooks
+    kinds = rec[:n, 3] & 0xFF
+    assert resident.PHASE_KINDS[int(kinds[-1])] == "end"
+    assert bool((rec[1:n, 0] >= rec[:n - 1, 2]).all())  # release after arrival
+    assert bool((rec[:n, 2] >= rec[:n, 0]).all())
+
+
 def test_resident_kernel_rejects_what_it_does_not_take(cuda_device):
     model = resident_model("tiny", cuda_device)
     res, args = model.params["_resident"], model.args
@@ -238,6 +282,20 @@ def test_resident_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="norm"):
         resident.resident_decode_frame(
             cpu_res, args, torch.zeros((2, 1, d), device=cuda_device), 0, 0.0)
+    # code tables that break the layout the kernel reads: off a 16-byte
+    # boundary (its bulk copies), or not contiguous
+    t = res["layers"][1][6]
+    buf = torch.empty(t.numel() + 1, dtype=torch.int8, device=cuda_device)
+    shifted = buf[1:].view(t.shape)
+    shifted.copy_(t)
+    for table, what in ((shifted, "aligned"),
+                        (t.t().contiguous().t(), "contiguous")):
+        broken = dict(res, layers=[list(lw) for lw in res["layers"]])
+        broken["layers"][1][6] = table
+        with pytest.raises(ValueError, match=what):
+            resident.resident_decode_frame(
+                broken, args, torch.zeros((2, 1, d), device=cuda_device), 0,
+                0.0)
 
 
 # --- kernels 6 and 7: causal flash attention for training ------------------

@@ -60,10 +60,12 @@ def test_w8a8_plain_matches_jax_mirror_and_pallas_interpret(rows):
     np.testing.assert_allclose(got, pallas, rtol=RTOL, atol=RTOL * scale)
 
 
-def test_w8a8_large_batch_matches_jax_route():
-    """384 rows: the JAX package routes them through its int8 XLA mirror
+@pytest.mark.parametrize("rows", [384, 65, 300])
+def test_w8a8_large_batch_matches_jax_route(rows):
+    """Past 64 rows the JAX package routes them through its int8 XLA mirror
     (quant_linear's large-batch branch); the port through the same
-    arithmetic as at any other row count.
+    arithmetic as at any other row count (on the card, the tensor-core GEMM
+    route of kernel 1).
 
     The activations lie on the int8 grid (k / 127 with a row max of 1), so
     that every code is far from a rounding boundary: XLA's CPU division
@@ -72,7 +74,7 @@ def test_w8a8_large_batch_matches_jax_route():
     few off-grid codes by one step."""
     w, _ = _weights(17)
     rng = np.random.RandomState(18)
-    x = rng.randint(-127, 128, size=(384, 256)).astype(np.float32)
+    x = rng.randint(-127, 128, size=(rows, 256)).astype(np.float32)
     x[:, 0] = 127.0
     x /= 127.0
     jq = jquant.quantize_weight_w8(jnp.asarray(w))

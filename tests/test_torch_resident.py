@@ -90,8 +90,39 @@ def test_tables_match_jax(models):
                                atol=1e-7)
 
 
+@pytest.mark.parametrize("fault", ["none", "misaligned", "strided",
+                                   "shape", "dtype"])
+def test_check_tables_takes_the_kernel_layout(models, fault):
+    """The kernel's wrapper takes the port's own tables as they are, and
+    refuses a code table that breaks the layout the kernel reads: codes off
+    a 16-byte boundary (its bulk copies), not contiguous, or of another
+    shape or type."""
+    _, _, own = models
+    res = own.params["_resident"]
+    layers = [list(lw) for lw in res["layers"]]
+    t = layers[1][6]  # a gate-up code table
+    if fault == "misaligned":
+        buf = torch.empty(t.numel() + 1, dtype=torch.int8)
+        layers[1][6] = buf[1:].view(t.shape)
+        layers[1][6].copy_(t)
+    elif fault == "strided":
+        layers[1][6] = t.t().contiguous().t()
+    elif fault == "shape":
+        layers[1][6] = t[:-16]
+    elif fault == "dtype":
+        layers[1][6] = t.float()
+    broken = dict(res, layers=layers)
+    if fault == "none":
+        tres._check_tables(broken, own.args, torch.device("cpu"))
+        return
+    want = {"misaligned": "aligned", "strided": "contiguous",
+            "shape": "want", "dtype": "want"}[fault]
+    with pytest.raises(ValueError, match=want):
+        tres._check_tables(broken, own.args, torch.device("cpu"))
+
+
 @pytest.mark.parametrize("tables", ["carried", "port"])
-@pytest.mark.parametrize("b,seed", [(1, 0), (1, 1), (3, 2)])
+@pytest.mark.parametrize("b,seed", [(1, 0), (1, 1), (2, 3), (3, 2), (8, 4)])
 def test_frame_equals_jax_kernel(models, tables, b, seed):
     """Greedy tokens of one frame equal the JAX kernel's (interpret mode),
     from JAX's tables carried by the bridge and from the port's own."""
