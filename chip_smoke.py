@@ -27,8 +27,10 @@ frame).
 
 Then the MLX-affine and batch flash-decode paths: kernel 5 (the
 grouped-affine matvec) against its plain version at the quantized
-linears' shapes, 4- and 8-bit, group 64 (and 128), B = 1, 2, 8, 32, 64,
-timed beside dequant + `torch.matmul` and `torch._weight_int4pack_mm`;
+linears' shapes, 4- and 8-bit, group 64 (and 128), B = 1, 2, 8, 16, 32,
+64, rows bit-equal across B and repeats, timed beside dequant +
+`torch.matmul` and `torch._weight_int4pack_mm` at B = 1, 8, 64, with its
+device time summed over one affine frame and over the 32-row prefill;
 kernel 4 (flash decode, the cache split over blocks and merged in split
 order) against its plain version at H=32/8, D=64 over several (B, cap)
 and the split edges, with bit-equal repeats, timed beside
@@ -157,10 +159,34 @@ RESIDENT_RECORDED_SPLIT = {
 FLIP_MARGIN_TOL = 0.3
 MIN_AGREEMENT = 0.99
 # Kernel 5 (grouped-affine matvec): bits 4 and 8 at group 64 on every
-# shape of W8A8_SHAPES, and group 128 at 4 bits on the gate-up. Rows: 1
-# (single-stream decode), 2 (the projection and the dispatched decoder's
-# prime, every frame), 8, 32 (the 32-row prefill) and 64
-AFFINE_ROWS = (1, 2, 8, 32, 64)
+# quantized linear of the affine path (W8A8_SHAPES and the backbone o and
+# the decoder's o, gate-up and down), and group 128 at 4 bits on the
+# gate-up. Rows: 1 (single-stream decode), 2 (the dispatched decoder's
+# prime, every frame), 8, 16, 32 (the 32-row prefill) and 64.
+AFFINE_SHAPES = {
+    **W8A8_SHAPES,
+    "backbone o": (2048, 2048),
+    "decoder o": (1024, 1024),
+    "decoder gate-up": (1024, 16384),
+    "decoder down": (8192, 1024),
+}
+AFFINE_ROWS = (1, 2, 8, 16, 32, 64)
+# the cases before the redesign draw from gen45 as they did (W8A8_SHAPES,
+# these rows); the rest from a generator of their own
+AFFINE_EARLIER_ROWS = (1, 2, 8, 32, 64)
+AFFINE_LIBRARY_ROWS = (1, 8, 64)  # library yardsticks on the 4-bit gate-up
+# kernel-5 launches of one affine frame by (shape, rows): the backbone step
+# at 1 row, the dispatched decoder's prime at 2 (projection + 4 layers)
+# and its 30 steps at 1; and of the 32-row prefill (the backbone at 32)
+AFFINE_FRAME_LAUNCHES = {
+    **{(f"backbone {k}", 1): 16 for k in ("qkv", "o", "gate-up", "down")},
+    **{(f"decoder {k}", r): n for k in ("qkv", "o", "gate-up", "down")
+       for r, n in ((2, 4), (1, 120))},
+    ("projection", 2): 1,
+    ("projection", 1): 30,
+}
+AFFINE_PREFILL_LAUNCHES = {(f"backbone {k}", 32): 16
+                           for k in ("qkv", "o", "gate-up", "down")}
 AFFINE_FRAMES = {4: 20, 8: 5}  # frames of the full-width affine runs
 # Kernel 4 (flash decode), H=32, n_kv=8, D=64: (B, cap) cases. cap 40 is
 # the batch phase's (a 32-row bucket + 8 frames), 157 that of a 125-frame
@@ -493,12 +519,17 @@ def time_sdpa(q, k, v, pad, scale) -> float:
 
 
 def affine_cases():
-    """(name, IN, OUT, bits, group) of kernel 5's check."""
+    """(name, IN, OUT, bits, group, earlier) of kernel 5's check; earlier:
+    the case was checked before the redesign and keeps its inputs."""
     for name, (in_dim, out_dim) in W8A8_SHAPES.items():
         for bits in (4, 8):
-            yield name, in_dim, out_dim, bits, 64
+            yield name, in_dim, out_dim, bits, 64, True
     in_dim, out_dim = W8A8_SHAPES["backbone gate-up"]
-    yield "backbone gate-up", in_dim, out_dim, 4, 128
+    yield "backbone gate-up", in_dim, out_dim, 4, 128, True
+    for name, (in_dim, out_dim) in AFFINE_SHAPES.items():
+        if name not in W8A8_SHAPES:
+            for bits in (4, 8):
+                yield name, in_dim, out_dim, bits, 64, False
 
 
 def affine_bytes(in_dim, out_dim, bits, group, rows) -> tuple[int, int]:
@@ -509,23 +540,54 @@ def affine_bytes(in_dim, out_dim, bits, group, rows) -> tuple[int, int]:
         + 2 * rows * (in_dim + out_dim)
 
 
-def check_affine(dev, gen) -> dict:
-    """Kernel 5 vs `affine_matvec_plain` on bf16 activations, at the
-    quantized linears' shapes, 4- and 8-bit codes, group 64 (and 128), rows
-    AFFINE_ROWS; weights cycled through COLD_BYTES so the L2 is cold. Both
-    dequantize to the same fp32 weights and sum in fp32 in other orders,
-    then round to bf16: tolerance 2**-7 of each value plus 1e-3 of the
-    output's largest magnitude (check_w8a8's)."""
-    worst, out = 0.0, None
-    for name, in_dim, out_dim, bits, group in affine_cases():
-        w = torch.randn((out_dim, in_dim), generator=gen, device=dev) * 0.02
+def check_affine_bits(q, x64, want64) -> None:
+    """Kernel 5 gives a row the same bits whatever B it is launched with,
+    within each of its bf16 routes, and on a repeat: the first B rows of a
+    64-row call against calls on them (the tensor-core route, B above the
+    library's csm_affine_core_rows()), and single rows against the same
+    rows in a call of that many rows (the CUDA-core route)."""
+    def run(x):
+        return quant.affine_matvec(x, q["weight_q"], q["scales"],
+                                   q["biases"])
+
+    edge = _build.library().csm_affine_core_rows()
+    if not torch.equal(run(x64), want64):
+        raise AssertionError("affine kernel: a repeat gave other bits")
+    for b in AFFINE_ROWS[:-1]:
+        if b > edge and not torch.equal(run(x64[:b]), want64[:b]):
+            raise AssertionError(f"affine kernel: rows of B={b} differ "
+                                 f"from the same rows at B=64")
+    for r in (0, 31, 62):
+        if not torch.equal(run(x64[r:r + 1]),
+                           run(x64[r:r + edge])[:1]):
+            raise AssertionError(f"affine kernel: row {r} alone differs "
+                                 f"from row {r} at B={edge}")
+
+
+def check_affine(dev, gen, gen_new) -> dict:
+    """Kernel 5 vs `affine_matvec_plain` on bf16 activations, at the affine
+    path's quantized linears, 4- and 8-bit codes, group 64 (and 128), rows
+    AFFINE_ROWS; weights cycled through COLD_BYTES so the L2 is cold. The
+    tensor-core route (B above the library's csm_affine_core_rows()) sums s * sum(q x) + z *
+    sum(x) per group with exact products; the CUDA-core route and the plain
+    version multiply x by the fp32 dequantized weight: fp32 sums in other
+    orders, then bf16 rounds: tolerance 2**-7 of each value plus 1e-3 of the
+    output's largest magnitude (check_w8a8's). Rows are bit-equal across B
+    and repeats (check_affine_bits). Prints kernel 5's device time of one
+    affine frame and of the 32-row prefill from the shapes' times."""
+    worst, out, times = 0.0, None, {}
+    core_rows = _build.library().csm_affine_core_rows()
+    for name, in_dim, out_dim, bits, group, earlier in affine_cases():
+        g_w = gen if earlier else gen_new
+        w = torch.randn((out_dim, in_dim), generator=g_w, device=dev) * 0.02
         copies = [quant.quantize_weight(w, bits, group)]
         code_bytes, _ = affine_bytes(in_dim, out_dim, bits, group, 1)
         n_copies = max(1, -(-COLD_BYTES // code_bytes))
         for _ in range(n_copies - 1):
             copies.append({k: v.clone() for k, v in copies[0].items()})
         for rows in AFFINE_ROWS:
-            x = torch.randn((rows, in_dim), generator=gen,
+            g_x = gen if earlier and rows in AFFINE_EARLIER_ROWS else gen_new
+            x = torch.randn((rows, in_dim), generator=g_x,
                             device=dev).to(torch.bfloat16)
             q = copies[0]
             got = quant.affine_matvec(x, q["weight_q"], q["scales"],
@@ -542,7 +604,7 @@ def check_affine(dev, gen) -> dict:
 
             def run(fn):
                 c = copies[next(it) % n_copies]
-                fn(x, c["weight_q"], c["scales"], c["biases"])
+                return fn(x, c["weight_q"], c["scales"], c["biases"])
 
             ms_k, wall_k = time_ms(lambda: run(quant.affine_matvec))
             ms_p = time_ms(lambda: run(quant.affine_matvec_plain), reps=10)[0]
@@ -550,26 +612,41 @@ def check_affine(dev, gen) -> dict:
             b_ms, b_by = bound_ms(n_bytes, 2 * rows * in_dim * out_dim,
                                   "bf16")
             gbs = (n_bytes - 2 * rows * (in_dim + out_dim)) / ms_k / 1e6
+            times[name, bits, group, rows] = ms_k
+            route = ("CUDA cores" if rows <= core_rows else "tensor cores")
             log(f"affine {name:17s} {bits}-bit g{group:<3d} B={rows:2d} "
                 f"IN={in_dim:5d} OUT={out_dim:5d}  max_abs_err={err:.3e} "
                 f"(tol 2^-7*|y| + {1e-3 * scale:.2e})  kernel {ms_k:.4f} ms "
                 f"device ({gbs:.0f} GB/s of codes + scales), {wall_k:.4f} "
                 f"ms wall  plain {ms_p:.4f} ms  bound {b_ms:.4f} ms ({b_by})"
-                f" = {b_ms / ms_k:.1%} of the kernel  "
+                f" = {b_ms / ms_k:.1%} of the kernel  [{route}]  "
                 f"{'ok' if ok else 'MISMATCH'}")
             worst = max(worst, err)
             if not ok:
                 raise AssertionError(f"affine kernel disagrees at {name} "
                                      f"{bits}-bit g{group} B={rows}")
-            if (name, bits, group, rows) == ("backbone gate-up", 4, 64, 1):
+            if (name, bits, group) == ("backbone gate-up", 4, 64) \
+                    and rows in AFFINE_LIBRARY_ROWS:
                 library = time_ms(lambda: run(dequant_matmul))[0]
-                log(f"affine gate-up 4-bit g64 B=1: dequant + torch.matmul "
-                    f"(bf16) {library:.4f} ms device")
+                log(f"affine gate-up 4-bit g64 B={rows}: dequant + "
+                    f"torch.matmul (bf16) {library:.4f} ms device")
                 int4pack(x, q, group, want)
-                out = dict(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
-                           bound_by=b_by, library_ms=library)
+                if rows == 1:
+                    out = dict(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=library)
+        check_affine_bits(copies[0], x, got)
+        log(f"affine {name} {bits}-bit g{group}: rows bit-equal across "
+            f"B = {', '.join(str(b) for b in AFFINE_ROWS if b > core_rows)}"
+            f" (tensor cores) and B = 1, {core_rows} (CUDA cores), and on a "
+            f"repeat")
         del copies
         torch.cuda.empty_cache()
+    for label, launches in (("one affine frame", AFFINE_FRAME_LAUNCHES),
+                            ("the 32-row prefill", AFFINE_PREFILL_LAUNCHES)):
+        total = sum(n * times[name, 4, 64, rows]
+                    for (name, rows), n in launches.items())
+        log(f"kernel 5 (4-bit g64) device time of {label}: "
+            f"{1e3 * total:.1f} us over {sum(launches.values())} launches")
     return dict(max_abs_err=worst, **out)
 
 
@@ -1969,6 +2046,13 @@ def check_training_vs_plain(dev) -> None:
                              "disagrees with the masked sdpa")
 
 
+def affine_generator(dev) -> torch.Generator:
+    """The generator of kernel 5's cases added with its redesign."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 80)
+    return gen
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -1997,7 +2081,7 @@ def main() -> None:
     # so the earlier phases keep their inputs
     gen45 = torch.Generator(device=dev)
     gen45.manual_seed(SEED + 40)
-    affine = check_affine(dev, gen45)
+    affine = check_affine(dev, gen45, affine_generator(dev))
     decode = check_flash_decode(dev, gen45, gen_new)
     mimi = Mimi(mimi_202407(32), dtype=torch.float32,
                 generator=torch.Generator(device=dev).manual_seed(SEED + 2),

@@ -64,6 +64,8 @@ _SIGNATURES = {
     # x, w, scales, biases, out, rows, in_dim, out_dim, group, bits, dtype,
     # stream
     "csm_affine_matvec": (_VP,) * 5 + (_I,) * 6 + (_VP,),
+    # kernel 5's bf16 route edge: rows up to it on the CUDA cores
+    "csm_affine_core_rows": (),
     # q, k, v, pad_len, out, scratch, 8 strides, batch, n_heads, n_kv, cap,
     # index, splits, chunk, head_dim, scale, dtype, stream
     "csm_flash_decode": (_VP,) * 6 + (_LL,) * 8 + (_I,) * 8

@@ -80,7 +80,7 @@ def test_dequantize_weight_needs_bits():
 
 @pytest.mark.parametrize("codes", ["uint8", "uint4"])
 @pytest.mark.parametrize("group", [128, 256])
-@pytest.mark.parametrize("rows", [1, 8, 64])
+@pytest.mark.parametrize("rows", [1, 2, 8, 32, 64])
 def test_affine_plain_matches_pallas_interpret(rows, group, codes):
     """The plain version against the JAX Pallas kernel itself (interpret
     mode), with JAX's own codes carried across by the bridge: uint8 codes
@@ -98,6 +98,66 @@ def test_affine_plain_matches_pallas_interpret(rows, group, codes):
                                tq["scales"], tq["biases"]).numpy()
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=RTOL * np.abs(want).max())
+
+
+def _factorized_matvec(x, tq, bits):
+    """The arithmetic of kernel 5's tensor-core route, written plainly: per
+    group the exact products q * x (bf16 x, integer codes) summed in fp32,
+    then acc = fma(z, sum(x), fma(s, sum(q x), acc)), the groups in order;
+    the output in bf16."""
+    wq = tq["weight_q"]
+    q = (tquant.unpack_uint4(wq) if bits == 4 else wq).double()
+    s, z = tq["scales"].double(), tq["biases"].double()
+    out_dim, n_groups = s.shape
+    qg = q.reshape(out_dim, n_groups, -1)
+    xg = x.double().reshape(x.shape[0], n_groups, -1)
+    # exact in float64, then rounded once to fp32: a sum of 16-bit-exact
+    # products in another order than the tensor core's, within fp32 rounding
+    c = torch.einsum("ogk,bgk->bog", qg, xg).float()
+    xs = xg.sum(-1).float()
+    acc = torch.zeros(x.shape[0], out_dim)
+    for j in range(n_groups):
+        # fp32 fma: exact in float64, then one rounding
+        acc = (s[:, j] * c[:, :, j].double() + acc.double()).float()
+        acc = (z[:, j] * xs[:, j:j + 1].double() + acc.double()).float()
+    return acc.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", ["random", "constant group", "code 255",
+                                  "large bias"])
+@pytest.mark.parametrize("in_dim,bits,group", [(2048, 4, 64), (2048, 8, 64),
+                                               (8192, 4, 64), (8192, 8, 64),
+                                               (512, 4, 16), (480, 4, 48),
+                                               (480, 8, 48)])
+def test_affine_factorized_sum_matches_plain(in_dim, bits, group, case):
+    """The tensor-core route's factorization, s * sum(q x) + z * sum(x) per
+    group from bf16 x, against the plain version (the fp32 dequantized
+    weight), at CSM-1B widths and at the edges: a constant group (scale 1,
+    codes 0), 8-bit code 255, groups 16 and 48, and a bias far larger than
+    the scale. Tolerance: the card's bf16 check (2^-7 of each value and
+    1e-5 of the largest)."""
+    rng = np.random.RandomState(in_dim + bits + group + len(case))
+    out_dim = 96
+    w = (rng.randn(out_dim, in_dim) * 0.1).astype(np.float32)
+    if case == "constant group":
+        w[:, :group] = 0.375
+    elif case == "large bias":
+        w = (100.0 + rng.randn(out_dim, in_dim) * 1e-3).astype(np.float32)
+    tq = tquant.quantize_weight(torch.from_numpy(w), bits, group)
+    codes = _codes(tq, bits)
+    if case == "constant group":
+        assert (tq["scales"][:, 0] == 1).all() and (codes[:, :group] == 0).all()
+    elif case == "code 255":
+        assert bits == 4 or (codes == 255).any()
+    elif case == "large bias":
+        assert (tq["biases"].abs() > 1e4 * tq["scales"]).all()
+    x = torch.from_numpy(rng.randn(3, in_dim).astype(np.float32)).to(
+        torch.bfloat16)
+    want = tquant.affine_matvec_plain(x, tq["weight_q"], tq["scales"],
+                                      tq["biases"]).float()
+    got = _factorized_matvec(x, tq, bits).float()
+    torch.testing.assert_close(got, want, rtol=2.0 ** -7,
+                               atol=1e-5 * want.abs().max().item())
 
 
 @pytest.mark.parametrize("bits", [4, 8])

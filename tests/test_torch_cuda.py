@@ -18,7 +18,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from csm_mlx_tpu_torch import config as port_config  # noqa: E402
 from csm_mlx_tpu_torch.models.csm import CSM, ModelArgs  # noqa: E402
-from csm_mlx_tpu_torch.ops import attention, quant  # noqa: E402
+from csm_mlx_tpu_torch.ops import _build, attention, quant  # noqa: E402
 from csm_mlx_tpu_torch.ops import flash_train  # noqa: E402
 from csm_mlx_tpu_torch.ops import resident_decoder as resident  # noqa: E402
 
@@ -467,16 +467,20 @@ def _to_device(tree, device):
 # --- kernel 5: the grouped-affine dequant matvec ----------------------------
 
 
-# rows 1, 2, 3 and 8 each take their own row tile (1, 2, 4, 8); 64 takes 8
-@pytest.mark.parametrize("rows", [1, 2, 3, 8, 64])
-@pytest.mark.parametrize("bits,group,in_dim", [(4, 64, 2048), (8, 64, 1024),
-                                               (4, 128, 512), (4, 48, 480),
-                                               (8, 16, 272)])
+# fp32: rows 1, 2, 3 and 8 each take their own row tile (1, 2, 4, 8), 64
+# takes 8; bf16: one n8 tile per 8 rows, 16, 17 and 33 at a tile's edges.
+# OUT 1000 is ragged against the 15-row tiles; IN 8192 splits IN across a
+# cluster of blocks.
+@pytest.mark.parametrize("rows", [1, 2, 3, 8, 16, 17, 33, 64])
+@pytest.mark.parametrize("bits,group,in_dim,out_dim",
+                         [(4, 64, 2048, 1000), (8, 64, 1024, 1000),
+                          (4, 128, 512, 1000), (4, 48, 480, 1000),
+                          (8, 16, 272, 1000), (4, 64, 8192, 1024)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_affine_kernel_matches_plain(cuda_device, dtype, bits, group, in_dim,
-                                     rows):
+                                     out_dim, rows):
     rng = np.random.RandomState(rows + group)
-    w = torch.from_numpy((rng.randn(1000, in_dim) * 0.1).astype(np.float32))
+    w = torch.from_numpy((rng.randn(out_dim, in_dim) * 0.1).astype(np.float32))
     x = torch.from_numpy(rng.randn(rows, in_dim).astype(np.float32))
     q = {k: v.to(cuda_device)
          for k, v in quant.quantize_weight(w, bits, group).items()}
@@ -487,13 +491,52 @@ def test_affine_kernel_matches_plain(cuda_device, dtype, bits, group, in_dim,
                                      q["biases"])
     torch.cuda.synchronize()
     assert quant.affine_matvec.launches == before + 1
-    assert got.dtype == dtype and got.shape == (rows, 1000)
-    # the same dequantized fp32 weights; fp32 sums in another order, then
-    # bf16 rounds the output
+    assert got.dtype == dtype and got.shape == (rows, out_dim)
+    # the same weights: fp32 dequantized per weight (fp32), or s * sum(q x)
+    # + z * sum(x) per group with exact products (bf16); fp32 sums in
+    # another order, then bf16 rounds the output
     rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
     scale = want.float().abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("bits,group,in_dim,out_dim", [(4, 64, 2048, 1000),
+                                                       (8, 64, 8192, 1024),
+                                                       (4, 48, 480, 1000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_affine_kernel_rows_bit_identical_across_b(cuda_device, dtype, bits,
+                                                   group, in_dim, out_dim):
+    """A row's output does not depend on the rows launched beside it, and
+    a repeat gives the same bits: rows of a 64-row call against calls on
+    their first B rows and on single rows, and 70 rows (two launch chunks).
+    bf16 has two routes, split at the library's csm_affine_core_rows():
+    rows agree within a route."""
+    rng = np.random.RandomState(in_dim + bits)
+    w = torch.from_numpy((rng.randn(out_dim, in_dim) * 0.1).astype(np.float32))
+    q = {k: v.to(cuda_device)
+         for k, v in quant.quantize_weight(w, bits, group).items()}
+    x = torch.from_numpy(rng.randn(70, in_dim).astype(np.float32)).to(
+        cuda_device, dtype)
+
+    def run(xs):
+        return quant.affine_matvec(xs, q["weight_q"], q["scales"],
+                                   q["biases"])
+
+    full = run(x[:64])
+    assert torch.equal(run(x[:64]), full)
+    core_rows = _build.library().csm_affine_core_rows()
+    edge = core_rows if dtype == torch.bfloat16 else 0
+    for b in (1, 2, 3, 8, 16, 17, 32, 33):
+        if b > edge:
+            assert torch.equal(run(x[:b]), full[:b]), b
+    for r in (0, 9, 40, 63):
+        one = run(x[r:r + 1])
+        if edge:  # one and two bf16 rows both take the CUDA-core route
+            assert torch.equal(one, run(x[r:r + 2])[:1]), r
+        else:
+            assert torch.equal(one, full[r:r + 1]), r
+    assert torch.equal(run(x)[:64], full)
 
 
 def test_affine_quant_linear_routes_on_card(cuda_device):
