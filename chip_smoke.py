@@ -25,6 +25,20 @@ then drives the dispatched decoder for
 flips per margin bin, and runs a 65-prompt batch (two kernel-3 chunks a
 frame).
 
+Every generation phase runs its frames after the first through the
+captured frame step (`generation.FrameStep`: one CUDA graph a frame, kernel
+3's cooperative launch inside it) and, where it says so, through the eager
+step too (`_eager_step`), alternated: the main path's 125 frames, the
+dispatched decoder, the 65-prompt batch and the affine 4-bit path must
+give the same greedy frames both ways, with ms a frame and, from the
+profiler, device events and busy ms a frame of each. `stream_generate`
+streams 125 frames with the full Mimi step in the graph, its chunks held
+to the batch decode of the same frames, and times the first chunk and the
+gaps of short streams, captured and eager alternated; a T = 0.8 run
+through the graph shows that each replay draws new kernel-3 seeds and c0.
+A replay counts the launches its graph holds, so the launch counts include
+the replayed frames.
+
 Then the MLX-affine and batch flash-decode paths: kernel 5 (the
 grouped-affine matvec) against its plain version at the quantized
 linears' shapes, 4- and 8-bit, group 64 (and 128), B = 1, 2, 8, 16, 32,
@@ -91,6 +105,7 @@ from csm_mlx_tpu_torch.models.mimi import Mimi, mimi_202407  # noqa: E402
 from csm_mlx_tpu_torch.ops import _build  # noqa: E402
 from csm_mlx_tpu_torch.ops import attention, quant  # noqa: E402
 from csm_mlx_tpu_torch.ops import flash_train  # noqa: E402
+from csm_mlx_tpu_torch.ops import launches as launch_registry  # noqa: E402
 from csm_mlx_tpu_torch.ops import resident_decoder as resident  # noqa: E402
 from csm_mlx_tpu_torch.ops.kv_cache import KVCache  # noqa: E402
 from csm_mlx_tpu_torch.ops.layers import linear  # noqa: E402
@@ -202,6 +217,20 @@ FLASH_DECODE_EDGES = ((8, 2048, 255, None), (8, 2048, 256, None),
                       (8, 2048, 1000, "one chunk"), (8, 2048, 500, "pad > index"),
                       (3, 1000, 999, "pad > index"))
 BATCH_ROWS, BATCH_FRAMES = 64, 8  # the batch flash-decode phase
+# stream_generate: frames of the checked stream; timed streams a setting
+# and their frames. The streamed waveform against the batch decode of the
+# same frames: max |err| over max |waveform| (fp32 with TF32 off on both;
+# the ring attention and the chunked convs sum in other orders)
+STREAM_FRAMES, STREAM_TIMED, STREAM_TIMED_FRAMES = 125, 5, 15
+STREAM_TOL = 1e-4
+SAMPLED_FRAMES = 40  # frames of the T = 0.8 captured run
+PROFILE_FRAMES = 4  # frames a profiled frame-step run
+# device kernels of a wrapper, by a part of their name: one per launch
+PROFILED_KERNELS = {
+    "w8a8_matvec": ("w8a8_matvec_kernel", "w8a8_gemm_kernel"),
+    "resident_decode_frame": ("resident_frame_kernel",),
+    "affine_matvec": ("affine_matvec_kernel", "affine_mma_kernel"),
+}
 PREFILL_ROWS = (300, 1100)  # prompts of the 512- and 2048-row buckets
 # End-to-end times before kernel 1's GEMM route and kernel 3's redesign, on
 # an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §5), printed beside this
@@ -252,27 +281,17 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-# every kernel wrapper of the port, by the name of its launch counter
-WRAPPERS = {
-    "w8a8_matvec": quant.w8a8_matvec,
-    "flash_prefill_sdpa": attention.flash_prefill_sdpa,
-    "resident_decode_frame": resident.resident_decode_frame,
-    "affine_matvec": quant.affine_matvec,
-    "flash_decode_sdpa": attention.flash_decode_sdpa,
-    "flash_train_fwd": flash_train.flash_train_fwd,
-    "flash_train_bwd": flash_train.flash_train_bwd,
-}
-
-
 def reset_counts() -> None:
-    """Every launch counter to 0, just before a path is driven."""
-    for fn in WRAPPERS.values():
-        fn.launches = 0
-    quant.w8a8_matvec.gemm_launches = 0
+    """Every launch counter of the port's registry (`ops.launches`, where
+    each wrapper registers its own) to 0, just before a path is driven."""
+    launch_registry.reset()
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    """Every launch count of the registry, by its wrapper's name (and
+    `w8a8_matvec.gemm`, the share of kernel 1's launches on its GEMM
+    route)."""
+    return launch_registry.read()
 
 
 def card_info() -> str:
@@ -727,11 +746,12 @@ def check_flash_decode(dev, gen, gen_new) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, pad = decode_inputs(gen if timed else gen_new, dev,
                                          dtype, b, cap, index, pads)
-            got = attention.flash_decode_sdpa(q, k, v, d ** -0.5, pad, index)
-            again = attention.flash_decode_sdpa(q, k, v, d ** -0.5, pad,
-                                                index)
-            want = attention.flash_decode_plain(q, k, v, d ** -0.5, pad,
-                                                index)
+            # the index as the cache holds it: an int32 on the card, read
+            # by the kernel
+            idx = torch.full((), index, dtype=torch.int32, device=dev)
+            got = attention.flash_decode_sdpa(q, k, v, d ** -0.5, pad, idx)
+            again = attention.flash_decode_sdpa(q, k, v, d ** -0.5, pad, idx)
+            want = attention.flash_decode_plain(q, k, v, d ** -0.5, pad, idx)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             # bf16 shrinks with the output's largest magnitude (never past
@@ -752,9 +772,9 @@ def check_flash_decode(dev, gen, gen_new) -> dict:
                 keep = ((pos[None] >= pad[:, None])
                         & (pos[None] <= index))[:, None, None]
                 ms_k, wall_k = time_ms(lambda: attention.flash_decode_sdpa(
-                    q, k, v, d ** -0.5, pad, index))
+                    q, k, v, d ** -0.5, pad, idx))
                 ms_p = time_ms(lambda: attention.flash_decode_plain(
-                    q, k, v, d ** -0.5, pad, index))[0]
+                    q, k, v, d ** -0.5, pad, idx))[0]
                 ms_l = time_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=keep, scale=d ** -0.5,
                     enable_gqa=True))[0]
@@ -781,7 +801,7 @@ def check_flash_decode(dev, gen, gen_new) -> dict:
                 log("flash_decode B=8 cap=2048 bf16 by launch (K pass, V "
                     "pass, merge): " + launch_split(
                         lambda: attention.flash_decode_sdpa(
-                            q, k, v, d ** -0.5, pad, index), 3))
+                            q, k, v, d ** -0.5, pad, idx), 3))
     return dict(max_abs_err=worst, **out)
 
 
@@ -872,7 +892,9 @@ def phase_split(res, args, proj01, want_tokens) -> dict:
                          device=proj01.device)
     resident.resident_decode_frame.stamps = stamps
     try:
-        toks = resident.resident_decode_frame(res, args, proj01, 0, 0.0)
+        toks = resident.resident_decode_frame(
+            res, args, proj01, torch.zeros((), dtype=torch.int32,
+                                           device=proj01.device), 0.0)
     finally:
         resident.resident_decode_frame.stamps = None
     torch.cuda.synchronize()
@@ -923,9 +945,11 @@ def check_resident(model: CSM, gen, gen_new) -> dict:
     for rows in RESIDENT_ROWS:
         g = gen_new if rows in RESIDENT_NEW_ROWS else gen
         proj01 = torch.randn((2, rows, d), generator=g, device=model.device)
+        # the seed as the frame step hands it over: an int32 on the card
+        seed = torch.zeros((1,), dtype=torch.int32, device=model.device)
         toks, k_logits = resident.resident_decode_frame(
-            res, args, proj01, 0, 0.0, return_logits=True)
-        again = resident.resident_decode_frame(res, args, proj01, 0, 0.0)
+            res, args, proj01, seed, 0.0, return_logits=True)
+        again = resident.resident_decode_frame(res, args, proj01, seed, 0.0)
         torch.cuda.synchronize()
         agree, flip_m, rel_err, abs_err = forced_flips(res, args, proj01,
                                                        toks, k_logits)
@@ -938,19 +962,22 @@ def check_resident(model: CSM, gen, gen_new) -> dict:
         worst = flip_m.max().item() if flip_m.numel() else 0.0
         same = bool(torch.equal(toks, again))
         ok = (agree >= MIN_AGREEMENT and worst < FLIP_MARGIN_TOL and same
-              and rel_err <= FLIP_MARGIN_TOL
+              and rel_err <= FLIP_MARGIN_TOL and abs_err == 0.0
               and not bool(toks[0].any()) and int(toks.min()) >= 0
               and int(toks.max()) < args.n_audio_vocab)
         ms_k, wall_k = time_ms(lambda: resident.resident_decode_frame(
-            res, args, proj01, 0, 0.0), reps=10)
+            res, args, proj01, seed, 0.0), reps=10)
+        # one call each way (about a second at every B): the two forced
+        # calls above warmed it at this shape
         ms_p, wall_p = time_ms(lambda: resident.resident_decode_frame_plain(
-            res, args, proj01, 0.0), reps=2, warmup=1)
+            res, args, proj01, 0.0), reps=1, warmup=0)
         b_ms, b_by = resident_bound(res, args, rows)
         log(f"resident B={rows:2d}  max_abs_err {abs_err:.3e} of the logits "
             f"= {rel_err:.4f} std (tol {FLIP_MARGIN_TOL}; plain vs plain "
             f"with its input moved by 1e-6: {base:.4f} std)  agreement "
             f"{agree:.4f} (need >= "
-            f"{MIN_AGREEMENT}), {flip_m.numel()} flips, worst margin "
+            f"{MIN_AGREEMENT}), logits bit-equal {abs_err == 0.0} (need "
+            f"True), {flip_m.numel()} flips, worst margin "
             f"{worst:.4f} std (tol {FLIP_MARGIN_TOL}), repeat identical "
             f"{same}  kernel {ms_k:.4f} ms device, {wall_k:.4f} ms wall  "
             f"plain {ms_p:.4f} ms device, {wall_p:.4f} ms wall  bound "
@@ -1016,9 +1043,10 @@ def check_resident_temperature(model: CSM, gen) -> None:
     _, logits = resident.resident_decode_frame_plain(res, args, row, 0.0)
     probs = torch.softmax(logits[0, 0] / 0.8, -1).double().cpu().numpy()
     proj01 = row.expand(2, 64, -1).contiguous()
-    picks = torch.cat([resident.resident_decode_frame(res, args, proj01,
-                                                      seed, 0.8)[1]
-                       for seed in range(64)]).cpu().numpy()
+    picks = torch.cat([resident.resident_decode_frame(
+        res, args, proj01, torch.full((), seed, dtype=torch.int32,
+                                      device=model.device), 0.8)[1]
+        for seed in range(64)]).cpu().numpy()
     p, bins = chi_square_p(picks, probs)
     log(f"resident T=0.8: {len(picks)} codebook-1 picks, {len(set(picks))} "
         f"distinct, chi-square over {bins} bins p = {p:.4f} (need >= 1e-3)")
@@ -1098,38 +1126,152 @@ def build_csm_1b(dev) -> CSM:
     return model
 
 
+def captured_vs_eager(run, label: str, n_frames: int,
+                      eager_runs: int = 2) -> dict:
+    """`run(eager, n_frames)` -> (frames, n) through the captured frame
+    step and through the eager one (`_eager_step`). One captured run first
+    captures its graph; then the two alternate, captured, eager, eager,
+    captured (with `eager_runs=1`, where an eager frame takes hundreds of
+    ms: captured, eager, captured), each run's launch counts set to 0 just
+    before it and read just after. Gate: the greedy frames of every run are
+    equal, token for token. Returns the first captured run's frames, n and
+    counts, and ms a frame of both settings, and the first captured
+    run's whole ms (its step built, warmed and captured)."""
+    t0 = time.perf_counter()
+    run(False, n_frames)  # warm-up: the step's first frame, its capture
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    out: dict = {}
+    order = (False,) + (True,) * eager_runs + (False,)
+    for eager in order:
+        reset_counts()
+        t0 = time.perf_counter()
+        frames, n = run(eager, n_frames)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        frames_made = int(np.max(n))
+        if eager not in out:
+            out[eager] = dict(frames=frames, n=n, counts=counts, ms=[])
+        elif not np.array_equal(frames, out[eager]["frames"]):
+            raise AssertionError(f"{label}: two greedy runs differ")
+        out[eager]["ms"].append(1e3 * dt / max(frames_made, 1))
+    cap, eag = out[False], out[True]
+    same = np.array_equal(cap["frames"], eag["frames"]) \
+        and np.array_equal(cap["n"], eag["n"])
+    log(f"{label}: {int(np.max(cap['n']))} greedy frames, captured vs eager "
+        f"step (alternated {'/'.join('eager' if e else 'captured' for e in order)}"
+        f"): frames equal token for token {same}; ms a frame captured "
+        f"{', '.join(f'{t:.2f}' for t in cap['ms'])}, eager "
+        f"{', '.join(f'{t:.2f}' for t in eag['ms'])}; the first captured "
+        f"run (its step built, warmed and captured) {first_ms:.1f} ms in "
+        f"all, a later one {cap['ms'][0] * int(np.max(cap['n'])):.1f}; "
+        f"launches captured {cap['counts']}, eager {eag['counts']}")
+    if not same:
+        raise AssertionError(f"{label}: the captured step's frames differ "
+                             f"from the eager step's")
+    return dict(frames=cap["frames"], n=cap["n"], counts=cap["counts"],
+                ms_captured=float(np.mean(cap["ms"])),
+                ms_eager=float(np.mean(eag["ms"])))
+
+
+def profile_frames(model: CSM, label: str) -> dict:
+    """Device events, device-busy ms and wall ms a frame of the frame step
+    (`generation.FrameStep`) at B = 1 from the 32-row prompt, greedy,
+    captured and eager: after the prefill, the first frame and two more
+    (the captured step's warm-up frame and its capture), PROFILE_FRAMES
+    frames under the profiler, each followed by the host's EOS read as in
+    the frame loop. Gate: the device launches of kernels 1, 3 and 5 that
+    the profiler saw (PROFILED_KERNELS) equal the wrappers' counts, which
+    add a captured step's launches at each replay."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    prompt, mask = synthetic_prompt(32, model.args.n_text_vocab, SEED)
+    tokens, masks, pad, bucket = generation._pad_prompt(prompt, mask)
+    out = {}
+    for eager in (False, True):
+        step = generation.FrameStep(model, 1, bucket + PROFILE_FRAMES + 3,
+                                    SamplerConfig(temperature=0.0), (), None,
+                                    eager=eager)
+        step.first(step.prefill(tokens, masks, pad))
+        step()
+        step()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with profile(activities=acts) as prof:
+            for _ in range(PROFILE_FRAMES):
+                step()
+                bool(step.frame.any())
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        # the raw records: parsing them into the profiler's event tree
+        # takes seconds at ~10,000 launches a frame
+        events = [e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA]
+        seen = {k: sum(any(n in e.name() for n in names) for e in events)
+                for k, names in PROFILED_KERNELS.items()}
+        setting = "eager" if eager else "captured"
+        if any(seen[k] != counts[k] for k in seen):
+            raise AssertionError(
+                f"{label}, {setting}: the profiler saw {seen} kernel "
+                f"launches, the counters say {counts}")
+        busy = sum(e.duration_ns() for e in events) / 1e6
+        out[setting] = dict(
+            events=len(events) / PROFILE_FRAMES,
+            busy_ms=busy / PROFILE_FRAMES,
+            wall_ms=1e3 * wall / PROFILE_FRAMES,
+            k3=seen["resident_decode_frame"] / PROFILE_FRAMES)
+        del step
+    log(f"{label}, a frame of {PROFILE_FRAMES} profiled frames: captured "
+        + "; eager ".join(
+            f"{r['events']:.0f} device events, {r['busy_ms']:.3f} ms device "
+            f"busy of {r['wall_ms']:.2f} ms wall under the profiler "
+            f"({r['busy_ms'] / r['wall_ms']:.1%}), {r['k3']:.2f} kernel-3 "
+            f"launches" for r in out.values())
+        + "; kernel launches seen by the profiler equal the counters'")
+    return out
+
+
 def run_main_path(model: CSM, mimi: Mimi) -> dict:
-    """Drive the main path at full CSM-1B width; return each kernel's
-    launch count in it and the W8A8 launches per frame."""
+    """Drive the main path at full CSM-1B width, greedy: 125 frames from
+    the 32-row prompt through the captured frame step against the eager
+    one (`captured_vs_eager`), then 10 frames from a 300-row prompt
+    (kernel 2 in the prefill) and a Mimi decode of the 125 frames. Returns
+    each kernel's launch count in the first captured run and the 300-row
+    run (replays count the launches they ran), and ms a frame."""
     args = model.args
     prompt, mask = synthetic_prompt(32, args.n_text_vocab, SEED)
     long_prompt, long_mask = synthetic_prompt(300, args.n_text_vocab, SEED + 1)
-    generate_tokens(model, prompt, mask, 2, temperature=0.0)  # warm-up
-    torch.cuda.synchronize()
-
-    reset_counts()
-    t0 = time.perf_counter()
-    frames, n = generate_tokens(model, prompt, mask, 125, temperature=0.0)
-    torch.cuda.synchronize()
-    t_gen = time.perf_counter() - t0
+    ab = captured_vs_eager(
+        lambda eager, n: generate_tokens(model, prompt, mask, n,
+                                         temperature=0.0, _eager_step=eager),
+        "main path W8A8", 125)
+    frames, n = ab["frames"], int(ab["n"])
+    counts = dict(ab["counts"])
+    before = read_counts()
+    gemm0 = quant.w8a8_matvec.gemm_launches
     t0 = time.perf_counter()
     long_frames, n_long = generate_tokens(model, long_prompt, long_mask, 10,
                                           temperature=0.0)
     torch.cuda.synchronize()
     t_long = time.perf_counter() - t0
+    after = read_counts()
+    counts = {k: counts[k] + after[k] - before[k] for k in counts
+              if k in ("w8a8_matvec", "flash_prefill_sdpa",
+                       "resident_decode_frame")}
     codes = torch.from_numpy(frames.T[None].copy()).to(model.device)
     t0 = time.perf_counter()
     audio = mimi.decode(codes)
     torch.cuda.synchronize()
     t_dec = time.perf_counter() - t0
-    counts = {k: v for k, v in read_counts().items()
-              if k in ("w8a8_matvec", "flash_prefill_sdpa",
-                       "resident_decode_frame")}
-
-    gemm = quant.w8a8_matvec.gemm_launches
+    gemm = quant.w8a8_matvec.gemm_launches - gemm0
     log(f"launches on the main path: {counts} over {n} + {n_long} frames; "
-        f"w8a8 by route: matvec {counts['w8a8_matvec'] - gemm}, tensor-core "
-        f"GEMM (prefill, > {quant.W8A8_MATVEC_MAX_ROWS} rows) {gemm}")
+        f"w8a8 GEMM route (prefill, > {quant.W8A8_MATVEC_MAX_ROWS} rows) "
+        f"{gemm} in the 300-row run")
     if n < 1 or n_long < 1:
         raise AssertionError(f"no frames generated ({n}, {n_long})")
     for f in (frames, long_frames):
@@ -1141,67 +1283,46 @@ def run_main_path(model: CSM, mimi: Mimi) -> dict:
                              f"{n} * 1920 finite samples")
     if min(counts.values()) < 1:
         raise AssertionError(f"a kernel was not launched: {counts}")
-    if counts["resident_decode_frame"] < n + n_long:
+    if counts["resident_decode_frame"] != n + n_long:
         raise AssertionError("a decoder frame did not go through kernel 3")
-    audio_sec = n * 0.08
-    log(f"main path: {n} frames in {t_gen:.3f} s = {1e3 * t_gen / n:.2f} ms "
-        f"per frame, {n / t_gen:.2f} frames/s, RTF {audio_sec / t_gen:.3f} "
-        f"(generation), {audio_sec / (t_gen + t_dec):.3f} (with Mimi decode "
-        f"{t_dec:.3f} s); 300-row prompt: {n_long} frames in {t_long:.3f} s;"
+    ms = ab["ms_captured"]
+    log(f"main path: {ms:.2f} ms a frame captured ({80 / ms:.2f}x real "
+        f"time), {ab['ms_eager']:.2f} eager; Mimi decode of {n} frames "
+        f"{t_dec:.3f} s; 300-row prompt: {n_long} frames in {t_long:.3f} s;"
         f" waveform {audio.shape[-1]} samples, finite")
-    return dict(counts=counts, frames=n + n_long, ms_per_frame=1e3 * t_gen / n)
+    return dict(counts=counts, frames=n + n_long, ms_per_frame=ms,
+                ms_eager=ab["ms_eager"], frames_125=frames)
 
 
-def trace_main_path(model: CSM) -> None:
-    """torch.profiler over prefill + 8 frames of the main path: kernel
-    launches per frame and the card's busy share of the wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    prompt, mask = synthetic_prompt(32, model.args.n_text_vocab, SEED)
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=activities):  # the profiler's own start-up
-        generate_tokens(model, prompt, mask, 1, temperature=0.0)
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=activities) as prof:
-        _, n = generate_tokens(model, prompt, mask, 8, temperature=0.0)
-        torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in events)
-    by_name: dict = {}
-    for e in events:
-        by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    log(f"trace, prefill + {n} frames: {len(events)} device events "
-        f"({len(events) / n:.0f} per frame), device busy {busy_us / 1e3:.1f} "
-        f"ms of {wall_us / 1e3:.1f} ms wall = {busy_us / wall_us:.1%}; top: "
-        + "; ".join(f"{k[:48]} {v / 1e3:.2f} ms" for k, v in top))
+def trace_main_path(model: CSM) -> dict:
+    """Device events and busy time a frame of the main path, captured and
+    eager (`profile_frames`)."""
+    return profile_frames(model, "trace, main path W8A8")
 
 
 def run_dispatched(model: CSM) -> dict:
     """10 frames of the main path's prompt through the dispatched decoder
-    (a shallow copy of the params without kernel 3's tables)."""
+    (a shallow copy of the params without kernel 3's tables), captured
+    against eager, and its events a frame."""
     args = model.args
     params = {k: v for k, v in model.params.items() if k != "_resident"}
     dispatched = CSM(args, params=params, dtype=model.dtype)
     prompt, mask = synthetic_prompt(32, args.n_text_vocab, SEED)
-    generate_tokens(dispatched, prompt, mask, 1, temperature=0.0)  # warm-up
-    torch.cuda.synchronize()
-    quant.w8a8_matvec.launches = 0
-    before = resident.resident_decode_frame.launches
-    t0 = time.perf_counter()
-    _, n = generate_tokens(dispatched, prompt, mask, 10, temperature=0.0)
-    torch.cuda.synchronize()
-    t = time.perf_counter() - t0
-    if resident.resident_decode_frame.launches != before or n < 1:
+
+    def run(eager, n):
+        return generate_tokens(dispatched, prompt, mask, n, temperature=0.0,
+                               _eager_step=eager)
+
+    ab = captured_vs_eager(run, "dispatched decoder", 10, eager_runs=1)
+    if ab["counts"]["resident_decode_frame"]:
         raise AssertionError("the dispatched run took kernel 3")
-    log(f"dispatched decoder: {n} frames in {t:.3f} s = {1e3 * t / n:.2f} ms "
-        f"per frame; W8A8 launches {quant.w8a8_matvec.launches / n:.0f} per "
-        f"frame")
-    return dict(ms_per_frame=1e3 * t / n,
-                w8a8_per_frame=quant.w8a8_matvec.launches / n)
+    n = int(ab["n"])
+    trace = profile_frames(dispatched, "trace, dispatched decoder")
+    log(f"dispatched decoder: {ab['ms_captured']:.2f} ms a frame captured, "
+        f"{ab['ms_eager']:.2f} eager; W8A8 launches "
+        f"{ab['counts']['w8a8_matvec'] / n:.0f} a frame")
+    return dict(ms_per_frame=ab["ms_captured"], ms_eager=ab["ms_eager"],
+                w8a8_per_frame=ab["counts"]["w8a8_matvec"] / n, trace=trace)
 
 
 def time_prefill(model: CSM) -> None:
@@ -1227,9 +1348,10 @@ def time_prefill(model: CSM) -> None:
             cos_b, sin_b = rope_cache_for(
                 bcfg, max(cap, bcfg.max_position_embeddings), dev)
             cache = KVCache.init(bcfg, 1, cap, dtype=model.dtype, device=dev)
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
 
             def run():  # a fresh write index over the same buffers
-                fresh = KVCache(k=cache.k, v=cache.v, index=0)
+                fresh = KVCache(k=cache.k, v=cache.v, index=zero, length=0)
                 return generation._prefill(model.params, args, t, m, pad,
                                            fresh, cos_b, sin_b)[0]
 
@@ -1300,8 +1422,9 @@ def check_divergence(model: CSM, gen) -> None:
                            .to(model.dtype)], dim=1)
         proj01 = linear(params["projection"], x01)  # (B, 2, d) bf16
         proj01_t = proj01.float().transpose(0, 1).contiguous()
-        toks = resident.resident_decode_frame(params["_resident"], args,
-                                              proj01_t, 0, 0.0)
+        toks = resident.resident_decode_frame(
+            params["_resident"], args, proj01_t,
+            torch.zeros((), dtype=torch.int32, device=model.device), 0.0)
         _, plain = resident.resident_decode_frame_plain(
             params["_resident"], args, proj01_t, 0.0, forced=toks.long())
         forced = toks.t().long()
@@ -1328,25 +1451,155 @@ def check_divergence(model: CSM, gen) -> None:
                              ">= 4 spreads")
 
 
+def run_streaming(model: CSM, mimi: Mimi, frames_125: np.ndarray) -> dict:
+    """`stream_generate` at full CSM-1B W8A8 width with the 32-codebook
+    Mimi, greedy, STREAM_FRAMES frames from the main path's 32-row prompt
+    (the text tokenizer, which the card's machine lacks, replaced by that
+    prompt). Gates: the chunks, joined, within STREAM_TOL of the largest
+    magnitude of `mimi.decode` of the main path's frames of the same
+    prompt (fp32, TF32 off: the ring's attention sums in another order);
+    one kernel-3 launch a chunk (replays counted). Then STREAM_TIMED
+    streams of STREAM_TIMED_FRAMES frames each, captured and eager
+    alternated: ms to the first chunk (p50, p90) and between chunks."""
+    from csm_mlx_tpu_torch import tokenizers as port_tokenizers
+
+    prompt, mask = synthetic_prompt(32, model.args.n_text_vocab, SEED)
+    saved = port_tokenizers.tokenize_text_segment
+    port_tokenizers.tokenize_text_segment = lambda *a: (prompt, mask)
+
+    def stream(eager, n_chunks):
+        chunks, times = [], []
+        t0 = time.perf_counter()
+        for chunk in generation.stream_generate(
+                model, "", 0, max_audio_length_ms=STREAM_FRAMES * 80,
+                temperature=0.0, mimi=mimi, _eager_step=eager):
+            times.append(1e3 * (time.perf_counter() - t0))
+            chunks.append(chunk)
+            if len(chunks) == n_chunks:
+                break
+        return chunks, times
+
+    try:
+        stream(False, 3)  # the step's first frame, its capture
+        reset_counts()
+        chunks, _ = stream(False, STREAM_FRAMES)
+        counts = read_counts()
+        timed: dict = {False: [], True: []}
+        for i in range(STREAM_TIMED):
+            for eager in ((False, True) if i % 2 == 0 else (True, False)):
+                timed[eager].append(stream(eager, STREAM_TIMED_FRAMES)[1])
+    finally:
+        port_tokenizers.tokenize_text_segment = saved
+    wav = torch.cat(chunks)
+    codes = torch.from_numpy(frames_125[:len(chunks)].T[None].copy())
+    want = mimi.decode(codes.to(model.device))[0, 0].cpu()
+    err = (wav - want).abs().max().item()
+    tol = STREAM_TOL * want.abs().max().item()
+    out = {}
+    for eager, runs in timed.items():
+        first = np.array([t[0] for t in runs])
+        gaps = np.concatenate([np.diff(t) for t in runs])
+        out["eager" if eager else "captured"] = dict(
+            first_p50=float(np.percentile(first, 50)),
+            first_p90=float(np.percentile(first, 90)),
+            gap_ms=float(gaps.mean()), gap_p90=float(np.percentile(gaps, 90)))
+    log(f"stream_generate W8A8 + Mimi(32): {len(chunks)} chunks of "
+        f"{chunks[0].numel()} samples, joined vs mimi.decode of the same "
+        f"frames max_abs_err {err:.3e} (tol {tol:.3e}); launches {counts}")
+    log(f"stream_generate, {STREAM_TIMED} streams of {STREAM_TIMED_FRAMES} "
+        f"frames each setting, alternated: " + "; ".join(
+            f"{k} first chunk p50 {r['first_p50']:.2f} ms p90 "
+            f"{r['first_p90']:.2f} ms, between chunks {r['gap_ms']:.2f} ms "
+            f"(p90 {r['gap_p90']:.2f})" for k, r in out.items()))
+    if len(chunks) != STREAM_FRAMES or not bool(torch.isfinite(wav).all()) \
+            or not err <= tol:
+        raise AssertionError("the streamed chunks do not match the batch "
+                             "decode")
+    if counts["resident_decode_frame"] != len(chunks):
+        raise AssertionError("a streamed frame did not go through kernel 3")
+    return out
+
+
+def check_sampled_step(model: CSM) -> None:
+    """T = 0.8 through the captured frame step, the caller's generator
+    registered with the graph: SAMPLED_FRAMES frames from the 32-row
+    prompt, each replay's kernel-3 seed and c0 read back. Gates: every
+    frame draws another seed, the c0 draws vary, and every code lies in
+    the vocabulary."""
+    args = model.args
+    gen = torch.Generator(device=model.device).manual_seed(SEED + 90)
+    prompt, mask = synthetic_prompt(32, args.n_text_vocab, SEED)
+    tokens, masks, pad, bucket = generation._pad_prompt(prompt, mask)
+    step = generation.FrameStep(model, 1, bucket + SAMPLED_FRAMES + 1,
+                                SamplerConfig(temperature=0.8), (), gen)
+    step.first(step.prefill(tokens, masks, pad))
+    seeds, c0, frames = [], [], []
+    for _ in range(SAMPLED_FRAMES):
+        step()
+        seeds.append(int(step.seeds[0]))
+        c0.append(int(step.frame[0, 0]))
+        frames.append(step.frame.clone())
+    frames = torch.cat(frames)
+    per_replay = {f"{obj.__name__}.{attr}": n
+                  for (obj, attr), n in step.captured.items()}
+    log(f"sampled step T=0.8: {step.replays} replays of one graph (kernel "
+        f"launches a replay {per_replay}; kernel 3's cooperative launch is "
+        f"captured in it); {len(set(seeds))} distinct kernel-3 seeds and "
+        f"{len(set(c0))} distinct c0 in {SAMPLED_FRAMES} frames")
+    if len(set(seeds)) != SAMPLED_FRAMES or len(set(c0)) < 5 \
+            or int(frames.min()) < 0 or int(frames.max()) >= args.n_audio_vocab:
+        raise AssertionError("the replays repeat their draws")
+
+
 def run_batch(model: CSM) -> None:
-    """65 prompts for 4 frames: two kernel-3 chunks a frame (33 + 32)."""
+    """65 prompts for 4 frames: two kernel-3 chunks a frame (33 + 32),
+    captured against eager."""
     args = model.args
     prompts, masks = zip(*[synthetic_prompt(20 + i % 12, args.n_text_vocab,
                                             SEED + 100 + i)
                            for i in range(65)])
-    before = resident.resident_decode_frame.launches
-    t0 = time.perf_counter()
-    frames, n = generate_tokens_batch(model, prompts, masks, 4,
-                                      temperature=0.0)
-    torch.cuda.synchronize()
-    t = time.perf_counter() - t0
-    calls = resident.resident_decode_frame.launches - before
-    steps = int(n.max())
-    log(f"batch of 65 prompts: {steps} frames in {t:.3f} s, {calls} kernel-3 "
-        f"launches (2 a frame), frames per row {n.min()}..{n.max()}")
+    ab = captured_vs_eager(
+        lambda eager, n: generate_tokens_batch(
+            model, prompts, masks, n, temperature=0.0, _eager_step=eager),
+        "batch of 65 prompts", 4)
+    frames, steps = ab["frames"], int(ab["n"].max())
+    calls = ab["counts"]["resident_decode_frame"]
+    log(f"batch of 65 prompts: {steps} frames, {calls} kernel-3 launches (2 "
+        f"a frame), frames per row {ab['n'].min()}..{ab['n'].max()}")
     if calls != 2 * steps or frames.min() < 0 \
             or frames.max() >= args.n_audio_vocab:
         raise AssertionError("the 65-row batch did not run two chunks a frame")
+
+
+def frame_step_memory(model: CSM) -> dict:
+    """What the model's kept frame steps (`CSM.frame_steps`) hold on the
+    card after the generation phases: each step's B, capacity and KV-cache
+    bytes, and the card's allocated and reserved memory before and after
+    `frame_steps.clear()` and `torch.cuda.empty_cache()`. Gate: the clear
+    frees at least the caches' bytes."""
+    import gc
+
+    torch.cuda.synchronize()
+    steps = list(model.frame_steps.values())
+    caches = [(s.cache.k.shape[1], s.cache.capacity,
+               s.cache.k.nbytes + s.cache.v.nbytes) for s in steps]
+    before = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    del steps
+    model.frame_steps.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    mib = 1 << 20
+    log(f"kept frame steps: {len(caches)} (B, capacity, KV cache MiB) "
+        f"{[(b, c, round(n / mib, 1)) for b, c, n in caches]}; card memory "
+        f"allocated {before[0] / mib:.0f} -> {after[0] / mib:.0f} MiB, "
+        f"reserved {before[1] / mib:.0f} -> {after[1] / mib:.0f} MiB after "
+        f"frame_steps.clear() and empty_cache()")
+    if before[0] - after[0] < sum(n for _, _, n in caches):
+        raise AssertionError("clearing the kept frame steps gave back less "
+                             "than their caches")
+    return dict(steps=caches, allocated=before[0] - after[0],
+                reserved=before[1] - after[1])
 
 
 def check_small_affine_vs_cpu(dev) -> None:
@@ -1409,17 +1662,28 @@ def run_affine_path(dev, mimi: Mimi) -> dict:
             args.n_audio_codebooks - 1) * (quantized_linears(p["decoder"])
                                            + quantized_linears(
                                                p["projection"]))
-        generate_tokens(model, prompt, mask, 1, temperature=0.0)  # warm-up
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        frames, n = generate_tokens(model, prompt, mask, n_frames,
-                                    temperature=0.0)
-        torch.cuda.synchronize()
-        t_gen = time.perf_counter() - t0
-        counts = read_counts()
-        log(f"affine {bits}-bit path: {n} frames in {t_gen:.3f} s = "
-            f"{1e3 * t_gen / max(n, 1):.2f} ms per frame; launches {counts}"
+
+        def run(eager, n):
+            return generate_tokens(model, prompt, mask, n, temperature=0.0,
+                                   _eager_step=eager)
+
+        if bits == 4:  # captured against eager, and its events a frame
+            ab = captured_vs_eager(run, f"affine {bits}-bit path", n_frames,
+                                   eager_runs=1)
+            frames, n, counts = ab["frames"], int(ab["n"]), ab["counts"]
+            ms = ab["ms_captured"]
+            trace = profile_frames(model, f"trace, affine {bits}-bit path")
+        else:
+            run(False, n_frames)  # the step's first frame, its capture
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            frames, n = run(False, n_frames)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / max(n, 1)
+            counts = read_counts()
+        log(f"affine {bits}-bit path: {n} frames, {ms:.2f} ms a frame "
+            f"captured; launches {counts}"
             f" = {counts['affine_matvec'] / max(n, 1):.0f} kernel-5 launches"
             f" a frame (every quantized linear: {per_frame})")
         if n != n_frames or frames.min() < 0 \
@@ -1441,8 +1705,9 @@ def run_affine_path(dev, mimi: Mimi) -> dict:
             if tuple(audio.shape) != (1, 1, n * 1920) \
                     or not bool(torch.isfinite(audio).all()):
                 raise AssertionError("affine 4-bit waveform not finite")
-            out = dict(counts=counts, ms_per_frame=1e3 * t_gen / n)
-        del model
+            out = dict(counts=counts, ms_per_frame=ms,
+                       ms_eager=ab["ms_eager"], trace=trace)
+        del model, run
         torch.cuda.empty_cache()
     return out
 
@@ -1490,7 +1755,7 @@ def check_decode_step(args, dev, gen, prompts, masks) -> dict:
 
             def step(min_b):
                 c = KVCache(k=cache.k.clone(), v=cache.v.clone(),
-                            index=cache.index)
+                            index=cache.index, length=cache.length)
                 h, _ = generation._backbone_step(m.params, args, tok, msk,
                                                  pad, c, cos_b, sin_b, min_b)
                 return h.float()
@@ -1511,8 +1776,8 @@ def flash_decode_ab(run, min_b: int) -> dict:
     drift falls on both settings alike. Each run's launch counts are set to
     0 just before it and read just after. Returns, by setting, the frames,
     n and counts of its first run and the seconds of both."""
-    for setting in (min_b, None):
-        run(setting, 2)
+    for setting in (min_b, None):  # the captured step of each, captured
+        run(setting, BATCH_FRAMES)
     out = {}
     for setting in (min_b, None, None, min_b):
         torch.cuda.synchronize()
@@ -2053,6 +2318,14 @@ def affine_generator(dev) -> torch.Generator:
     return gen
 
 
+def timed(fn, *a):
+    """fn(*a), its seconds logged after the phase's own lines."""
+    t0 = time.perf_counter()
+    out = fn(*a)
+    log(f"[{fn.__name__}: {time.perf_counter() - t0:.1f} s]")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -2075,41 +2348,46 @@ def main() -> None:
     # the kernel cases added with the redesign of kernels 2 and 4
     gen_new = torch.Generator(device=dev)
     gen_new.manual_seed(SEED + 60)
-    w8a8 = check_w8a8(dev, gen)
-    flash = check_flash(dev, gen, gen_new)
+    w8a8 = timed(check_w8a8, dev, gen)
+    flash = timed(check_flash, dev, gen, gen_new)
     # the phases added with kernels 4 and 5 draw from their own generator,
     # so the earlier phases keep their inputs
     gen45 = torch.Generator(device=dev)
     gen45.manual_seed(SEED + 40)
-    affine = check_affine(dev, gen45, affine_generator(dev))
-    decode = check_flash_decode(dev, gen45, gen_new)
+    affine = timed(check_affine, dev, gen45, affine_generator(dev))
+    decode = timed(check_flash_decode, dev, gen45, gen_new)
     mimi = Mimi(mimi_202407(32), dtype=torch.float32,
                 generator=torch.Generator(device=dev).manual_seed(SEED + 2),
                 device=dev)
-    check_small_vs_cpu(dev, mimi)
-    check_small_affine_vs_cpu(dev)
+    timed(check_small_vs_cpu, dev, mimi)
+    timed(check_small_affine_vs_cpu, dev)
     model = build_csm_1b(dev)
-    frame = check_resident(model, gen, gen_new)
-    check_resident_temperature(model, gen)
-    main_path = run_main_path(model, mimi)
-    trace_main_path(model)
-    disp = run_dispatched(model)
+    frame = timed(check_resident, model, gen, gen_new)
+    timed(check_resident_temperature, model, gen)
+    main_path = timed(run_main_path, model, mimi)
+    timed(trace_main_path, model)
+    timed(run_streaming, model, mimi, main_path["frames_125"])
+    timed(check_sampled_step, model)
+    disp = timed(run_dispatched, model)
     log(f"W8A8 launches per frame: {disp['w8a8_per_frame']:.0f} dispatched, "
         f"{main_path['counts']['w8a8_matvec'] / main_path['frames']:.0f} "
-        f"with kernel 3; ms per frame: {disp['ms_per_frame']:.2f} dispatched,"
-        f" {main_path['ms_per_frame']:.2f} with kernel 3")
-    time_prefill(model)
-    check_divergence(model, gen)
-    run_batch(model)
-    batch = run_batch_flash_decode(model, gen45)
+        f"with kernel 3; ms per frame captured (eager): "
+        f"{disp['ms_per_frame']:.2f} ({disp['ms_eager']:.2f}) dispatched, "
+        f"{main_path['ms_per_frame']:.2f} ({main_path['ms_eager']:.2f}) with "
+        f"kernel 3")
+    timed(time_prefill, model)
+    timed(check_divergence, model, gen)
+    timed(run_batch, model)
+    batch = timed(run_batch_flash_decode, model, gen45)
+    timed(frame_step_memory, model)
     del model
     torch.cuda.empty_cache()
-    affine_path = run_affine_path(dev, mimi)
+    affine_path = timed(run_affine_path, dev, mimi)
 
-    flash_tr = check_flash_train(dev, gen)
+    flash_tr = timed(check_flash_train, dev, gen)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
-        training = run_training(dev, workdir)
-    check_training_vs_plain(dev)
+        training = timed(run_training, dev, workdir)
+    timed(check_training_vs_plain, dev)
 
     launches = main_path["counts"]
     k3 = frame[1]  # the main path's shape: one row

@@ -29,7 +29,9 @@
 // row, kv head) and its G query heads over one contiguous chunk of the
 // cache, clipped to the valid keys [pad, index]. The split count and the
 // chunk come from the wrapper and depend on (B, n_kv, cap) only, never on
-// `index`. Where B * n_kv blocks already fill the card there is one split
+// `index`, which every block reads from device memory (`index_ptr`, the
+// cache's own int32 index): one launch configuration, captured once in a
+// CUDA graph, serves every decode step. Where B * n_kv blocks already fill the card there is one split
 // and one launch: a block runs both passes over the whole row. Otherwise
 // three launches: the K pass of every split (each block leaves its max and
 // sum), the V pass (each block reduces the row's splits' max and sum in
@@ -159,7 +161,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     T* __restrict__ out, float* __restrict__ scores,
                     float2* __restrict__ part_ml, float* __restrict__ part_acc,
                     long long qsb, long long qsh, Strides ks, Strides vs,
-                    int n_heads, int cap, int index, int chunk, float scale) {
+                    int n_heads, int cap, const int* __restrict__ index_ptr,
+                    int chunk, float scale) {
   using C = Tiles<T>;
   // the ring of K (or V) tiles and (V pass) their scores; after the V pass
   // the warps' partials over the tiles
@@ -178,6 +181,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long slot = ((long long)b * n_kv + kvh) * splits + split;
 
   const int pad = (int)min(pad_len[b], (long long)cap);
+  // every key up to an index past the cache is valid, as in the plain mask
+  const int index = min(*index_ptr, cap - 1);
   const bool none_valid = pad > index;  // then every key, all NEG_INF
   const int lo = none_valid ? 0 : pad, hi = none_valid ? cap - 1 : index;
   const int first = max(split * chunk, lo);
@@ -443,7 +448,7 @@ flash_decode_merge_kernel(const float* __restrict__ part_acc, T* __restrict__ ou
 template <typename T, int G>
 int launch(const void* q, const void* k, const void* v, const long long* pad,
            void* out, void* scratch, long long qsb, long long qsh, Strides ks, Strides vs, int batch, int n_heads,
-           int n_kv, int cap, int index, int splits, int chunk, float scale,
+           int n_kv, int cap, const int* index, int splits, int chunk, float scale,
            cudaStream_t st) {
   // scratch: scores (B, n_kv, G, cap); with splits, then P.V partials (B,
   // n_kv, splits, G, 64) and (max, sum) (B, n_kv, splits, G)
@@ -481,7 +486,7 @@ template <typename T>
 int run(const void* q, const void* k, const void* v, const long long* pad,
         void* out, void* scratch, long long qsb, long long qsh,
         Strides ks, Strides vs, int batch, int n_heads, int n_kv, int cap,
-        int index, int splits, int chunk, float scale, cudaStream_t st) {
+        const int* index, int splits, int chunk, float scale, cudaStream_t st) {
 #define CSM_DECODE_G(G)                                                          \
   case G:                                                                        \
     return launch<T, G>(q, k, v, pad, out, scratch, qsb, qsh, ks, vs, batch,     \
@@ -502,9 +507,11 @@ int run(const void* q, const void* k, const void* v, const long long* pad,
 // q: (B, H, 1, 64) with element strides qsb, qsh; k/v: (B, n_kv, cap, 64)
 // with the given element strides (innermost contiguous, rows 16-byte
 // aligned); pad_len: (B,) int64; out: (B, H, 1, 64) contiguous. H / n_kv in
-// {1, 2, 4, 8}, 0 <= index < cap. The cache is walked in `splits` chunks of
-// `chunk` keys (chunk a multiple of 64, splits * chunk >= cap > (splits -
-// 1) * chunk). `scratch`: fp32, B * H * cap values rounded up to a multiple
+// {1, 2, 4, 8}; index: one int32 in device memory, the slot this step
+// wrote (read by the kernel, so a captured launch follows the cache; an
+// index >= cap reads as cap - 1, below 0 as no valid key). The cache is
+// walked in `splits` chunks of `chunk` keys (chunk a multiple of 64, splits
+// * chunk >= cap > (splits - 1) * chunk). `scratch`: fp32, B * H * cap values rounded up to a multiple
 // of 4, and with splits > 1 B * H * splits * 66 more. One launch with one
 // split, else three. Returns cudaGetLastError().
 extern "C" int csm_flash_decode(const void* q, const void* k, const void* v,
@@ -513,22 +520,23 @@ extern "C" int csm_flash_decode(const void* q, const void* k, const void* v,
                                 long long ksb, long long ksh, long long kss,
                                 long long vsb, long long vsh, long long vss,
                                 int batch, int n_heads, int n_kv, int cap,
-                                int index, int splits, int chunk, int head_dim,
+                                const void* index, int splits, int chunk, int head_dim,
                                 float scale, int dtype, void* stream) {
-  if (head_dim != kD || n_kv <= 0 || n_heads % n_kv != 0 || index < 0 ||
-      index >= cap || splits < 1 || chunk < 1 || chunk % 64 != 0 ||
+  if (head_dim != kD || n_kv <= 0 || n_heads % n_kv != 0 || index == nullptr ||
+      splits < 1 || chunk < 1 || chunk % 64 != 0 ||
       (long long)splits * chunk < cap || (long long)(splits - 1) * chunk >= cap ||
       scratch == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
   const long long* pl = static_cast<const long long*>(pad_len);
+  const int* idx = static_cast<const int*>(index);
   if (dtype == kF32)
     return run<float>(q, k, v, pl, out, scratch, qsb, qsh, ks, vs, batch,
-                      n_heads, n_kv, cap, index, splits, chunk, scale, st);
+                      n_heads, n_kv, cap, idx, splits, chunk, scale, st);
   if (dtype == kBF16)
     return run<__nv_bfloat16>(q, k, v, pl, out, scratch, qsb, qsh, ks, vs,
-                              batch, n_heads, n_kv, cap, index, splits, chunk,
+                              batch, n_heads, n_kv, cap, idx, splits, chunk,
                               scale, st);
   return (int)cudaErrorInvalidValue;
 }

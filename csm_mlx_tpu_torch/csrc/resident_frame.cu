@@ -127,7 +127,9 @@ struct Frame {
   int stamp_cap;
   int n_layers, rows, heads, n_kv, hd, d, f, n_cb, v, v_pad;
   float eps, scale, inv_t;
-  unsigned seed;
+  // the call's seed, one int32 in device memory: read by the kernel, so a
+  // launch captured in a CUDA graph takes the seed its step drew
+  const int* seed;
 };
 
 // Fixed shared-memory regions (bytes).
@@ -1170,7 +1172,7 @@ resident_frame_kernel(const __grid_constant__ Frame a) {
               lg = __fmul_rn(__fmul_rn((float)acc(0, nt, i), hs[col]), SM_AUX[n].x);
               if (a.logits != nullptr) a.logits[((size_t)(s - 1) * B + n) * a.v + col] = lg;
               if (a.inv_t > 0.f) {
-                const unsigned bits = philox(a.seed, col, n, s);
+                const unsigned bits = philox((unsigned)__ldg(a.seed), col, n, s);
                 const float u = (float)(bits & 0x7FFFFFu) * (1.f / 8388608.f);
                 const float gn = -logf(-logf(u + 1e-10f) + 1e-10f);
                 lg = __fadd_rn(__fmul_rn(lg, a.inv_t), gn);
@@ -1232,7 +1234,8 @@ resident_frame_kernel(const __grid_constant__ Frame a) {
 // codes, down rows]. The other tables, the scratch buffers and the tokens as
 // in `Frame`; part holds grid * rows int2. inv_t = 0 picks greedily. logits,
 // when not null, receives the (n_cb-1, rows, v) logits before noise; stamps,
-// when not null, stamp_cap phase records; grid is one block per SM. Returns
+// when not null, stamp_cap phase records; seed: one int32 in device memory,
+// read at T > 0; grid is one block per SM. Returns
 // the launch's error code, 0 on success.
 extern "C" int csm_resident_frame(
     const void* const* layer_ptrs, int n_layers, const void* norm,
@@ -1240,9 +1243,9 @@ extern "C" int csm_resident_frame(
     const void* proj01, void* x, void* q, void* ao, void* act, void* xq, void* aux, void* kc,
     void* vc, void* part, void* tokens, void* logits, int rows, int heads, int n_kv, int hd,
     int d, int f, int n_cb, int v, int v_pad, float eps, float scale, float inv_t,
-    unsigned seed, int grid, void* stamps, int stamp_cap, void* stream) {
+    const void* seed, int grid, void* stamps, int stamp_cap, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || rows < 1 || rows > kMaxRows || n_cb > 32 ||
-      grid < 1)
+      grid < 1 || seed == nullptr)
     return (int)cudaErrorInvalidValue;
   Frame fr{};
   for (int l = 0; l < n_layers; ++l) {
@@ -1295,7 +1298,7 @@ extern "C" int csm_resident_frame(
   fr.eps = eps;
   fr.scale = scale;
   fr.inv_t = inv_t;
-  fr.seed = seed;
+  fr.seed = static_cast<const int*>(seed);
 
   auto* kernel = rows <= 8 ? resident_frame_kernel<1> : resident_frame_kernel<8>;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -6,7 +6,7 @@ the same JSON schemas, constructors and `get_batch` outputs.
   by default), as the JAX package does for its jitted step.
 
 `_tokenize` needs the Mimi encoder, which is not ported yet (ROADMAP
-queue 1, item 5): it raises `NotImplementedError`. Subclasses and tests
+queue 1, item 3): it raises `NotImplementedError`. Subclasses and tests
 feed pre-tokenized items.
 
 JSON schemas:
@@ -101,7 +101,7 @@ class CSMDataset:
     def _tokenize(self, segments: List[Segment]):
         raise NotImplementedError(
             "tokenizing segments with audio needs the Mimi encoder, which is "
-            "not ported yet (ROADMAP queue 1, item 5: "
+            "not ported yet (ROADMAP queue 1, item 3: "
             "tokenize_segments_with_loss_mask); feed pre-tokenized items")
 
     def __getitem__(self, idx: int):

@@ -21,7 +21,7 @@
   (`torch.utils.checkpoint`).
 
 Not ported: the orbax backend and the mesh / FSDP options (ROADMAP queue
-1, item 18).
+1, items 9 and 12).
 """
 
 from __future__ import annotations

@@ -1,16 +1,20 @@
 """Autoregressive text-to-speech generation (port of `csm_mlx_tpu/generation.py`).
 
 The JAX package compiles the whole generation into one XLA program
-(`lax.while_loop` over frames, `lax.scan` over the decoder steps). The port
-runs eagerly: a Python frame loop over the same building blocks —
-`_prefill`, `_backbone_step`, `_decode_frame` (c0 from `codebook0_head`,
-then the decoder primed with [backbone hidden, c0 embedding] and 30
-single-token decoder steps scored against `audio_head[i-1]`) — with the
-same per-row all-zero-frame EOS. With the whole-frame decoder's tables in
-the params (`quantize_model` on CUDA prepares them), codebooks 1..31 of a
-frame come from one kernel-3 launch per chunk of <= 64 rows, as in the JAX
-package; without them (or with a custom sampler) from the dispatched
-decoder, a Python loop of eager steps.
+(`lax.while_loop` over frames, `lax.scan` over the decoder steps) and
+streaming into two (`_build_stream_fns_impl`). The port runs the prefill
+and the first frame eagerly, then each later frame as one `FrameStep`: the
+last frame fed back, a backbone step (`_backbone_step`), the next frame
+(`_decode_frame`: c0 from `codebook0_head` through the sampler and the
+processors, then the decoder primed with [backbone hidden, c0 embedding]
+and 30 single-token steps scored against `audio_head[i-1]`) and, when
+streaming, the Mimi decode step of the frame. On the card a step is
+captured once as a CUDA graph and replayed every frame; on the CPU it runs
+eagerly. EOS is the per-row all-zero frame, read on the host each frame.
+With the whole-frame decoder's tables in the params (`quantize_model` on
+CUDA prepares them), codebooks 1..31 of a frame come from one kernel-3
+launch per chunk of <= 64 rows, as in the JAX package; without them (or
+with a custom sampler) from the dispatched decoder, a loop of steps.
 
 Prompts are left-padded to the same buckets as in the JAX package, so a
 prompt gets the same positions and masks on both sides. Prefill runs the
@@ -19,14 +23,19 @@ unless `CSM_TPU_FLASH_PREFILL=0`, the masked `sdpa` otherwise. A backbone
 step runs the flash-decode kernel when the caller sets
 `flash_decode_min_b` and the batch reaches it (off by default, as in JAX).
 
-Not ported yet: streaming, context audio, long-form generation and the
-watermark.
+Entry points: `generate_frame` (one frame, its state threaded through
+`FrameState`), `generate_tokens`, `generate_tokens_batch`, `generate` and
+`stream_generate`. Not ported yet: context audio, long-form generation
+and the watermark.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import os
-from typing import Any, Optional, Sequence, Tuple
+import threading
+from typing import Any, Callable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +43,7 @@ import torch
 from csm_mlx_tpu_torch.models.csm import (CSM, ModelArgs, embed_audio,
                                           masked_input_embeds)
 from csm_mlx_tpu_torch.models.llama import llama_forward
-from csm_mlx_tpu_torch.ops import resident_decoder
+from csm_mlx_tpu_torch.ops import launches, resident_decoder
 from csm_mlx_tpu_torch.ops.attention import (NEG_INF, causal_mask_bias,
                                              key_validity_bias)
 from csm_mlx_tpu_torch.ops.kv_cache import KVCache
@@ -114,12 +123,23 @@ def _use_resident_decoder(params, sampler, b: int) -> int:
     return -(-b // resident_decoder.RESIDENT_MAX_BATCH)
 
 
+def _draw_seeds(generator, sampler, n_chunks: int, device) -> torch.Tensor:
+    """Kernel 3's seeds of one frame, (n_chunks,) int32 on `device`, drawn
+    from the caller's generator on the device (zeros when greedy): never
+    read back, so a captured step draws anew at every replay."""
+    if sampler.temperature > 0.0:
+        return torch.randint(0, 2 ** 31 - 1, (n_chunks,), generator=generator,
+                             device=device, dtype=torch.int32)
+    return torch.zeros((n_chunks,), dtype=torch.int32, device=device)
+
+
 def _decode_frame(params, args: ModelArgs, last_hidden, generator, history,
-                  sampler, processors: Tuple, cos_d, sin_d):
+                  sampler, processors: Tuple, cos_d, sin_d, seeds=None):
     """Sample the 32 codebooks of one frame from the backbone hidden state:
     c0 through the sampler and processor chain, codebooks 1..31 through
     the decoder with plain temperature sampling — the whole-frame kernel
-    when the params carry its tables, else the dispatched decoder.
+    when the params carry its tables (one call per chunk, seeded from
+    `seeds`, drawn here when None), else the dispatched decoder.
     Returns (frame (B, 32), history)."""
     b = last_hidden.shape[0]
     device = last_hidden.device
@@ -138,17 +158,14 @@ def _decode_frame(params, args: ModelArgs, last_hidden, generator, history,
     if n_chunks:
         # One kernel-3 launch per chunk (the plain version on the CPU);
         # c0, its processors and the projection stay outside, as in JAX.
-        t = sampler.temperature
+        if seeds is None:
+            seeds = _draw_seeds(generator, sampler, n_chunks, device)
         proj01_t = proj01.float().transpose(0, 1)  # (2, B, d_decoder)
         cs = -(-b // n_chunks)
-        seed_device = device if generator is None else generator.device
-        parts = []
-        for lo in range(0, b, cs):
-            # one int32 seed per chunk from the caller's generator
-            seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
-                                     device=seed_device)) if t > 0.0 else 0
-            parts.append(resident_decoder.resident_decode_frame(
-                params["_resident"], args, proj01_t[:, lo:lo + cs], seed, t))
+        parts = [resident_decoder.resident_decode_frame(
+            params["_resident"], args, proj01_t[:, lo:lo + cs],
+            seeds[i:i + 1], sampler.temperature)
+            for i, lo in enumerate(range(0, b, cs))]
         toks = torch.cat(parts, dim=1)  # (n_cb, B)
         frame = torch.cat([c0[:, None], toks[1:].t().long()], dim=1)
         return frame, history
@@ -189,10 +206,11 @@ def dispatched_decode(params, args: ModelArgs, proj01, dec_sampler,
         prev = codes[-1] if forced is None else forced[:, i - 1]
         emb = table[prev + (i - 1) * args.n_audio_vocab].to(dtype)
         x = linear(params["projection"], emb[:, None, :])
-        positions = torch.full((1, 1), dcache.index, device=device)
+        # step i writes slot i: a Python int, nothing read from the device
+        positions = torch.full((1, 1), i, device=device)
         hidden, dcache = llama_forward(params["decoder"], dcfg, x, cos_d,
-                                       sin_d, positions,
-                                       dec_bias(1, dcache.index), dcache)
+                                       sin_d, positions, dec_bias(1, i),
+                                       dcache)
         logits.append(audio_head_logits(audio_head, i - 1, hidden[:, 0]))
         codes.append(dec_sampler(generator, logits[-1]))
     return torch.stack(codes, dim=1), torch.stack(logits).float()
@@ -235,52 +253,270 @@ def _resolve_sampler(temperature: float, sampler: Optional[Any]):
         else sampler
 
 
+class FrameStep:
+    """One frame of generation over static buffers: the port of the frame
+    body of JAX's compiled loops (`_build_generate_tokens_impl`'s `body`,
+    `_build_stream_fns_impl`'s `step`). A step feeds the last frame back
+    (`_frame_to_next_input`), runs a backbone step, samples the next frame
+    (`_decode_frame`) and, with a codec, runs the Mimi decode step of it.
+
+    Its buffers are updated in place: `frame` (B, 32) int64 (the step's
+    input, then its output), `history`, the backbone `cache` (its write
+    index on the device), `seeds` (kernel 3's seeds of the frame), `pad`,
+    and with a codec the decode `state` and `chunk` (B, frame_size).
+    `prefill` and `first` start a stream (eagerly); each call then makes
+    one frame.
+
+    On CUDA tensors the step is a CUDA graph: the first call runs it
+    eagerly on a side stream (a real frame, which also does every
+    first-use set-up: the kernel library, cuBLAS, cuDNN's choice of
+    algorithm), the second captures it on that stream, with the caller's
+    generator registered so that every replay draws anew, and every call
+    from then on replays it. A replay runs the captured kernels without
+    calling their wrappers, so it adds the launches the capture recorded to
+    the wrappers' counters (`captured`, by the counters' registry
+    `ops.launches`); the capture itself launches nothing and counts
+    nothing. The overflow check reads the host's count
+    of the cache (`cache.length`), which a replay advances. `eager=True`
+    (or CPU tensors) runs every call eagerly on the current stream.
+    """
+
+    def __init__(self, model: CSM, b: int, capacity: int, sampler,
+                 processors: Tuple, generator: Optional[torch.Generator],
+                 flash_decode_min_b: Optional[int] = None, codec=None,
+                 eager: bool = False):
+        args, device = model.args, model.device
+        bcfg, dcfg = args.backbone_config, args.decoder_config
+        self.params, self.args, self.device = model.params, args, device
+        self.sampler, self.processors = sampler, processors
+        self.generator, self.codec = generator, codec
+        self.flash_decode_min_b = flash_decode_min_b
+        self.capture = device.type == "cuda" and not eager
+        if self.capture and generator is not None \
+                and generator.device != device:
+            raise ValueError(f"a captured frame step draws on {device}; the "
+                             f"generator is on {generator.device}")
+        self.cos_b, self.sin_b = rope_cache_for(
+            bcfg, max(capacity, bcfg.max_position_embeddings), device)
+        self.cos_d, self.sin_d = rope_cache_for(
+            dcfg, args.n_audio_codebooks + 1, device)
+        self.cache = KVCache.init(bcfg, b, capacity, dtype=model.dtype,
+                                  device=device)
+        self.pad = torch.zeros((b,), dtype=torch.long, device=device)
+        self.frame = torch.zeros((b, args.n_audio_codebooks),
+                                 dtype=torch.long, device=device)
+        self.history = torch.full((b, HISTORY_SIZE), -1, dtype=torch.long,
+                                  device=device)
+        self.seeds = torch.zeros(
+            (_use_resident_decoder(model.params, sampler, b),),
+            dtype=torch.int32, device=device)
+        if codec is not None:
+            self.state = codec.init_decode_state(batch=b)
+            self.chunk = torch.zeros((b, codec.frame_size),
+                                     dtype=codec.dtype, device=device)
+        self.graph = None
+        self._warm = False
+        self._stream = None
+        self.captured: dict = {}
+        self.replays = 0
+
+    def prefill(self, tokens: np.ndarray, mask: np.ndarray,
+                pad_len: np.ndarray) -> torch.Tensor:
+        """Start a stream: the buffers reset and the left-padded prompt
+        (B, bucket, 33) prefilled into the cache; returns the last hidden
+        state (B, D)."""
+        self.cache.k.zero_()
+        self.cache.v.zero_()
+        self.cache.index.zero_()
+        self.cache.length = 0
+        self.history.fill_(-1)
+        self.pad.copy_(torch.from_numpy(pad_len).long())
+        if self.codec is not None:
+            for t in _tensors(self.state):
+                t.zero_()
+        t = torch.from_numpy(tokens).long().to(self.device)
+        m = torch.from_numpy(mask).long().to(self.device)
+        last_hidden, _ = _prefill(self.params, self.args, t, m, self.pad,
+                                  self.cache, self.cos_b, self.sin_b)
+        return last_hidden
+
+    def first(self, last_hidden: torch.Tensor) -> None:
+        """The stream's first frame from the prefill's hidden state
+        (eager)."""
+        self._decode(last_hidden)
+
+    def _decode(self, last_hidden: torch.Tensor) -> None:
+        if self.seeds.numel():
+            self.seeds.copy_(_draw_seeds(self.generator, self.sampler,
+                                         self.seeds.numel(), self.device))
+        frame, history = _decode_frame(
+            self.params, self.args, last_hidden, self.generator,
+            self.history, self.sampler, self.processors, self.cos_d,
+            self.sin_d, seeds=self.seeds if self.seeds.numel() else None)
+        self.frame.copy_(frame)
+        self.history.copy_(history)
+        if self.codec is not None:
+            from csm_mlx_tpu_torch.models.mimi.mimi import mimi_decode_step_fn
+
+            audio, _ = mimi_decode_step_fn(self.codec.params, self.codec.cfg,
+                                           frame[..., None], self.state)
+            self.chunk.copy_(audio[:, 0])
+
+    def _step(self) -> None:
+        tokens, mask = _frame_to_next_input(self.frame)
+        last_hidden, _ = _backbone_step(
+            self.params, self.args, tokens, mask, self.pad, self.cache,
+            self.cos_b, self.sin_b, self.flash_decode_min_b)
+        self._decode(last_hidden)
+
+    def __call__(self) -> None:
+        """The next frame, into the buffers."""
+        if self.cache.length + 1 > self.cache.capacity:
+            raise ValueError(f"KV cache overflow: index {self.cache.length} "
+                             f"+ 1 new token > capacity "
+                             f"{self.cache.capacity}")
+        if not self.capture:
+            self._step()
+            return
+        if not self._warm:
+            self._stream = torch.cuda.Stream(self.device)
+            self._stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(self._stream):
+                self._step()
+            torch.cuda.current_stream().wait_stream(self._stream)
+            self._warm = True
+            return
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        self.replays += 1
+        self.cache.length += 1
+        for (fn, attr), n in self.captured.items():
+            setattr(fn, attr, getattr(fn, attr) + n)
+
+    def _capture(self) -> None:
+        counters = list(launches.COUNTERS.values())
+        before = [getattr(fn, attr) for fn, attr in counters]
+        length = self.cache.length
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        with torch.cuda.graph(graph, stream=self._stream):
+            self._step()
+        self.cache.length = length  # the capture ran nothing
+        for (fn, attr), n in zip(counters, before):
+            if getattr(fn, attr) != n:
+                self.captured[(fn, attr)] = getattr(fn, attr) - n
+                setattr(fn, attr, n)
+        self.graph = graph
+
+
+def _tensors(tree) -> list:
+    """The tensor leaves of nested dicts, lists, tuples and dataclasses."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    elif dataclasses.is_dataclass(tree):
+        tree = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in _tensors(x)]
+    return []
+
+
+# A model keeps at most this many captured frame steps (each holds its KV
+# cache and its graph's memory), the least recently used dropped first.
+_STEPS_PER_MODEL = 4
+_STEPS_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _held(steps: dict, key, build: Callable[[], Any]) -> Iterator[Any]:
+    """The step of `key`, held by one caller at a time: taken out of
+    `steps` for the length of the `with` (built anew by `build` when it is
+    not there: never built, or held by another call), then put back as the
+    most recently used, also when the caller is a generator that is closed
+    or dropped. A step whose caller raised is dropped: its buffers may be
+    half written, its graph half captured."""
+    with _STEPS_LOCK:
+        step = steps.pop(key, None)
+    if step is None:
+        step = build()
+    done = False
+    try:
+        yield step
+        done = True
+    except GeneratorExit:
+        done = True
+        raise
+    finally:
+        if done:
+            with _STEPS_LOCK:
+                steps.pop(key, None)
+                while len(steps) >= _STEPS_PER_MODEL:
+                    steps.pop(next(iter(steps)))
+                steps[key] = step
+
+
+@contextlib.contextmanager
+def _frame_step(model: CSM, b: int, capacity: int, sampler,
+                processors: Tuple, generator, flash_decode_min_b=None,
+                codec=None, eager: bool = False) -> Iterator[FrameStep]:
+    """The frame step of a configuration, the caller's alone for the length
+    of the `with`. On the card, the one captured before for the same (B,
+    capacity, sampler, processors, generator, codec, parameter buffers) if
+    no other call holds it, else a new one; it is kept on the model
+    (`CSM.frame_steps`) for the next call. Eager or on the CPU, a new one,
+    dropped after."""
+    def build() -> FrameStep:
+        return FrameStep(model, b, capacity, sampler, processors, generator,
+                         flash_decode_min_b, codec, eager=eager)
+
+    if eager or model.device.type != "cuda":
+        yield build()
+        return
+    key = (b, capacity, sampler, processors, flash_decode_min_b,
+           None if generator is None else id(generator),
+           None if codec is None else id(codec),
+           tuple(t.data_ptr() for t in _tensors(model.params)))
+    with _held(model.frame_steps, key, build) as step:
+        yield step
+
+
 @torch.no_grad()
 def _generate_padded(model: CSM, tokens: np.ndarray, mask: np.ndarray,
                      pad_len: np.ndarray, bucket: int, max_frames: int,
                      sampler, processors: Tuple,
                      generator: Optional[torch.Generator],
-                     flash_decode_min_b: Optional[int] = None
+                     flash_decode_min_b: Optional[int] = None,
+                     _eager_step: bool = False
                      ) -> Tuple[np.ndarray, np.ndarray]:
     """The frame loop over a left-padded batch; returns (frames
     (max_frames, B, 32) int32, n_frames (B,) int32). A row stops counting
     frames at its first all-zero frame; the loop ends when every row has
-    stopped or after max_frames. Backbone steps of B >= `flash_decode_min_b`
-    rows run their attention through kernel 4 (None: never)."""
+    stopped or after max_frames. The prefill and the first frame run
+    eagerly, every later frame through the `FrameStep` (a replayed CUDA
+    graph on the card; `_eager_step` runs it eagerly, for comparing the
+    two). Backbone steps of B >= `flash_decode_min_b` rows run their
+    attention through kernel 4 (None: never)."""
     args = model.args
     device = model.device
-    bcfg, dcfg = args.backbone_config, args.decoder_config
     b = tokens.shape[0]
-    capacity = bucket + max_frames
-    cos_b, sin_b = rope_cache_for(
-        bcfg, max(capacity, bcfg.max_position_embeddings), device)
-    cos_d, sin_d = rope_cache_for(dcfg, args.n_audio_codebooks + 1, device)
-    t = torch.from_numpy(tokens).long().to(device)
-    m = torch.from_numpy(mask).long().to(device)
-    pad = torch.from_numpy(pad_len).long().to(device)
-
-    cache = KVCache.init(bcfg, b, capacity, dtype=model.dtype, device=device)
-    last_hidden, cache = _prefill(model.params, args, t, m, pad, cache,
-                                  cos_b, sin_b)
-    history = torch.full((b, HISTORY_SIZE), -1, dtype=torch.long,
-                         device=device)
     frames = torch.zeros((max_frames, b, args.n_audio_codebooks),
                          dtype=torch.long, device=device)
     n_frames = torch.zeros((b,), dtype=torch.long, device=device)
     done = torch.zeros((b,), dtype=torch.bool, device=device)
-    for i in range(max_frames):
-        frame, history = _decode_frame(model.params, args, last_hidden,
-                                       generator, history, sampler,
-                                       processors, cos_d, sin_d)
-        done = done | (frame == 0).all(dim=1)
-        frames[i] = frame
-        n_frames = torch.where(done, n_frames, i + 1)
-        if bool(done.all()) or i + 1 == max_frames:
-            break
-        nxt_tokens, nxt_mask = _frame_to_next_input(frame)
-        last_hidden, cache = _backbone_step(model.params, args, nxt_tokens,
-                                            nxt_mask, pad, cache, cos_b,
-                                            sin_b, flash_decode_min_b)
+    with _frame_step(model, b, bucket + max_frames, sampler, processors,
+                     generator, flash_decode_min_b,
+                     eager=_eager_step) as step:
+        step.first(step.prefill(tokens, mask, pad_len))
+        for i in range(max_frames):
+            done = done | (step.frame == 0).all(dim=1)
+            frames[i] = step.frame
+            n_frames = torch.where(done, n_frames, i + 1)
+            if bool(done.all()) or i + 1 == max_frames:
+                break
+            step()
     return (frames.to(torch.int32).cpu().numpy(),
             n_frames.to(torch.int32).cpu().numpy())
 
@@ -296,6 +532,7 @@ def generate_tokens(
     logits_processors: Optional[Sequence] = None,
     generator: Optional[torch.Generator] = None,
     flash_decode_min_b: Optional[int] = None,
+    _eager_step: bool = False,
 ) -> Tuple[np.ndarray, int]:
     """One (S, 33) prompt -> (frames (F, 32) int32, F). `flash_decode_min_b`
     as in `generate_tokens_batch`: one row takes kernel 4 only at 1."""
@@ -304,7 +541,8 @@ def generate_tokens(
     frames, n = _generate_padded(
         model, tokens, mask, pad_len, bucket, max_audio_frames,
         _resolve_sampler(temperature, sampler),
-        tuple(logits_processors or ()), generator, flash_decode_min_b)
+        tuple(logits_processors or ()), generator, flash_decode_min_b,
+        _eager_step)
     n = int(n[0])
     return frames[:n, 0, :], n
 
@@ -320,6 +558,7 @@ def generate_tokens_batch(
     logits_processors: Optional[Sequence] = None,
     generator: Optional[torch.Generator] = None,
     flash_decode_min_b: Optional[int] = None,
+    _eager_step: bool = False,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Prompts left-padded to a common bucket; each row stops at its own
     all-zero frame. Returns (frames (max_frames, B, 32), n_frames (B,)).
@@ -345,7 +584,8 @@ def generate_tokens_batch(
     return _generate_padded(
         model, tokens, mask, pad_len, bucket, max_audio_frames,
         _resolve_sampler(temperature, sampler),
-        tuple(logits_processors or ()), generator, flash_decode_min_b)
+        tuple(logits_processors or ()), generator, flash_decode_min_b,
+        _eager_step)
 
 
 def generate(
@@ -374,7 +614,7 @@ def generate(
     if len(context):
         raise NotImplementedError(
             "generate with context segments needs the Mimi encoder, not "
-            "ported yet (ROADMAP queue 1, item 5)")
+            "ported yet (ROADMAP queue 1, item 3)")
     max_frames = int(max_audio_length_ms / FRAME_MS)
     prompt, mask = tokenize_text_segment(text, speaker,
                                          model.n_audio_codebooks)
@@ -389,3 +629,138 @@ def generate(
                                    device=model.device)
     codes = torch.from_numpy(frames.T[None].copy()).long()  # (1, K, F)
     return mimi.decode(codes)[0, 0]
+
+
+class FrameState(tuple):
+    """(frame, cache, generator, history) returned by stateful
+    `generate_frame`."""
+
+    __slots__ = ()
+
+    frame = property(lambda self: self[0])
+    cache = property(lambda self: self[1])
+    generator = property(lambda self: self[2])
+    history = property(lambda self: self[3])
+
+
+@torch.no_grad()
+def generate_frame(
+    model: CSM,
+    tokens,
+    *,
+    temperature: float = 0.8,
+    token_mask=None,
+    sampler: Optional[Any] = None,
+    logits_processors: Optional[Sequence] = None,
+    cache: Optional[KVCache] = None,
+    pad_len=None,
+    generator: Optional[torch.Generator] = None,
+    history: Optional[torch.Tensor] = None,
+    return_state: bool = False,
+):
+    """One 32-codebook frame from (B, S, 33) tokens: a prefill when S > 1,
+    else a backbone step, then the frame (eagerly, one call a frame).
+
+    As in the JAX package, a frame loop passes `return_state=True` and
+    threads the returned `FrameState` (frame, cache, generator, history)
+    into the next call; passing cache / generator / history without
+    `return_state=True` raises. The port's cache is advanced in place, the
+    generator draws in place. A new cache holds max(max_position_embeddings
+    or 2048, S) positions."""
+    if (cache is not None or generator is not None or history is not None) \
+            and not return_state:
+        raise ValueError(
+            "generate_frame received cache/generator/history but "
+            "return_state is False; the advanced state would be silently "
+            "discarded. Pass return_state=True and thread the returned "
+            "(frame, cache, generator, history) into the next call.")
+    args, device = model.args, model.device
+    bcfg = args.backbone_config
+    smp = _resolve_sampler(temperature, sampler)
+    tokens = torch.as_tensor(tokens, device=device).long()
+    b, s = tokens.shape[0], tokens.shape[1]
+    token_mask = torch.ones_like(tokens) if token_mask is None else \
+        torch.as_tensor(token_mask, device=device).long()
+    if history is None:
+        history = torch.full((b, HISTORY_SIZE), -1, dtype=torch.long,
+                             device=device)
+    if cache is None:
+        capacity = max(bcfg.max_position_embeddings or 2048, s)
+        cache = KVCache.init(bcfg, b, capacity, dtype=model.dtype,
+                             device=device)
+    pad_len = torch.zeros((b,), dtype=torch.long, device=device) \
+        if pad_len is None else torch.as_tensor(pad_len, device=device).long()
+    cos_b, sin_b = rope_cache_for(bcfg, cache.capacity + 1, device)
+    cos_d, sin_d = rope_cache_for(args.decoder_config,
+                                  args.n_audio_codebooks + 1, device)
+    if s > 1:
+        last_hidden, cache = _prefill(model.params, args, tokens, token_mask,
+                                      pad_len, cache, cos_b, sin_b)
+    else:
+        last_hidden, cache = _backbone_step(model.params, args, tokens,
+                                            token_mask, pad_len, cache,
+                                            cos_b, sin_b)
+    frame, history = _decode_frame(model.params, args, last_hidden,
+                                   generator, history, smp,
+                                   tuple(logits_processors or ()), cos_d,
+                                   sin_d)
+    if return_state:
+        return FrameState((frame, cache, generator, history))
+    return frame
+
+
+@torch.no_grad()
+def stream_generate(
+    model: CSM,
+    text: str,
+    speaker: int,
+    context: Sequence = (),
+    max_audio_length_ms: float = 90_000,
+    *,
+    temperature: float = 0.8,
+    sampler: Optional[Any] = None,
+    logits_processors: Optional[Sequence] = None,
+    generator: Optional[torch.Generator] = None,
+    mimi=None,
+    _eager_step: bool = False,
+) -> Iterator[torch.Tensor]:
+    """Yield one 1,920-sample (80 ms at 24 kHz) chunk per generated frame,
+    in JAX's argument order, `generator` in place of `key`.
+
+    The prefill, the first frame and its Mimi decode step run eagerly; each
+    later frame, with its decode step, is one `FrameStep` (a replayed CUDA
+    graph on the card). The host reads each frame for EOS (an all-zero
+    frame ends the stream, its chunk unsent) and copies the frame's chunk
+    out before it launches the next frame, so the card makes frame i+1
+    while the caller takes chunk i, a float tensor on the CPU. `mimi` is
+    the codec, by default the `get_audio_tokenizer` singleton on the
+    model's device. Context audio needs the Mimi encoder, not ported yet:
+    a non-empty `context` raises."""
+    from csm_mlx_tpu_torch.tokenizers import (get_audio_tokenizer,
+                                              tokenize_text_segment)
+
+    if len(context):
+        raise NotImplementedError(
+            "stream_generate with context segments needs the Mimi encoder, "
+            "not ported yet (ROADMAP queue 1, item 3)")
+    args = model.args
+    max_frames = int(max_audio_length_ms / FRAME_MS)
+    prompt, mask = tokenize_text_segment(text, speaker,
+                                         model.n_audio_codebooks)
+    _check_context_window(args, prompt.shape[0], max_frames)
+    tokens, mask, pad_len, bucket = _pad_prompt(prompt, mask)
+    codec = mimi if mimi is not None else get_audio_tokenizer(
+        model.n_audio_codebooks, device=model.device)
+    with _frame_step(model, 1, bucket + max_frames,
+                     _resolve_sampler(temperature, sampler),
+                     tuple(logits_processors or ()), generator, codec=codec,
+                     eager=_eager_step) as step:
+        step.first(step.prefill(tokens, mask, pad_len))
+        for i in range(max_frames):
+            if not bool(step.frame.any()):
+                break  # EOS; this frame's chunk is not sent
+            # a copy, also on the CPU: the next frame overwrites the buffer
+            chunk = step.chunk[0].to("cpu", copy=True)
+            if i + 1 < max_frames:
+                step()
+            yield chunk

@@ -125,7 +125,11 @@ def masked_input_embeds(params: Params, args: ModelArgs, tokens: torch.Tensor,
 class CSM:
     """Model object: `args`, `params` (nested dict of tensors), `dtype`,
     `device`. The device is `device` if given, else that of `params`, else
-    `cuda` (a RuntimeError without a GPU: pass `device="cpu"`)."""
+    `cuda` (a RuntimeError without a GPU: pass `device="cpu"`).
+    `frame_steps` holds the model's captured frame steps by configuration
+    (`generation.FrameStep`, on the card), at most 4, each with its
+    backbone KV cache and its CUDA graph's memory pool;
+    `frame_steps.clear()` releases them."""
 
     def __init__(
         self,
@@ -145,6 +149,7 @@ class CSM:
                 generator.manual_seed(0)
             params = init_csm_params(generator, args, dtype, self.device)
         self.params = params
+        self.frame_steps: dict = {}
 
     def load_weights(self, path: str, strict: bool = True) -> "CSM":
         """Load a safetensors checkpoint (reference names) in the model's

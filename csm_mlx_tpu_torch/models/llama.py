@@ -143,7 +143,8 @@ def _attn_layer(
           and s == 1 and cache is not None and b >= flash_decode_min_b):
         # Kernel 4: one query position over the whole cache, keys valid at
         # pad <= pos <= cache.index (the slot just written; the cache
-        # advances after the last layer), the mask computed in the kernel.
+        # advances after the last layer), the mask computed in the kernel,
+        # which reads the index tensor from device memory.
         out = flash_decode_sdpa(q, k, v, hd ** -0.5, decode_pad_len,
                                 cache.index)
     else:
@@ -189,7 +190,7 @@ def llama_forward(
 
     Returns (hidden (B, S, D), cache).
     """
-    if flash_pad_len is not None and (cache is None or cache.index != 0):
+    if flash_pad_len is not None and (cache is None or cache.length != 0):
         raise ValueError("flash_pad_len needs a fresh KV cache (prefill)")
     if flash_train and (cache is not None or mask_bias is not None):
         raise ValueError(

@@ -1,22 +1,28 @@
-"""SEANet decoder, batch mode (port of `csm_mlx_tpu/models/mimi/seanet.py`).
+"""SEANet decoder (port of `csm_mlx_tpu/models/mimi/seanet.py`).
 
 Init conv (k=7), then per ratio a causal transposed upsample and residual
 blocks, ELU activations, final conv (k=3); all convs causal. Parameters:
 {"init": conv, "stages": [{"up", "residual": [{"conv1", "conv2"}]}],
-"final": conv}. The encoder and the streaming decoder are not ported yet.
+"final": conv}. `seanet_decode` runs a whole sequence;
+`seanet_decode_streaming` a chunk, over the list of conv states that
+`seanet_decoder_init_state` makes (updated in place). The encoder is not
+ported yet.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from csm_mlx_tpu_torch.device import resolve_device
 from csm_mlx_tpu_torch.models.mimi.config import MimiConfig
-from csm_mlx_tpu_torch.models.mimi.conv import causal_conv_transpose1d, conv1d
+from csm_mlx_tpu_torch.models.mimi.conv import (
+    causal_conv1d_streaming, causal_conv_transpose1d,
+    causal_conv_transpose1d_streaming, conv1d, make_conv_state,
+    make_convtr_state)
 
 Params = Dict[str, Any]
 
@@ -55,6 +61,56 @@ def seanet_decode(params: Params, cfg: MimiConfig,
             r = _causal_conv_batch(block["conv2"], F.elu(r), 1)
             h = h + r
     return _causal_conv_batch(params["final"], F.elu(h), 1)
+
+
+def seanet_decoder_init_state(params: Params, cfg: MimiConfig, batch: int,
+                              dtype=torch.float32,
+                              device: torch.device | str | None = None
+                              ) -> List[Any]:
+    """Zero states, in the order `seanet_decode_streaming` takes them (on
+    the params' device unless `device` says otherwise)."""
+    device = resolve_device(device, params)
+    states: List[Any] = []
+
+    def conv_state(p, dilation=1):
+        _, c_in, k = p["weight"].shape
+        states.append(make_conv_state(c_in, k, 1, dilation, batch, dtype,
+                                      device))
+
+    def convtr_state(p, stride):
+        _, c_out, k = p["weight"].shape
+        states.append(make_convtr_state(c_out, k, stride, batch, dtype,
+                                        device))
+
+    conv_state(params["init"])
+    for stage, ratio in zip(params["stages"], cfg.upsampling_ratios):
+        convtr_state(stage["up"], ratio)
+        for j, block in enumerate(stage["residual"]):
+            conv_state(block["conv1"], dilation=_dilation(cfg, j))
+            conv_state(block["conv2"])
+    conv_state(params["final"])
+    return states
+
+
+def seanet_decode_streaming(params: Params, cfg: MimiConfig, x: torch.Tensor,
+                            states: List[Any]
+                            ) -> Tuple[torch.Tensor, List[Any]]:
+    """A chunk x (B, hidden, F25) -> (B, 1, F25 * prod(ratios)); `states`
+    updated in place and returned."""
+    it = iter(states)
+
+    def conv(p, h, dilation=1):
+        return causal_conv1d_streaming(p, h, next(it), dilation=dilation)[0]
+
+    h = conv(params["init"], x)
+    for stage, ratio in zip(params["stages"], cfg.upsampling_ratios):
+        h = causal_conv_transpose1d_streaming(stage["up"], F.elu(h), next(it),
+                                              stride=ratio)[0]
+        for j, block in enumerate(stage["residual"]):
+            r = conv(block["conv1"], F.elu(h), dilation=_dilation(cfg, j))
+            r = conv(block["conv2"], F.elu(r))
+            h = h + r
+    return conv(params["final"], F.elu(h)), states
 
 
 def init_seanet_decoder_params(generator: torch.Generator, cfg: MimiConfig,

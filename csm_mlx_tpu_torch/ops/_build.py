@@ -49,10 +49,10 @@ _SIGNATURES = {
     + (ctypes.c_float, _I, _VP),
     # layer pointers, n_layers, norm, rope_cs, head_q, head_s, embed,
     # proj01, x, q, ao, act, xq, aux, kc, vc, part, tokens, logits, rows,
-    # heads, n_kv, hd, d, f, n_cb, v, v_pad, eps, scale, inv_t, seed, grid,
-    # stamps, stamp_cap, stream
+    # heads, n_kv, hd, d, f, n_cb, v, v_pad, eps, scale, inv_t, seed (an
+    # int32 in device memory), grid, stamps, stamp_cap, stream
     "csm_resident_frame": (ctypes.POINTER(_VP), _I) + (_VP,) * 17
-    + (_I,) * 9 + (_F,) * 3 + (ctypes.c_uint, _I, _VP, _I, _VP),
+    + (_I,) * 9 + (_F,) * 3 + (_VP, _I, _VP, _I, _VP),
     # q, k, v, out, lse, 9 strides, batch, n_heads, n_kv, seq, head_dim,
     # scale, dtype, stream
     "csm_flash_train_fwd": (_VP,) * 5 + (_LL,) * 9 + (_I,) * 5
@@ -67,9 +67,10 @@ _SIGNATURES = {
     # kernel 5's bf16 route edge: rows up to it on the CUDA cores
     "csm_affine_core_rows": (),
     # q, k, v, pad_len, out, scratch, 8 strides, batch, n_heads, n_kv, cap,
-    # index, splits, chunk, head_dim, scale, dtype, stream
-    "csm_flash_decode": (_VP,) * 6 + (_LL,) * 8 + (_I,) * 8
-    + (_F, _I, _VP),
+    # index (an int32 in device memory), splits, chunk, head_dim, scale,
+    # dtype, stream
+    "csm_flash_decode": (_VP,) * 6 + (_LL,) * 8 + (_I,) * 4 + (_VP,)
+    + (_I,) * 3 + (_F, _I, _VP),
 }
 
 

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from csm_mlx_tpu_torch.ops import launches
+
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 # Kernel 4's split of the cache (flash-decoding), for the H100's 132 SMs:
@@ -161,7 +163,7 @@ def flash_prefill_sdpa(
     return out
 
 
-flash_prefill_sdpa.launches = 0
+launches.register(flash_prefill_sdpa)
 
 
 def decode_splits(batch: int, n_kv: int, cap: int) -> tuple[int, int]:
@@ -176,14 +178,24 @@ def decode_splits(batch: int, n_kv: int, cap: int) -> tuple[int, int]:
     return -(-cap // chunk), chunk
 
 
+def _check_index(index, device) -> None:
+    if not isinstance(index, torch.Tensor) or index.dim() > 1 \
+            or index.numel() != 1 or index.dtype != torch.int32 \
+            or index.device != device:
+        raise ValueError(f"flash_decode_sdpa: index must be a () or (1,) "
+                         f"int32 tensor on {device}")
+
+
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        scale: float, pad_len: torch.Tensor,
-                       index: int) -> torch.Tensor:
+                       index: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of kernel 4: the masked `sdpa` with the decode
-    step's key mask pad_len[b] <= pos <= index."""
+    step's key mask pad_len[b] <= pos <= index (a () or (1,) int32 tensor
+    on q's device, as the kernel takes)."""
+    _check_index(index, q.device)
     pos = torch.arange(k.shape[2], device=q.device)[None, :]
     pad = pad_len.reshape(-1, 1).to(q.device)
-    valid = (pos >= pad) & (pos <= index)
+    valid = (pos >= pad) & (pos <= index.reshape(()))
     return sdpa(q, k, v, scale, key_validity_bias(valid)[:, None])
 
 
@@ -193,14 +205,16 @@ def flash_decode_sdpa(
     v: torch.Tensor,
     scale: float,
     pad_len: torch.Tensor,
-    index: int,
+    index: torch.Tensor,
 ) -> torch.Tensor:
     """Decode-step attention of one query position over the whole cache.
 
     q: (B, H, 1, D); k, v: (B, n_kv, cap, D), the cache's layer buffers
     after this step's write — read through their strides (no copy);
-    pad_len: (B,) left pads; index: the cache's pre-advance write slot.
-    Key j is valid iff pad_len[b] <= j <= index. On CUDA: D == 64,
+    pad_len: (B,) left pads; index: the cache's pre-advance write slot,
+    its () int32 index tensor (`KVCache.index`, or a (1,) one) on q's
+    device, which the kernel reads from device memory, so that a launch
+    captured in a CUDA graph follows the cache at every replay. Key j is valid iff pad_len[b] <= j <= index. On CUDA: D == 64,
     H / n_kv in {1, 2, 4, 8}, fp32 or bf16, rows 16-byte aligned. Returns
     (B, H, 1, D) in q.dtype, contiguous.
     """
@@ -221,9 +235,7 @@ def flash_decode_sdpa(
     if k.shape != (b, n_kv, cap, d) or v.shape != k.shape:
         raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} does "
                          f"not match q {tuple(q.shape)}")
-    if not 0 <= int(index) < cap:
-        raise ValueError(f"flash_decode_sdpa: index {index} outside the "
-                         f"cache's {cap} slots")
+    _check_index(index, q.device)
     if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError(f"flash_decode_sdpa: dtypes {q.dtype}/{k.dtype}/"
@@ -242,11 +254,11 @@ def flash_decode_sdpa(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
         out.data_ptr(), scratch.data_ptr(),
         *_strides(q)[:2], *_strides(k), *_strides(v), b, n_heads, n_kv, cap,
-        int(index), splits, chunk, d, float(scale),
+        index.data_ptr(), splits, chunk, d, float(scale),
         _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q.device))
     _build.check(code, "csm_flash_decode")
     flash_decode_sdpa.launches += 1
     return out
 
 
-flash_decode_sdpa.launches = 0
+launches.register(flash_decode_sdpa)

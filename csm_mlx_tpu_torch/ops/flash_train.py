@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from csm_mlx_tpu_torch.ops import launches
 from csm_mlx_tpu_torch.ops.attention import NEG_INF
 
 
@@ -183,8 +184,8 @@ def flash_train_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-flash_train_fwd.launches = 0
-flash_train_bwd.launches = 0
+launches.register(flash_train_fwd)
+launches.register(flash_train_bwd)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -40,6 +40,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from csm_mlx_tpu_torch.ops import launches
+
 DEFAULT_BITS = 4
 DEFAULT_GROUP_SIZE = 64
 # quant_linear's affine split, as in JAX: the kernel up to this many rows
@@ -192,7 +194,7 @@ def affine_matvec(x: torch.Tensor, weight_q: torch.Tensor,
     return out
 
 
-affine_matvec.launches = 0
+launches.register(affine_matvec)
 
 
 # --- W8A8 --------------------------------------------------------------------
@@ -286,9 +288,9 @@ def w8a8_matvec(x: torch.Tensor, weight_q: torch.Tensor,
     return out
 
 
-w8a8_matvec.launches = 0
+launches.register(w8a8_matvec)
 # the launches above that took the tensor-core GEMM (rows > 64)
-w8a8_matvec.gemm_launches = 0
+launches.register(w8a8_matvec, "gemm_launches", "w8a8_matvec.gemm")
 
 
 def audio_head_logits(head: torch.Tensor, i: int,

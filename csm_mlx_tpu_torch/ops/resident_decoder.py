@@ -48,6 +48,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from csm_mlx_tpu_torch.ops import launches
 from csm_mlx_tpu_torch.ops.quant import _int_dot
 from csm_mlx_tpu_torch.ops.rope import rope_cache
 from csm_mlx_tpu_torch.ops.sampling import SamplerConfig
@@ -415,13 +416,21 @@ def _check_tables(res: Dict[str, Any], args, device: torch.device) -> None:
 
 
 def resident_decode_frame(res: Dict[str, Any], args, proj01: torch.Tensor,
-                          seed: int, temperature: float,
+                          seed: torch.Tensor, temperature: float,
                           return_logits: bool = False):
     """Kernel 3: one decoder frame for B <= 64 rows. proj01 (2, B, d);
-    `seed` feeds the kernel's counter-based generator at T > 0 (on the CPU,
-    a `torch.Generator` seeded with it). Returns tokens (n_cb, B) int32,
-    row 0 zeros; with `return_logits`, (tokens, logits (n_cb-1, B, v) f32
-    before any Gumbel noise), for checking the kernel."""
+    `seed` feeds the kernel's counter-based generator at T > 0: a () or
+    (1,) int32 tensor on proj01's device, which the kernel reads from
+    device memory (so a launch captured in a CUDA graph takes the seed its
+    step drew). On the CPU a `torch.Generator` is seeded with its value.
+    Returns tokens (n_cb, B) int32, row 0 zeros; with `return_logits`,
+    (tokens, logits (n_cb-1, B, v) f32 before any Gumbel noise), for
+    checking the kernel."""
+    if not isinstance(seed, torch.Tensor) or seed.dim() > 1 \
+            or seed.numel() != 1 or seed.dtype != torch.int32 \
+            or seed.device != proj01.device:
+        raise ValueError(f"resident_decode_frame: seed must be a () or (1,) "
+                         f"int32 tensor on {proj01.device}")
     if proj01.device.type == "cpu":
         gen = None
         if temperature > 0.0:
@@ -492,7 +501,7 @@ def resident_decode_frame(res: Dict[str, Any], args, proj01: torch.Tensor,
         None if logits is None else logits.data_ptr(), b,
         dcfg.num_attention_heads, dcfg.num_key_value_heads, dcfg.head_dim,
         d, f, n_cb, v, v_pad, dcfg.rms_norm_eps, dcfg.head_dim ** -0.5,
-        inv_t, int(seed) & 0xFFFFFFFF, grid,
+        inv_t, seed.data_ptr(), grid,
         None if stamps is None else stamps.data_ptr(),
         0 if stamps is None else stamps.shape[0], _build.stream_ptr(dev))
     _build.check(code, "csm_resident_frame")
@@ -500,7 +509,7 @@ def resident_decode_frame(res: Dict[str, Any], args, proj01: torch.Tensor,
     return (tokens, logits) if return_logits else tokens
 
 
-resident_decode_frame.launches = 0
+launches.register(resident_decode_frame)
 # A (n, 4) int64 CUDA tensor, or None. When set, each launch fills one
 # record per phase: [start ns (release of the previous barrier, block 0),
 # end of block 0's prologue ns (0 where a phase has none), latest arrival

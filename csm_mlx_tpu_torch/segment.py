@@ -1,7 +1,7 @@
 """Conversation segment (port of `csm_mlx_tpu/segment.py`).
 
 One turn: (speaker, text, audio | audio_path). Reading an audio file waits
-on the port of the audio tokenization (ROADMAP queue 1, item 5): a
+on the port of the audio tokenization (ROADMAP queue 1, item 3): a
 segment given only a path raises when its audio is asked for.
 """
 
@@ -32,7 +32,7 @@ class Segment:
             return self._audio
         raise NotImplementedError(
             f"reading {self.audio_path} is not ported yet (ROADMAP queue 1, "
-            f"item 5: audio tokenization)")
+            f"item 3: audio tokenization)")
 
     @audio.setter
     def audio(self, value):

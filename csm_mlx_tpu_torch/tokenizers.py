@@ -94,7 +94,7 @@ def get_audio_tokenizer(n_audio_codebooks: int = 32,
     package does when none resolve. A given path (`weights`, else
     `CSM_TPU_MIMI_WEIGHTS`) that does not exist raises FileNotFoundError;
     one that exists raises NotImplementedError until the checkpoint loader
-    is ported (ROADMAP queue 1, item 5)."""
+    is ported (ROADMAP queue 1, item 3)."""
     from csm_mlx_tpu_torch.device import resolve_device
     from csm_mlx_tpu_torch.models.mimi import Mimi, mimi_202407
 
@@ -107,7 +107,7 @@ def get_audio_tokenizer(n_audio_codebooks: int = 32,
                 f"random-init codec")
         raise NotImplementedError(
             f"loading Mimi weights ({path!r}) is not ported yet (ROADMAP "
-            f"queue 1, item 5: load_mimi_checkpoint)")
+            f"queue 1, item 3: load_mimi_checkpoint)")
     key = (n_audio_codebooks, str(resolve_device(device)))
     if key not in _MIMI_CACHE:
         _MIMI_CACHE[key] = Mimi(mimi_202407(n_audio_codebooks),

@@ -137,6 +137,12 @@ RESIDENT_CONFIGS = {
 }
 
 
+def i32(value, device):
+    """A () int32 tensor on `device`: the per-step scalar kernels 3 and 4
+    read from device memory."""
+    return torch.tensor(value, dtype=torch.int32, device=device)
+
+
 def resident_model(name, device):
     """A random W8A8 CSM on `device` whose decoder is RESIDENT_CONFIGS[name]
     (a one-layer backbone); `quantize_model` on CUDA prepares kernel 3's
@@ -186,11 +192,11 @@ def test_resident_kernel_matches_plain(cuda_device, name, rows):
     proj01 = torch.randn((2, rows, d), generator=gen, device=cuda_device)
     before = resident.resident_decode_frame.launches
     toks, logits = resident.resident_decode_frame(
-        model.params["_resident"], model.args, proj01, 0, 0.0,
-        return_logits=True)
+        model.params["_resident"], model.args, proj01, i32(0, cuda_device),
+        0.0, return_logits=True)
     again, logits_again = resident.resident_decode_frame(
-        model.params["_resident"], model.args, proj01, 0, 0.0,
-        return_logits=True)
+        model.params["_resident"], model.args, proj01, i32(0, cuda_device),
+        0.0, return_logits=True)
     torch.cuda.synchronize()
     assert resident.resident_decode_frame.launches == before + 2
     assert toks.shape == (model.args.n_audio_codebooks, rows)
@@ -225,9 +231,9 @@ def test_resident_kernel_samples_at_temperature(cuda_device):
         res, model.params["audio_head"] * (2.5 / logits[0].std().item()),
         res["audio_head_q"].shape[1])
     proj01 = row.expand(2, 64, -1).contiguous()
-    picks = torch.cat([resident.resident_decode_frame(res, args, proj01,
-                                                      seed, 0.8)[1]
-                       for seed in range(16)]).cpu().numpy()
+    picks = torch.cat([resident.resident_decode_frame(
+        res, args, proj01, i32(seed, cuda_device), 0.8)[1]
+        for seed in range(16)]).cpu().numpy()
     _, logits = resident.resident_decode_frame_plain(res, args, row, 0.0)
     probs = torch.softmax(logits[0, 0] / 0.8, -1).double().cpu().numpy()
     expected = probs * len(picks)
@@ -249,11 +255,12 @@ def test_resident_kernel_phase_records(cuda_device, rows):
     gen = torch.Generator(device=cuda_device).manual_seed(11)
     proj01 = torch.randn((2, rows, args.decoder_config.hidden_size),
                          generator=gen, device=cuda_device)
-    want = resident.resident_decode_frame(res, args, proj01, 0, 0.0)
+    zero = i32(0, cuda_device)
+    want = resident.resident_decode_frame(res, args, proj01, zero, 0.0)
     stamps = torch.zeros((4096, 4), dtype=torch.int64, device=cuda_device)
     resident.resident_decode_frame.stamps = stamps
     try:
-        got = resident.resident_decode_frame(res, args, proj01, 0, 0.0)
+        got = resident.resident_decode_frame(res, args, proj01, zero, 0.0)
     finally:
         resident.resident_decode_frame.stamps = None
     torch.cuda.synchronize()
@@ -271,17 +278,26 @@ def test_resident_kernel_rejects_what_it_does_not_take(cuda_device):
     model = resident_model("tiny", cuda_device)
     res, args = model.params["_resident"], model.args
     d = args.decoder_config.hidden_size
+    zero = i32(0, cuda_device)
+    # the seed is a device tensor, never a Python int nor a host tensor
+    for seed in (0, torch.tensor(0, dtype=torch.int32), zero.long()):
+        with pytest.raises(ValueError, match="seed"):
+            resident.resident_decode_frame(
+                res, args, torch.zeros((2, 1, d), device=cuda_device), seed,
+                0.0)
     with pytest.raises(ValueError, match="rows"):
         resident.resident_decode_frame(
-            res, args, torch.zeros((2, 65, d), device=cuda_device), 0, 0.0)
+            res, args, torch.zeros((2, 65, d), device=cuda_device), zero,
+            0.0)
     with pytest.raises(ValueError, match="float32"):
         resident.resident_decode_frame(
             res, args, torch.zeros((2, 1, d), device=cuda_device,
-                                   dtype=torch.bfloat16), 0, 0.0)
+                                   dtype=torch.bfloat16), zero, 0.0)
     cpu_res = dict(res, norm=res["norm"].cpu())
     with pytest.raises(ValueError, match="norm"):
         resident.resident_decode_frame(
-            cpu_res, args, torch.zeros((2, 1, d), device=cuda_device), 0, 0.0)
+            cpu_res, args, torch.zeros((2, 1, d), device=cuda_device), zero,
+            0.0)
     # code tables that break the layout the kernel reads: off a 16-byte
     # boundary (its bulk copies), or not contiguous
     t = res["layers"][1][6]
@@ -294,8 +310,8 @@ def test_resident_kernel_rejects_what_it_does_not_take(cuda_device):
         broken["layers"][1][6] = table
         with pytest.raises(ValueError, match=what):
             resident.resident_decode_frame(
-                broken, args, torch.zeros((2, 1, d), device=cuda_device), 0,
-                0.0)
+                broken, args, torch.zeros((2, 1, d), device=cuda_device),
+                zero, 0.0)
 
 
 # --- kernels 6 and 7: causal flash attention for training ------------------
@@ -599,9 +615,10 @@ def test_flash_decode_kernel_matches_plain(cuda_device, dtype, b, h, n_kv,
         pads[0] = index - 20
     pad = torch.from_numpy(pads).to(cuda_device)
     before = attention.flash_decode_sdpa.launches
-    got = attention.flash_decode_sdpa(q, kc[1], vc[1], 0.125, pad, index)
-    again = attention.flash_decode_sdpa(q, kc[1], vc[1], 0.125, pad, index)
-    want = attention.flash_decode_plain(q, kc[1], vc[1], 0.125, pad, index)
+    idx = i32(index, cuda_device)
+    got = attention.flash_decode_sdpa(q, kc[1], vc[1], 0.125, pad, idx)
+    again = attention.flash_decode_sdpa(q, kc[1], vc[1], 0.125, pad, idx)
+    want = attention.flash_decode_plain(q, kc[1], vc[1], 0.125, pad, idx)
     torch.cuda.synchronize()
     assert attention.flash_decode_sdpa.launches == before + 2
     assert got.shape == (b, h, 1, 64) and torch.isfinite(got).all()
@@ -620,12 +637,205 @@ def test_flash_decode_kernel_rejects_what_it_does_not_take(cuda_device):
     q = torch.zeros((2, 8, 1, 32), device=cuda_device)
     k = torch.zeros((2, 2, 40, 32), device=cuda_device)
     pad = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    three = i32(3, cuda_device)
     with pytest.raises(ValueError, match="D=64"):
-        attention.flash_decode_sdpa(q, k, k, 1.0, pad, 3)
+        attention.flash_decode_sdpa(q, k, k, 1.0, pad, three)
     q = torch.zeros((2, 6, 1, 64), device=cuda_device)
     k = torch.zeros((2, 2, 40, 64), device=cuda_device)
     with pytest.raises(ValueError, match="H/n_kv"):
-        attention.flash_decode_sdpa(q, k, k, 1.0, pad, 3)
+        attention.flash_decode_sdpa(q, k, k, 1.0, pad, three)
     q = torch.zeros((2, 8, 1, 64), device=cuda_device)
-    with pytest.raises(ValueError, match="index"):
-        attention.flash_decode_sdpa(q, k, k, 1.0, pad, 40)
+    # the index is a device tensor, never a Python int nor a host tensor
+    for index in (3, torch.tensor(3, dtype=torch.int32),
+                  i32([3, 4], cuda_device), three.long()):
+        with pytest.raises(ValueError, match="index"):
+            attention.flash_decode_sdpa(q, k, k, 1.0, pad, index)
+
+
+# --- the captured frame step (CUDA graphs) ----------------------------------
+
+
+def _prompt(args, s, seed):
+    rng = np.random.RandomState(seed)
+    prompt = np.zeros((s, args.n_audio_codebooks + 1), dtype=np.int32)
+    prompt[:, -1] = rng.randint(0, args.n_text_vocab, size=s)
+    mask = np.zeros_like(prompt)
+    mask[:, -1] = 1
+    return prompt, mask
+
+
+@pytest.mark.parametrize("decoder", ["kernel 3", "dispatched"])
+def test_captured_frames_equal_eager(cuda_device, decoder):
+    """Greedy frames of the replayed graph equal the eager step's, token
+    for token, at B = 1 and 3; every replayed frame counts its kernel-3
+    launch."""
+    from csm_mlx_tpu_torch import generation
+
+    model = resident_model("tiny", cuda_device)
+    if decoder == "dispatched":
+        model = CSM(model.args, params={k: v for k, v in model.params.items()
+                                        if k != "_resident"},
+                    dtype=model.dtype)
+    prompts = [_prompt(model.args, s, s) for s in (5, 12, 30)]
+    for rows in (1, 3):
+        ps, ms = zip(*prompts[:rows])
+        before = resident.resident_decode_frame.launches
+        got, n = generation.generate_tokens_batch(model, ps, ms, 12,
+                                                  temperature=0.0)
+        launched = resident.resident_decode_frame.launches - before
+        want, n_want = generation.generate_tokens_batch(
+            model, ps, ms, 12, temperature=0.0, _eager_step=True)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(n, n_want)
+        assert launched == (12 if decoder == "kernel 3" else 0)
+        again, _ = generation.generate_tokens_batch(model, ps, ms, 12,
+                                                    temperature=0.0)
+        np.testing.assert_array_equal(again, want)  # the cached graph
+
+
+def test_captured_stream_equals_eager(cuda_device, monkeypatch):
+    """stream_generate with its Mimi step in the graph: the chunks equal the
+    eager step's (the same kernels on the same inputs), and the batch
+    decode of the same frames within 1e-4 of its largest magnitude (fp32,
+    TF32 off: the ring's attention sums in another order)."""
+    from csm_mlx_tpu_torch import generation, tokenizers
+    from csm_mlx_tpu_torch.models.mimi import Mimi, MimiConfig
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    model = resident_model("tiny", cuda_device)
+    cfg = MimiConfig(sampling_rate=240, hidden_size=16, num_filters=4,
+                     upsampling_ratios=(4, 3), codebook_size=32,
+                     codebook_dim=8, num_quantizers=8, upsample_groups=16,
+                     num_hidden_layers=2, intermediate_size=32,
+                     num_attention_heads=2, num_key_value_heads=2,
+                     head_dim=8, sliding_window=6, frame_rate=10.0)
+    mimi = Mimi(cfg, generator=torch.Generator(device=cuda_device)
+                .manual_seed(4), device=cuda_device)
+    prompt, mask = _prompt(model.args, 9, 9)
+    monkeypatch.setattr(tokenizers, "tokenize_text_segment",
+                        lambda *a: (prompt, mask))
+    kw = dict(max_audio_length_ms=1600, temperature=0.0, mimi=mimi)
+    got = torch.stack(list(generation.stream_generate(model, "t", 0, **kw)))
+    want = torch.stack(list(generation.stream_generate(
+        model, "t", 0, _eager_step=True, **kw)))
+    assert got.shape == want.shape == (20, cfg.frame_size)
+    assert torch.equal(got, want)
+    frames, n = generation.generate_tokens(model, prompt, mask, 20,
+                                           temperature=0.0)
+    wav = mimi.decode(torch.from_numpy(frames.T[None].copy()))[0, 0].cpu()
+    err = (got.flatten() - wav).abs().max().item()
+    assert n == 20 and err <= 1e-4 * wav.abs().max().item(), err
+
+
+def test_interleaved_captured_streams_equal_their_solo_runs(cuda_device,
+                                                           monkeypatch):
+    """Two streams with the same settings, consumed in turn on the card:
+    the second, started while the first holds the kept frame step, builds
+    its own, and each yields its solo run's chunks; the kept step is used
+    again after both end."""
+    from csm_mlx_tpu_torch import generation, tokenizers
+    from csm_mlx_tpu_torch.models.mimi import Mimi, MimiConfig
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    model = resident_model("tiny", cuda_device)
+    cfg = MimiConfig(sampling_rate=240, hidden_size=16, num_filters=4,
+                     upsampling_ratios=(4, 3), codebook_size=32,
+                     codebook_dim=8, num_quantizers=8, upsample_groups=16,
+                     num_hidden_layers=2, intermediate_size=32,
+                     num_attention_heads=2, num_key_value_heads=2,
+                     head_dim=8, sliding_window=6, frame_rate=10.0)
+    mimi = Mimi(cfg, generator=torch.Generator(device=cuda_device)
+                .manual_seed(4), device=cuda_device)
+    prompts = {"a": _prompt(model.args, 9, 9), "b": _prompt(model.args, 7, 3)}
+    monkeypatch.setattr(tokenizers, "tokenize_text_segment",
+                        lambda text, *a: prompts[text])
+
+    def stream(text):
+        return generation.stream_generate(
+            model, text, 0, max_audio_length_ms=1200, temperature=0.0,
+            mimi=mimi)
+
+    solo = {t: torch.stack(list(stream(t))) for t in prompts}
+    assert not torch.equal(solo["a"], solo["b"])
+    kept = list(model.frame_steps.values())
+    assert len(kept) == 1 and kept[0].graph is not None
+    its = {t: stream(t) for t in prompts}
+    got = {t: [] for t in prompts}
+    for _ in range(15):
+        for t, it in its.items():
+            got[t].append(next(it))
+    for t in prompts:
+        assert next(its[t], None) is None
+        assert torch.equal(torch.stack(got[t]), solo[t]), t
+    assert len(model.frame_steps) == 1
+    step = next(iter(model.frame_steps.values()))
+    assert torch.equal(torch.stack(list(stream("b"))), solo["b"])
+    assert next(iter(model.frame_steps.values())) is step
+
+
+def test_captured_step_draws_anew_at_temperature(cuda_device):
+    """T = 0.8: each replay draws new kernel-3 seeds and new c0 tokens from
+    the caller's generator, registered with the graph."""
+    from csm_mlx_tpu_torch import generation
+    from csm_mlx_tpu_torch.ops.sampling import SamplerConfig
+
+    model = resident_model("tiny", cuda_device)
+    head = model.params["codebook0_head"]
+    for key in head:  # zero logits: c0 uniform over the vocabulary
+        head[key] = torch.zeros_like(head[key])
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    prompt, mask = _prompt(model.args, 6, 6)
+    tokens, masks, pad, bucket = generation._pad_prompt(prompt, mask)
+    step = generation.FrameStep(model, 1, bucket + 40,
+                                SamplerConfig(temperature=0.8), (), gen)
+    assert step.capture
+    step.first(step.prefill(tokens, masks, pad))
+    seeds, c0 = [], []
+    for _ in range(30):
+        step()
+        seeds.append(int(step.seeds[0]))
+        c0.append(int(step.frame[0, 0]))
+    assert step.replays == 29 and step.graph is not None
+    assert len(set(seeds)) == 30 and len(set(c0)) >= 10, (seeds, c0)
+
+
+def test_kernels_read_their_scalars_from_device_memory(cuda_device):
+    """Kernel 3's seed and kernel 4's index are read by the kernels: one
+    captured launch of each, replayed after the scalar is changed in place,
+    equals a direct call with the new value (bit for bit), and kernel 4
+    equals its plain version at each index."""
+    model = resident_model("medium", cuda_device)
+    res, args = model.params["_resident"], model.args
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    proj01 = torch.randn((2, 4, args.decoder_config.hidden_size),
+                         generator=gen, device=cuda_device)
+    seed = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
+    resident.resident_decode_frame(res, args, proj01, seed, 0.8)  # warm-up
+    b, n_kv, cap = 8, 8, 157
+    q = torch.randn((b, 32, 1, 64), generator=gen, device=cuda_device)
+    k = torch.randn((b, n_kv, cap, 64), generator=gen, device=cuda_device)
+    v = torch.randn((b, n_kv, cap, 64), generator=gen, device=cuda_device)
+    pad = torch.arange(b, device=cuda_device)
+    index = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    attention.flash_decode_sdpa(q, k, v, 0.125, pad, index)  # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        toks = resident.resident_decode_frame(res, args, proj01, seed, 0.8)
+        out = attention.flash_decode_sdpa(q, k, v, 0.125, pad, index)
+    picks = []
+    for s, i in ((11, 20), (12, 100), (11, 156)):
+        seed.fill_(s)
+        index.fill_(i)
+        graph.replay()
+        want = resident.resident_decode_frame(res, args, proj01,
+                                              i32(s, cuda_device), 0.8)
+        direct = attention.flash_decode_sdpa(q, k, v, 0.125, pad,
+                                             i32(i, cuda_device))
+        plain = attention.flash_decode_plain(q, k, v, 0.125, pad, index)
+        torch.cuda.synchronize()
+        assert torch.equal(toks, want) and torch.equal(out, direct)
+        torch.testing.assert_close(out, plain, rtol=2e-5, atol=2e-5)
+        picks.append(toks.clone())
+    assert not torch.equal(picks[0], picks[1])
+    assert torch.equal(picks[0], picks[2])  # the same seed, the same draw

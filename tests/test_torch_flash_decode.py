@@ -55,7 +55,8 @@ def test_flash_decode_plain_matches_jax_kernel(b, heads, kvh, cap, d, index,
         tq, tk, tv = (_bf16(jnp.asarray(a, jd)) for a in (q, k, v))
         tol = 2e-2
     got = tattn.flash_decode_sdpa(tq, tk, tv, d ** -0.5,
-                                  torch.from_numpy(pad), index)
+                                  torch.from_numpy(pad),
+                                  torch.tensor(index, dtype=torch.int32))
     assert got.shape == (b, heads, 1, d) and got.dtype == tq.dtype
     np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
 
@@ -67,7 +68,8 @@ def test_flash_decode_plain_is_the_masked_sdpa():
     q, k, v = (torch.from_numpy(rng.randn(*s).astype(np.float32))
                for s in ((3, 4, 1, 8), (3, 2, 20, 8), (3, 2, 20, 8)))
     pad = torch.tensor([0, 5, 12])
-    got = tattn.flash_decode_plain(q, k, v, 0.3, pad, 9)
+    got = tattn.flash_decode_plain(q, k, v, 0.3, pad,
+                                   torch.tensor(9, dtype=torch.int32))
     for row, p in enumerate((0, 5)):
         kr, vr = k[row, :, p:10], v[row, :, p:10]
         logits = torch.einsum("hgd,hkd->hgk", q[row, :, 0].reshape(2, 2, 8),

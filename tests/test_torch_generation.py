@@ -313,12 +313,12 @@ def test_generate_in_jax_argument_order(base_params, tmp_path, monkeypatch,
     torch.testing.assert_close(wav, want, rtol=0, atol=0)
     torch.testing.assert_close(default, wav, rtol=0, atol=0)
 
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         tgen.generate(tm, "hello world", 0, [object()], 800, mimi=codec)
     with pytest.raises(FileNotFoundError):
         ttok.get_audio_tokenizer(8, str(tmp_path / "missing.safetensors"))
     weights = tmp_path / "mimi.safetensors"
     weights.write_bytes(b"")
     monkeypatch.setenv(ttok.MIMI_WEIGHTS_ENV, str(weights))
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         ttok.get_audio_tokenizer(8, device="cpu")

@@ -126,7 +126,8 @@ PORT_MODULES = [
     "csm_mlx_tpu_torch.generation", "csm_mlx_tpu_torch.tokenizers",
     "csm_mlx_tpu_torch.models", "csm_mlx_tpu_torch.ops",
     "csm_mlx_tpu_torch.ops._build", "csm_mlx_tpu_torch.ops.attention",
-    "csm_mlx_tpu_torch.ops.kv_cache", "csm_mlx_tpu_torch.ops.layers",
+    "csm_mlx_tpu_torch.ops.kv_cache", "csm_mlx_tpu_torch.ops.launches",
+    "csm_mlx_tpu_torch.ops.layers",
     "csm_mlx_tpu_torch.ops.quant", "csm_mlx_tpu_torch.ops.resident_decoder",
     "csm_mlx_tpu_torch.ops.rope",
     "csm_mlx_tpu_torch.ops.sampling", "csm_mlx_tpu_torch.models.csm",
@@ -206,5 +207,9 @@ def test_sampler_greedy_and_temperature():
     draw = [smp(torch.Generator().manual_seed(1), _t(logits)) for _ in range(2)]
     torch.testing.assert_close(draw[0], draw[1])  # seeded: reproducible
     assert draw[0].shape == (3,) and int(draw[0].max()) < 50
-    with pytest.raises(TypeError):  # top-k / top-p / min-p: not ported
-        SamplerConfig(top_k=5)
+    # top-k filters: every draw is one of the row's 5 largest logits
+    top5 = np.argsort(-logits, axis=-1)[:, :5]
+    gen = torch.Generator().manual_seed(2)
+    for _ in range(20):
+        got = SamplerConfig(temperature=1.0, top_k=5)(gen, _t(logits)).numpy()
+        assert all(g in row for g, row in zip(got, top5))

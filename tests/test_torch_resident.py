@@ -63,7 +63,8 @@ def _jax_frame(jm, proj01):
 
 def _port_frame(tm, proj01):
     return tres.resident_decode_frame(tm.params["_resident"], tm.args,
-                                      torch.from_numpy(proj01), 0,
+                                      torch.from_numpy(proj01),
+                                      torch.zeros((), dtype=torch.int32),
                                       0.0).numpy()
 
 
