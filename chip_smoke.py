@@ -39,6 +39,20 @@ through the graph shows that each replay draws new kernel-3 seeds and c0.
 A replay counts the launches its graph holds, so the launch counts include
 the replayed frames.
 
+Voice-prompted generation (context audio): the full-width Mimi encoder on
+a 10 s test waveform (tones under an envelope, low noise, from numpy) on
+the card against the same parameters on the CPU — the latent before the
+RVQ, and the codes, where every first difference of a codebook chain must
+be a near tie — and `encode_step` frame by frame against the batch
+encode, with their times and, as a finding, the code agreement under
+cuDNN's TF32 convs; then CSM-1B W8A8 with two context segments (10 s and
+8 s): a prompt of >= 256 rows (bucket 512) through `generate_tokens`
+(kernel 1's GEMM route and kernel 2 in the prefill, kernel 3 a frame),
+captured and eager alternated, the prefill's device ms,
+`stream_generate(context=...)` held to the batch decode with its first
+chunk timed, and `generate_batch` of 4 rows with 0, 1, 2 and 2 context
+segments.
+
 Then the MLX-affine and batch flash-decode paths: kernel 5 (the
 grouped-affine matvec) against its plain version at the quantized
 linears' shapes, 4- and 8-bit, group 64 (and 128), B = 1, 2, 8, 16, 32,
@@ -102,6 +116,8 @@ from csm_mlx_tpu_torch.loaders import tree_to_flat  # noqa: E402
 from csm_mlx_tpu_torch.models.csm import CSM, ModelArgs, csm_1b  # noqa: E402
 from csm_mlx_tpu_torch.models.csm import embed_audio  # noqa: E402
 from csm_mlx_tpu_torch.models.mimi import Mimi, mimi_202407  # noqa: E402
+from csm_mlx_tpu_torch.models.mimi import mimi as mimi_module  # noqa: E402
+from csm_mlx_tpu_torch.models.mimi.rvq import codebook_embed  # noqa: E402
 from csm_mlx_tpu_torch.ops import _build  # noqa: E402
 from csm_mlx_tpu_torch.ops import attention, quant  # noqa: E402
 from csm_mlx_tpu_torch.ops import flash_train  # noqa: E402
@@ -223,6 +239,19 @@ BATCH_ROWS, BATCH_FRAMES = 64, 8  # the batch flash-decode phase
 # the ring attention and the chunked convs sum in other orders)
 STREAM_FRAMES, STREAM_TIMED, STREAM_TIMED_FRAMES = 125, 5, 15
 STREAM_TOL = 1e-4
+# Context audio: the two context segments' seconds (the first is also the
+# encoder check's input); greedy frames of the context prompt; streams a
+# setting timed to their first chunk; frames of the 4-row generate_batch.
+# The encoder on the card against the CPU: the latent before the RVQ within
+# ENCODE_LATENT_TOL of its largest magnitude (fp32, TF32 off: sum order
+# only); at least ENCODE_MIN_AGREEMENT of the codes equal, and where a
+# codebook's pick first differs, a score gap below ENCODE_TIE of the score
+# scale (a near tie that the sum order can flip)
+CONTEXT_SECONDS = (10, 8)
+CONTEXT_FRAMES, CONTEXT_STREAMS, CONTEXT_BATCH_FRAMES = 40, 5, 10
+ENCODE_LATENT_TOL = 1e-4
+ENCODE_MIN_AGREEMENT = 0.99
+ENCODE_TIE = 1e-3
 SAMPLED_FRAMES = 40  # frames of the T = 0.8 captured run
 PROFILE_FRAMES = 4  # frames a profiled frame-step run
 # device kernels of a wrapper, by a part of their name: one per launch
@@ -1325,6 +1354,26 @@ def run_dispatched(model: CSM) -> dict:
                 w8a8_per_frame=ab["counts"]["w8a8_matvec"] / n, trace=trace)
 
 
+def prefill_runner(model: CSM, tokens, masks, pad_len, cap: int):
+    """A call that runs one backbone prefill (`generation._prefill`) of the
+    left-padded prompt (B, bucket, 33) into a cache of `cap` slots: a fresh
+    write index over the same buffers at every call."""
+    args, dev = model.args, model.device
+    bcfg = args.backbone_config
+    t, m, pad = (torch.from_numpy(a).long().to(dev)
+                 for a in (tokens, masks, pad_len))
+    cos_b, sin_b = rope_cache_for(
+        bcfg, max(cap, bcfg.max_position_embeddings), dev)
+    cache = KVCache.init(bcfg, t.shape[0], cap, dtype=model.dtype, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def run():
+        fresh = KVCache(k=cache.k, v=cache.v, index=zero, length=0)
+        return generation._prefill(model.params, args, t, m, pad, fresh,
+                                   cos_b, sin_b)[0]
+    return run
+
+
 def time_prefill(model: CSM) -> None:
     """What kernel 2 does to a prefill: one CSM-1B W8A8 backbone prefill at
     B=1 of a PREFILL_ROWS prompt (left-padded to the 512- and 2048-row
@@ -1342,18 +1391,8 @@ def time_prefill(model: CSM) -> None:
             prompt, mask = synthetic_prompt(rows, args.n_text_vocab, SEED + 3)
             tokens, masks, pad_len, bucket = generation._pad_prompt(prompt,
                                                                     mask)
-            t, m, pad = (torch.from_numpy(a).long().to(dev)
-                         for a in (tokens, masks, pad_len))
             cap = bucket + 125
-            cos_b, sin_b = rope_cache_for(
-                bcfg, max(cap, bcfg.max_position_embeddings), dev)
-            cache = KVCache.init(bcfg, 1, cap, dtype=model.dtype, device=dev)
-            zero = torch.zeros((), dtype=torch.int32, device=dev)
-
-            def run():  # a fresh write index over the same buffers
-                fresh = KVCache(k=cache.k, v=cache.v, index=zero, length=0)
-                return generation._prefill(model.params, args, t, m, pad,
-                                           fresh, cos_b, sin_b)[0]
+            run = prefill_runner(model, tokens, masks, pad_len, cap)
 
             runs: dict = {True: [], False: []}
             for flash in (True, False, False, True):
@@ -1549,6 +1588,317 @@ def check_sampled_step(model: CSM) -> None:
     if len(set(seeds)) != SAMPLED_FRAMES or len(set(c0)) < 5 \
             or int(frames.min()) < 0 or int(frames.max()) >= args.n_audio_vocab:
         raise AssertionError("the replays repeat their draws")
+
+
+def smoke_wave(seconds: float, seed: int) -> np.ndarray:
+    """A voice-like test waveform at 24 kHz from numpy: five tones under a
+    slow envelope, plus low noise; peak 0.5."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(seconds * 24000)) / 24000.0
+    x = sum(rng.uniform(0.3, 1.0) * np.sin(2 * np.pi * f * t + p)
+            for f, p in zip(rng.uniform(80, 2000, 5),
+                            rng.uniform(0, 2 * np.pi, 5)))
+    x = x * (0.55 + 0.45 * np.sin(2 * np.pi * 0.3 * t + rng.uniform(0, 6)))
+    x = x + 0.02 * rng.randn(t.size)
+    return (0.5 * x / np.abs(x).max()).astype(np.float32)
+
+
+def rvq_disagreements(quantizer, latent, ref, other) -> tuple:
+    """Where `other` codes differ from `ref` (B, K, F), on `ref`'s own RVQ
+    chain over `latent` (B, D, F): the share of codes that agree, and per
+    (row, frame) and half (semantic, acoustic) the first codebook where
+    the two differ, with the score gap there between ref's pick and
+    other's, over the largest |score| of that query (2 x.e - |e|^2 in
+    fp32). The codes after a half's first difference follow another
+    residual, so they differ by consequence and carry no margin of their
+    own."""
+    n_sem = len(quantizer["semantic"]["layers"])
+    agree = float((ref == other).float().mean())
+    gaps, downstream = [], 0
+    for half, lo in (("semantic", 0), ("acoustic", n_sem)):
+        p = quantizer[half]
+        w = p["input_proj"]["weight"]
+        residual = torch.einsum("bct,oc->bto", latent.float(),
+                                (w[:, :, 0] if w.dim() == 3 else w).float())
+        split = torch.zeros(residual.shape[:2], dtype=torch.bool,
+                            device=latent.device)
+        for k in range(lo, ref.shape[1] if half == "acoustic" else n_sem):
+            layer = p["layers"][k - lo]
+            e = codebook_embed(layer["codebook"]).float()
+            scores = 2.0 * residual @ e.t() - (e * e).sum(-1)  # (B, F, V)
+            r, o = ref[:, k].long(), other[:, k].long()
+            first = (r != o) & ~split
+            downstream += int(((r != o) & split).sum())
+            if bool(first.any()):
+                gap = (scores.gather(-1, r[..., None])
+                       - scores.gather(-1, o[..., None]))[..., 0]
+                scale = scores.abs().amax(-1)
+                gaps += (gap / scale)[first].tolist()
+            split |= first
+            residual = residual - e[r]
+    return agree, gaps, downstream
+
+
+def check_codes(label: str, quantizer, latent, ref, other) -> float:
+    """Gate: at least ENCODE_MIN_AGREEMENT of the codes agree, and each
+    half's first difference is a near tie (a gap below ENCODE_TIE of the
+    score scale), as `check_divergence` reasons about kernel 3's flips."""
+    agree, gaps, downstream = rvq_disagreements(quantizer, latent, ref,
+                                                other)
+    log(f"{label}: {agree:.4%} of {ref.numel()} codes agree; "
+        f"{len(gaps)} first differences, score gaps "
+        f"{', '.join(f'{g:.2e}' for g in gaps) or 'none'} (tol "
+        f"{ENCODE_TIE:g} of the score scale), {downstream} codes after them")
+    if agree < ENCODE_MIN_AGREEMENT or any(g >= ENCODE_TIE for g in gaps):
+        raise AssertionError(f"{label}: the codes differ beyond near ties")
+    return agree
+
+
+def device_busy(fn) -> tuple[float, int]:
+    """(ms the card is busy, device kernels) of one call of `fn` after a
+    warm-up call, from the profiler's raw device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    return sum(e.duration_ns() for e in events) / 1e6, len(events)
+
+
+def check_mimi_encode(dev, mimi: Mimi) -> dict:
+    """The full-width Mimi encoder (`mimi_202407(32)`, seed SEED + 2) on a
+    10 s `smoke_wave` on the card against the same parameters on the CPU
+    (fp32, TF32 off): the latent before the RVQ within ENCODE_LATENT_TOL
+    of its largest magnitude, the codes under `check_codes`; then
+    `encode_step` frame by frame against the card's batch encode, under
+    the same gate. Times a batch encode of the 10 s and one `encode_step`
+    (`time_ms`), and once, as a finding and no gate, the agreement with
+    cuDNN's TF32 convs (`allow_tf32 = True`, the library's default)."""
+    cpu = Mimi(mimi.cfg, params=params_to_cpu(mimi.params))
+    wave = smoke_wave(CONTEXT_SECONDS[0], SEED + 300)
+    audio = torch.from_numpy(wave.reshape(1, 1, -1))
+    frames = -(-audio.shape[-1] // mimi.frame_size)
+    padded = torch.nn.functional.pad(
+        audio, (0, mimi_module._bucket(frames) * mimi.frame_size
+                - audio.shape[-1]))
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want_latent = mimi_module.mimi_encode_latent(cpu.params, cpu.cfg,
+                                                     padded)
+        cpu_s = time.perf_counter() - t0
+        latent = mimi_module.mimi_encode_latent(mimi.params, mimi.cfg,
+                                                padded.to(dev)).cpu()
+    rel = ((latent - want_latent).abs().max()
+           / want_latent.abs().max()).item()
+    log(f"Mimi encode, 10 s at 24 kHz ({frames} frames, padded to "
+        f"{padded.shape[-1] // mimi.frame_size}), card vs CPU: latent max "
+        f"|err| / max |latent| {rel:.3e} (tol {ENCODE_LATENT_TOL:g}); the "
+        f"CPU's latent took {cpu_s:.2f} s")
+    if not rel <= ENCODE_LATENT_TOL:
+        raise AssertionError("card and CPU Mimi encoder latents disagree")
+    want = cpu.encode(audio)
+    got = mimi.encode(audio.to(dev))
+    if tuple(got.shape) != (1, 32, frames):
+        raise AssertionError(f"codes {tuple(got.shape)}, not (1, 32, "
+                             f"{frames})")
+    want_latent = want_latent[:, :, :frames]
+    agree = check_codes("Mimi encode codes, card vs CPU", cpu.params[
+        "quantizer"], want_latent, want, got.cpu())
+    fs = mimi.frame_size
+    state = mimi.init_encode_state()
+    streamed = torch.cat([
+        mimi.encode_step(audio[:, :, i * fs:(i + 1) * fs].to(dev), state)[0]
+        for i in range(frames)], dim=-1)
+    check_codes("Mimi encode_step frame by frame vs batch encode, card",
+                mimi.params["quantizer"], latent[:, :, :frames].to(dev), got,
+                streamed)
+    audio_dev = audio.to(dev)
+    encode_ms, encode_wall = time_ms(lambda: mimi.encode(audio_dev), reps=5,
+                                     warmup=1)
+    chunk = audio_dev[:, :, :fs]
+    step_ms, step_wall = time_ms(lambda: mimi.encode_step(chunk, state))
+    encode_busy = device_busy(lambda: mimi.encode(audio_dev))
+    step_busy = device_busy(lambda: mimi.encode_step(chunk, state))
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            tf32_latent = mimi_module.mimi_encode_latent(
+                mimi.params, mimi.cfg, padded.to(dev)).cpu()[:, :, :frames]
+        tf32 = mimi.encode(audio_dev).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    tf32_rel = ((tf32_latent - want_latent).abs().max()
+                / want_latent.abs().max()).item()
+    tf32_agree, tf32_gaps, _ = rvq_disagreements(cpu.params["quantizer"],
+                                                 want_latent, want, tf32)
+    log(f"Mimi encode timing ({card_info()}): 10 s batch encode "
+        f"{encode_ms:.3f} ms device, {encode_wall:.3f} ms wall, "
+        f"{encode_busy[0]:.3f} ms device busy in {encode_busy[1]} kernels "
+        f"(profiler); one encode_step {step_ms:.3f} ms device, "
+        f"{step_wall:.3f} ms wall, {step_busy[0]:.3f} ms busy in "
+        f"{step_busy[1]} kernels (a device ms equal to the wall is the "
+        f"host's issue time)")
+    log(f"Mimi encode with cuDNN TF32 convs (the library's default; a "
+        f"finding, not a gate): latent max |err| / max |latent| "
+        f"{tf32_rel:.3e} against the CPU's; {tf32_agree:.4%} of the codes "
+        f"agree with the CPU's, {len(tf32_gaps)} first differences, largest "
+        f"score gap {max(tf32_gaps, default=0.0):.2e}")
+    return dict(agree=agree, encode_ms=encode_ms, step_ms=step_ms,
+                tf32_agree=tf32_agree, tf32_rel=tf32_rel)
+
+
+def context_text_rows(text: str, n_text_vocab: int):
+    """The text tokenizer's stand-in (the card's machine has no tokenizer
+    files): 8-23 synthetic rows a text, seeded by the text."""
+    seed = SEED + 200 + sum(map(ord, text)) % 1000
+    return synthetic_prompt(8 + len(text) % 16, n_text_vocab, seed)
+
+
+def run_context(model: CSM, mimi: Mimi) -> dict:
+    """Voice-prompted generation at full CSM-1B width, W8A8, greedy: two
+    context segments (10 s and 8 s `smoke_wave`s, speakers 0 and 1) and a
+    text, the text tokenizer replaced by `context_text_rows`, so the
+    prompt comes to >= 256 rows (bucket 512, kernel 2 in the prefill).
+    `generate_tokens` on the assembled prompt for CONTEXT_FRAMES frames,
+    captured and eager alternated (gates: equal frames; kernel 1's GEMM
+    route, 16 kernel-2 launches and one kernel-3 launch a frame); the
+    prefill's device ms; `stream_generate(context=...)` (gate: the chunks
+    within STREAM_TOL of the batch decode of the same frames) and its
+    first chunk, p50 and p90 over CONTEXT_STREAMS streams a setting,
+    captured and eager alternated (the context encoded each time); then
+    `generate_batch` of 4 rows with 0, 1, 2 and 2 context segments (gates:
+    finite audio of the rows' lengths, equal frames captured and eager)
+    and, no gate, how many rows' first frames equal their solo run."""
+    from csm_mlx_tpu_torch import tokenizers as port_tokenizers
+    from csm_mlx_tpu_torch.segment import Segment
+
+    args = model.args
+    card = card_info()
+    ctx = [Segment(0, "It rained all morning, then the sun came out.",
+                   smoke_wave(CONTEXT_SECONDS[0], SEED + 300)),
+           Segment(1, "We walked down to the river after lunch.",
+                   smoke_wave(CONTEXT_SECONDS[1], SEED + 301))]
+    text = "And the water was higher than I have ever seen it."
+    saved = port_tokenizers.tokenize_text_segment
+    port_tokenizers.tokenize_text_segment = \
+        lambda text, *_: context_text_rows(text, args.n_text_vocab)
+    try:
+        assemble_ms = []
+        for _ in range(3):  # the two context encodes and the rows
+            t0 = time.perf_counter()
+            prompt, mask = generation._assemble_prompt(model, text, 0, ctx,
+                                                       mimi)
+            assemble_ms.append(1e3 * (time.perf_counter() - t0))
+        bucket = generation.prompt_bucket(prompt.shape[0])
+        if prompt.shape[0] < 256 or bucket != 512:
+            raise AssertionError(f"context prompt of {prompt.shape[0]} rows "
+                                 f"(bucket {bucket}), not >= 256 in 512")
+        ab = captured_vs_eager(
+            lambda eager, n: generate_tokens(
+                model, prompt, mask, n, temperature=0.0, _eager_step=eager),
+            f"context prompt W8A8 ({prompt.shape[0]} rows; {card})",
+            CONTEXT_FRAMES)
+        frames, n = ab["frames"], int(ab["n"])
+        counts = ab["counts"]
+        n_layers = args.backbone_config.num_hidden_layers
+        if counts["flash_prefill_sdpa"] != n_layers \
+                or counts["w8a8_matvec.gemm"] < 1 \
+                or counts["resident_decode_frame"] not in (n, n + 1):
+            raise AssertionError(f"context prompt launches {counts}: not "
+                                 f"kernel 1's GEMM route, {n_layers} kernel-2 "
+                                 f"launches and one kernel 3 a frame")
+        tokens, masks, pad_len, _ = generation._pad_prompt(prompt, mask)
+        run = prefill_runner(model, tokens, masks, pad_len, bucket + n)
+        with torch.no_grad():
+            prefill_ms, prefill_wall = time_ms(run, reps=5, warmup=1)
+
+        def stream(eager, n_chunks):
+            chunks, t0 = [], time.perf_counter()
+            it = generation.stream_generate(
+                model, text, 0, ctx, max_audio_length_ms=CONTEXT_FRAMES * 80,
+                temperature=0.0, mimi=mimi, _eager_step=eager)
+            for chunk in it:
+                if not chunks:
+                    first = 1e3 * (time.perf_counter() - t0)
+                chunks.append(chunk)
+                if len(chunks) == n_chunks:
+                    break
+            it.close()
+            return chunks, first
+
+        reset_counts()
+        chunks, _ = stream(False, CONTEXT_FRAMES)
+        stream_counts = read_counts()
+        wav = torch.cat(chunks)
+        want = mimi.decode(torch.from_numpy(
+            frames[:len(chunks)].T[None].copy()).to(model.device))[0, 0].cpu()
+        err = (wav - want).abs().max().item()
+        tol = STREAM_TOL * want.abs().max().item()
+        firsts: dict = {False: [], True: []}
+        for i in range(CONTEXT_STREAMS):
+            for eager in ((False, True) if i % 2 == 0 else (True, False)):
+                firsts[eager].append(stream(eager, 1)[1])
+        log(f"stream_generate(context=2 segments) W8A8 + Mimi(32) ({card}): "
+            f"{len(chunks)} chunks, joined vs mimi.decode of the same frames "
+            f"max_abs_err {err:.3e} (tol {tol:.3e}); launches {stream_counts}")
+        if len(chunks) != n or not bool(torch.isfinite(wav).all()) \
+                or not err <= tol:
+            raise AssertionError("the context stream does not match the "
+                                 "batch decode")
+
+        texts = ["Good morning.", "Did you see the river?",
+                 "It was higher than ever.", "I saw it from the bridge."]
+        contexts = [(), ctx[:1], ctx, ctx[::-1]]
+        rows = [generation._assemble_prompt(model, t, i % 2, c, mimi)
+                for i, (t, c) in enumerate(zip(texts, contexts))]
+        ps, ms = zip(*rows)
+        ab_b = captured_vs_eager(
+            lambda eager, n: generate_tokens_batch(
+                model, ps, ms, n, temperature=0.0, _eager_step=eager),
+            f"generate_batch prompts ({', '.join(str(len(p)) for p in ps)} "
+            f"rows; {card})", CONTEXT_BATCH_FRAMES, eager_runs=1)
+        wavs = generation.generate_batch(
+            model, texts, [0, 1, 0, 1], contexts,
+            max_audio_length_ms=CONTEXT_BATCH_FRAMES * 80, temperature=0.0,
+            mimi=mimi)
+        lengths = [int(k) * mimi.frame_size for k in ab_b["n"]]
+        solo = sum(bool(np.array_equal(
+            generate_tokens(model, p, m, 1, temperature=0.0)[0][0],
+            ab_b["frames"][0, i])) for i, (p, m) in enumerate(rows))
+        log(f"generate_batch, 4 rows with 0/1/2/2 context segments: audio "
+            f"samples {[int(w.shape[0]) for w in wavs]} (want {lengths}), "
+            f"finite {all(bool(torch.isfinite(w).all()) for w in wavs)}; "
+            f"first frames equal to the solo run in {solo} of 4 rows (no "
+            f"gate: W8A8's activation codes amplify last-bit prefill "
+            f"differences)")
+        if [int(w.shape[0]) for w in wavs] != lengths \
+                or not all(bool(torch.isfinite(w).all()) for w in wavs):
+            raise AssertionError("generate_batch rows are not finite audio "
+                                 "of their frames' lengths")
+    finally:
+        port_tokenizers.tokenize_text_segment = saved
+    first = {("eager" if e else "captured"): (
+        float(np.percentile(v, 50)), float(np.percentile(v, 90)))
+        for e, v in firsts.items()}
+    log(f"voice-prompted single stream ({card}): "
+        f"{ab['ms_captured']:.2f} ms a frame captured, {ab['ms_eager']:.2f} "
+        f"eager; prefill of the {prompt.shape[0]}-row prompt (bucket "
+        f"{bucket}) {prefill_ms:.3f} ms device, {prefill_wall:.3f} ms wall; "
+        f"assembling it (18 s of context encoded) "
+        f"{', '.join(f'{t:.2f}' for t in assemble_ms)} ms; "
+        f"first chunk of stream_generate(context=...), encode of 18 s of "
+        f"context included: " + "; ".join(
+            f"{k} p50 {p50:.2f} ms p90 {p90:.2f} ms"
+            for k, (p50, p90) in first.items()))
+    return dict(counts=counts, rows=prompt.shape[0],
+                ms_per_frame=ab["ms_captured"], ms_eager=ab["ms_eager"],
+                prefill_ms=prefill_ms, first_chunk=first)
 
 
 def run_batch(model: CSM) -> None:
@@ -2360,6 +2710,7 @@ def main() -> None:
                 generator=torch.Generator(device=dev).manual_seed(SEED + 2),
                 device=dev)
     timed(check_small_vs_cpu, dev, mimi)
+    timed(check_mimi_encode, dev, mimi)
     timed(check_small_affine_vs_cpu, dev)
     model = build_csm_1b(dev)
     frame = timed(check_resident, model, gen, gen_new)
@@ -2368,6 +2719,7 @@ def main() -> None:
     timed(trace_main_path, model)
     timed(run_streaming, model, mimi, main_path["frames_125"])
     timed(check_sampled_step, model)
+    context = timed(run_context, model, mimi)
     disp = timed(run_dispatched, model)
     log(f"W8A8 launches per frame: {disp['w8a8_per_frame']:.0f} dispatched, "
         f"{main_path['counts']['w8a8_matvec'] / main_path['frames']:.0f} "
@@ -2395,15 +2747,19 @@ def main() -> None:
         dict(name="w8a8_matvec", route="cuda",
              source="csm_mlx_tpu_torch/csrc/w8a8_matvec.cu",
              replaces="csm_mlx_tpu/ops/quant.py:152",
-             launches=launches["w8a8_matvec"], **w8a8),
+             launches=launches["w8a8_matvec"],
+             context_launches=context["counts"]["w8a8_matvec"], **w8a8),
         dict(name="flash_prefill_sdpa", route="cuda",
              source="csm_mlx_tpu_torch/csrc/flash_prefill.cu",
              replaces="csm_mlx_tpu/ops/attention.py:34",
-             launches=launches["flash_prefill_sdpa"], **flash),
+             launches=launches["flash_prefill_sdpa"],
+             context_launches=context["counts"]["flash_prefill_sdpa"],
+             **flash),
         dict(name="resident_decode_frame", route="cuda",
              source="csm_mlx_tpu_torch/csrc/resident_frame.cu",
              replaces="csm_mlx_tpu/ops/resident_decoder.py:198",
              launches=launches["resident_decode_frame"],
+             context_launches=context["counts"]["resident_decode_frame"],
              max_abs_err=k3["max_abs_err"], agreement=k3["agreement"],
              ms=k3["ms"],
              plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],

@@ -1,13 +1,13 @@
 """Datasets for fine-tuning (port of `csm_mlx_tpu/finetune/dataset.py`):
 the same JSON schemas, constructors and `get_batch` outputs.
 
+- `_tokenize` turns an item's segments into rows and a loss mask
+  (`tokenizers.tokenize_segments_with_loss_mask`: text rows, Mimi's codes
+  of each turn's audio, read from its `audio_path`), through `mimi`, by
+  default the codec singleton on the card;
 - per-item tokenization results are cached after first touch;
 - `get_batch` pads to a bucketed length (multiples of `pad_multiple`, 64
   by default), as the JAX package does for its jitted step.
-
-`_tokenize` needs the Mimi encoder, which is not ported yet (ROADMAP
-queue 1, item 3): it raises `NotImplementedError`. Subclasses and tests
-feed pre-tokenized items.
 
 JSON schemas:
   CSMDataset:          [[{"text","audio_path","speaker"}, ...], ...]
@@ -60,8 +60,10 @@ class CSMDataset:
         mask_speaker_ids: Optional[int | List[int]] = None,
         pad_multiple: int = 64,
         cache_tokenization: bool = True,
+        mimi=None,
     ):
         self.samples = samples
+        self.mimi = mimi
         self.n_audio_codebooks = n_audio_codebooks
         self.max_audio_length_ms = max_audio_length_ms
         self.mask_speaker_ids = (
@@ -99,10 +101,16 @@ class CSMDataset:
         return len(self.samples)
 
     def _tokenize(self, segments: List[Segment]):
-        raise NotImplementedError(
-            "tokenizing segments with audio needs the Mimi encoder, which is "
-            "not ported yet (ROADMAP queue 1, item 3: "
-            "tokenize_segments_with_loss_mask); feed pre-tokenized items")
+        from csm_mlx_tpu_torch.tokenizers import \
+            tokenize_segments_with_loss_mask
+
+        return tokenize_segments_with_loss_mask(
+            segments,
+            n_audio_codebooks=self.n_audio_codebooks,
+            mask_speaker_ids=self.mask_speaker_ids,
+            max_audio_length_ms=self.max_audio_length_ms,
+            mimi=self.mimi,
+        )
 
     def __getitem__(self, idx: int):
         if self._cache_enabled and idx in self._cache:

@@ -24,9 +24,13 @@ step runs the flash-decode kernel when the caller sets
 `flash_decode_min_b` and the batch reaches it (off by default, as in JAX).
 
 Entry points: `generate_frame` (one frame, its state threaded through
-`FrameState`), `generate_tokens`, `generate_tokens_batch`, `generate` and
-`stream_generate`. Not ported yet: context audio, long-form generation
-and the watermark.
+`FrameState`), `generate_tokens`, `generate_tokens_batch`, and the text
+ones, which take conversational context (`Segment`s whose audio Mimi
+encodes into prompt rows, `_assemble_prompt`): `generate`,
+`generate_batch` (one row per text, each with its own context),
+`stream_generate` and `generate_long` (sentence by sentence, with a
+rolling context of what it generated). Not ported yet: the watermark
+(`watermark_key` raises).
 """
 
 from __future__ import annotations
@@ -236,6 +240,44 @@ def _pad_prompt(prompt: np.ndarray, mask: np.ndarray) -> tuple:
     tokens[0, pad:] = prompt
     m[0, pad:] = mask
     return tokens, m, np.asarray([pad], dtype=np.int32), bucket
+
+
+def _assemble_prompt(model: CSM, text: str, speaker: int, context: Sequence,
+                     mimi=None) -> tuple:
+    """The context segments' rows (text, then Mimi's codes of the audio),
+    then the text's -> (prompt (S, K+1) int32, mask). `mimi` encodes the
+    audio, by default the codec singleton on the model's device."""
+    from csm_mlx_tpu_torch.tokenizers import (tokenize_segment,
+                                              tokenize_text_segment)
+
+    if context:
+        mimi = _codec_for(model, mimi)
+    tokens, masks = [], []
+    for segment in context:
+        t, m = tokenize_segment(segment,
+                                n_audio_codebooks=model.n_audio_codebooks,
+                                mimi=mimi)
+        tokens.append(t)
+        masks.append(m)
+    t, m = tokenize_text_segment(text, speaker, model.n_audio_codebooks)
+    tokens.append(np.asarray(t))
+    masks.append(np.asarray(m))
+    return (np.concatenate(tokens, axis=0).astype(np.int32),
+            np.concatenate(masks, axis=0).astype(np.int32))
+
+
+def _no_watermark(watermark_key) -> None:
+    if watermark_key is not None:
+        raise NotImplementedError(
+            "watermark_key: the watermark is not ported yet (ROADMAP queue "
+            "1, item 6)")
+
+
+def _codec_for(model: CSM, mimi):
+    from csm_mlx_tpu_torch.tokenizers import get_audio_tokenizer
+
+    return mimi if mimi is not None else get_audio_tokenizer(
+        model.n_audio_codebooks, device=model.device)
 
 
 def _check_context_window(args: ModelArgs, prompt_len: int,
@@ -599,36 +641,196 @@ def generate(
     sampler: Optional[Any] = None,
     logits_processors: Optional[Sequence] = None,
     generator: Optional[torch.Generator] = None,
+    watermark_key: Optional[int] = None,
     mimi=None,
 ) -> torch.Tensor:
-    """Text -> 24 kHz waveform (1-D tensor), in JAX's argument order.
+    """Text (+ conversational context) -> 24 kHz waveform (1-D tensor), in
+    JAX's argument order, `generator` in place of `key`.
 
     The text goes through the canonical tokenizer
     (`tokenizers.get_text_tokenizer`: a local path installed earlier or
-    `CSM_TPU_TEXT_TOKENIZER`); `mimi` is the codec, by default the
-    `get_audio_tokenizer` singleton on the model's device. Context audio
-    needs the Mimi encoder, not ported yet: a non-empty `context` raises."""
-    from csm_mlx_tpu_torch.tokenizers import (get_audio_tokenizer,
-                                              tokenize_text_segment)
-
-    if len(context):
-        raise NotImplementedError(
-            "generate with context segments needs the Mimi encoder, not "
-            "ported yet (ROADMAP queue 1, item 3)")
+    `CSM_TPU_TEXT_TOKENIZER`); `mimi` is the codec that encodes the
+    context's audio and decodes the frames, by default the
+    `get_audio_tokenizer` singleton on the model's device."""
+    _no_watermark(watermark_key)
+    codec = _codec_for(model, mimi)
     max_frames = int(max_audio_length_ms / FRAME_MS)
-    prompt, mask = tokenize_text_segment(text, speaker,
-                                         model.n_audio_codebooks)
+    prompt, mask = _assemble_prompt(model, text, speaker, context, codec)
     frames, n = generate_tokens(
         model, prompt, mask, max_frames, temperature=temperature,
         sampler=sampler, logits_processors=logits_processors,
         generator=generator)
     if n == 0:
         return torch.zeros((0,), dtype=torch.float32)
-    if mimi is None:
-        mimi = get_audio_tokenizer(model.n_audio_codebooks,
-                                   device=model.device)
     codes = torch.from_numpy(frames.T[None].copy()).long()  # (1, K, F)
-    return mimi.decode(codes)[0, 0]
+    return codec.decode(codes)[0, 0]
+
+
+def generate_batch(
+    model: CSM,
+    texts: Sequence[str],
+    speakers: Sequence[int],
+    contexts: Optional[Sequence[Sequence]] = None,
+    max_audio_length_ms: float = 90_000,
+    watermark_key: Optional[int] = None,
+    *,
+    mimi=None,
+    **kwargs,
+) -> list:
+    """Batched TTS: one waveform (1-D tensor) per (text, speaker[, context])
+    row. The rows' prompts, each with its own context, are left-padded to
+    one bucket (`generate_tokens_batch`, which takes `kwargs`); the frames
+    of every row go through one Mimi decode over the longest row, sliced
+    per row to its own frames."""
+    _no_watermark(watermark_key)
+    contexts = contexts or [()] * len(texts)
+    if not (len(texts) == len(speakers) == len(contexts)):
+        # zip would truncate, and the per-row slicing drop rows
+        raise ValueError(
+            f"texts/speakers/contexts lengths differ: {len(texts)}/"
+            f"{len(speakers)}/{len(contexts)}")
+    codec = _codec_for(model, mimi)
+    max_frames = int(max_audio_length_ms / FRAME_MS)
+    prompts, masks = zip(*[
+        _assemble_prompt(model, text, speaker, context, codec)
+        for text, speaker, context in zip(texts, speakers, contexts)])
+    frames, n = generate_tokens_batch(model, prompts, masks, max_frames,
+                                      **kwargs)
+    f_max = int(n.max()) if len(n) else 0
+    if f_max == 0:
+        return [torch.zeros((0,), dtype=torch.float32) for _ in texts]
+    codes = torch.from_numpy(
+        np.ascontiguousarray(frames[:f_max].transpose(1, 2, 0))).long()
+    audio = codec.decode(codes)
+    frame_size = audio.shape[-1] // f_max
+    return [audio[i, 0, :int(n[i]) * frame_size] for i in range(len(texts))]
+
+
+def generate_long(
+    model: CSM,
+    text: str,
+    speaker: int,
+    context: Sequence = (),
+    *,
+    max_segment_audio_ms: float = 30_000,
+    rolling_context: int = 6,
+    temperature: float = 0.8,
+    sampler: Optional[Any] = None,
+    generator: Optional[torch.Generator] = None,
+    watermark_key: Optional[int] = None,
+    pause_ms: float = 0.0,
+    mimi=None,
+) -> torch.Tensor:
+    """Long-form synthesis past the model's context window, as in the JAX
+    package: `text` split into sentences, each synthesized by `generate`
+    with the last `rolling_context` generated segments as its context
+    (the voice carries through it), the pieces joined (a 1-D CPU tensor),
+    `pause_ms` of silence between them. The rolling context is trimmed by
+    its prompt rows (text tokens + Mimi frames + EOS frame of each
+    segment) against the backbone window less `max_segment_audio_ms`; a
+    sentence too long alone is split at words (`fit_sentence`), a word too
+    long at characters (`hard_split`). `generator` draws for every
+    sentence in turn (JAX splits its `key`)."""
+    from csm_mlx_tpu_torch.apps.voice_chat import split_sentences
+    from csm_mlx_tpu_torch.segment import SAMPLING_RATE, Segment
+    from csm_mlx_tpu_torch.tokenizers import get_text_tokenizer
+
+    _no_watermark(watermark_key)
+    sentences = split_sentences(text) or (
+        [text.strip()] if text.strip() else [])
+    ctx = list(context)
+    pieces = []
+    txt_tok = get_text_tokenizer()
+    frame_size = int(SAMPLING_RATE * FRAME_MS / 1000)
+
+    def n_text(spk: int, s: str) -> int:
+        return len(txt_tok.encode(f"[{spk}]{s}").ids)
+
+    def seg_len(seg: Segment) -> int:
+        frames = -(-int(np.asarray(seg.audio).shape[-1]) // frame_size)
+        return n_text(seg.speaker, seg.text) + frames + 1
+
+    max_seg_frames = int(max_segment_audio_ms / FRAME_MS)
+    ctx_cfg = model.args.backbone_config.max_position_embeddings or 2048
+    budget = ctx_cfg - max_seg_frames
+    if budget <= 1:
+        # fit_sentence / hard_split would explode the text into single
+        # characters before generate failed on a negative window
+        raise ValueError(
+            f"max_segment_audio_ms={max_segment_audio_ms} "
+            f"({max_seg_frames} frames) does not fit the backbone context "
+            f"window ({ctx_cfg} positions) with room for any text; use a "
+            f"smaller segment budget")
+
+    def hard_split(word: str) -> list:
+        """The largest prefixes that fit, found by bisection; at least one
+        character each, so that any budget terminates."""
+        out, lo = [], 0
+        while lo < len(word):
+            best, lo_b, hi_b = lo + 1, lo + 1, len(word)
+            while lo_b <= hi_b:
+                mid = (lo_b + hi_b) // 2
+                if n_text(speaker, word[lo:mid]) < budget:
+                    best, lo_b = mid, mid + 1
+                else:
+                    hi_b = mid - 1
+            out.append(word[lo:best])
+            lo = best
+        return out
+
+    def fit_sentence(sentence: str) -> list:
+        """A sentence over the budget alone, split into word chunks that
+        fit (and a word over it by `hard_split`)."""
+        if n_text(speaker, sentence) < budget:
+            return [sentence]
+        parts, cur = [], []
+
+        def flush():
+            if cur:
+                parts.append(" ".join(cur))
+                cur.clear()
+
+        for w in sentence.split() or [sentence]:
+            if n_text(speaker, w) >= budget:
+                flush()
+                parts.extend(hard_split(w))
+                continue
+            if cur and n_text(speaker, " ".join(cur + [w])) >= budget:
+                flush()
+            cur.append(w)
+        flush()
+        return parts
+
+    sentences = [p for s in sentences for p in fit_sentence(s)]
+    ctx_lens = [seg_len(s) for s in ctx]
+    gap = (np.zeros((int(pause_ms * SAMPLING_RATE / 1000),), np.float32)
+           if pause_ms > 0 else None)
+    for sentence in sentences:
+        sent_tokens = n_text(speaker, sentence)
+        while ctx and sum(ctx_lens) + sent_tokens >= budget:
+            ctx.pop(0)  # the oldest context segment first
+            ctx_lens.pop(0)
+        audio = generate(model, sentence, speaker, tuple(ctx),
+                         max_audio_length_ms=max_segment_audio_ms,
+                         temperature=temperature, sampler=sampler,
+                         generator=generator, mimi=mimi)
+        if audio.shape[0] == 0:
+            continue
+        host_audio = audio.float().cpu().numpy()
+        if gap is not None and pieces:
+            pieces.append(gap)  # between pieces only, never a silent tail
+        pieces.append(host_audio)
+        if rolling_context > 0:
+            seg = Segment(speaker, sentence, host_audio)
+            ctx.append(seg)
+            ctx_lens.append(seg_len(seg))
+            ctx = ctx[-rolling_context:]
+            ctx_lens = ctx_lens[-rolling_context:]
+        else:
+            ctx, ctx_lens = [], []
+    if not pieces:
+        return torch.zeros((0,), dtype=torch.float32)
+    return torch.from_numpy(np.concatenate(pieces))
 
 
 class FrameState(tuple):
@@ -733,24 +935,14 @@ def stream_generate(
     frame ends the stream, its chunk unsent) and copies the frame's chunk
     out before it launches the next frame, so the card makes frame i+1
     while the caller takes chunk i, a float tensor on the CPU. `mimi` is
-    the codec, by default the `get_audio_tokenizer` singleton on the
-    model's device. Context audio needs the Mimi encoder, not ported yet:
-    a non-empty `context` raises."""
-    from csm_mlx_tpu_torch.tokenizers import (get_audio_tokenizer,
-                                              tokenize_text_segment)
-
-    if len(context):
-        raise NotImplementedError(
-            "stream_generate with context segments needs the Mimi encoder, "
-            "not ported yet (ROADMAP queue 1, item 3)")
+    the codec that encodes the context's audio and decodes the frames, by
+    default the `get_audio_tokenizer` singleton on the model's device."""
     args = model.args
     max_frames = int(max_audio_length_ms / FRAME_MS)
-    prompt, mask = tokenize_text_segment(text, speaker,
-                                         model.n_audio_codebooks)
+    codec = _codec_for(model, mimi)
+    prompt, mask = _assemble_prompt(model, text, speaker, context, codec)
     _check_context_window(args, prompt.shape[0], max_frames)
     tokens, mask, pad_len, bucket = _pad_prompt(prompt, mask)
-    codec = mimi if mimi is not None else get_audio_tokenizer(
-        model.n_audio_codebooks, device=model.device)
     with _frame_step(model, 1, bucket + max_frames,
                      _resolve_sampler(temperature, sampler),
                      tuple(logits_processors or ()), generator, codec=codec,

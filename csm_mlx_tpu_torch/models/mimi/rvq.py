@@ -1,10 +1,11 @@
-"""Split residual vector quantizer, decode half (port of
-`csm_mlx_tpu/models/mimi/rvq.py`).
+"""Split residual vector quantizer (port of `csm_mlx_tpu/models/mimi/rvq.py`).
 
 Codebooks are stored as running stats (embed_sum, cluster_usage); the
-embedding is embed_sum / max(cluster_usage, eps). Decode is an embedding
-sum over the codebooks and a 1x1 projection 256 -> 512. Encode is not
-ported yet.
+embedding is embed_sum / max(cluster_usage, eps). Both halves (1 semantic
+and N-1 acoustic codebooks) see the same latent. Encode projects it 512 ->
+256 and picks, codebook after codebook, the nearest entry to the residual;
+decode is an embedding sum over the codebooks and a 1x1 projection 256 ->
+512.
 """
 
 from __future__ import annotations
@@ -34,6 +35,46 @@ def _proj(p: Params, x: torch.Tensor) -> torch.Tensor:
     if w.dim() == 3:
         w = w[:, :, 0]
     return torch.einsum("bct,oc->bot", x, w.to(x.dtype))
+
+
+def _nearest(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """Nearest codebook index under L2. x: (..., D); embed: (V, D).
+
+    The argmax of 2 x.e - |e|^2 in fp32, as the JAX package computes it:
+    a distance (`torch.cdist`, an argmin of |x - e|^2) rounds otherwise,
+    and on a near tie picks another index, which changes the residual of
+    every later codebook."""
+    xf, ef = x.float(), embed.float()
+    scores = 2.0 * torch.einsum("...d,vd->...v", xf, ef) \
+        - torch.sum(ef * ef, dim=-1)
+    return torch.argmax(scores, dim=-1)
+
+
+def rvq_encode(params: Params, x: torch.Tensor,
+               num_quantizers: int) -> torch.Tensor:
+    """Residual encode. x: (B, C, T) -> codes (B, K, T) int64."""
+    if "input_proj" in params:
+        x = _proj(params["input_proj"], x)
+    residual = x.transpose(1, 2)  # (B, T, D)
+    codes = []
+    for layer in params["layers"][:num_quantizers]:
+        embed = codebook_embed(layer["codebook"])
+        idx = _nearest(residual, embed)
+        codes.append(idx)
+        residual = residual - embed[idx].to(residual.dtype)
+    return torch.stack(codes, dim=1)
+
+
+def split_rvq_encode(params: Params, x: torch.Tensor,
+                     num_quantizers: int) -> torch.Tensor:
+    """Split RVQ: the semantic and the acoustic half both quantize the
+    latent x (B, C, T) -> (B, num_quantizers, T)."""
+    n_sem = len(params["semantic"]["layers"])
+    codes = [rvq_encode(params["semantic"], x, n_sem)]
+    if num_quantizers > n_sem:
+        codes.append(rvq_encode(params["acoustic"], x,
+                                num_quantizers - n_sem))
+    return torch.cat(codes, dim=1)
 
 
 def rvq_decode(params: Params, codes: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Conversation segment (port of `csm_mlx_tpu/segment.py`).
 
-One turn: (speaker, text, audio | audio_path). Reading an audio file waits
-on the port of the audio tokenization (ROADMAP queue 1, item 3): a
-segment given only a path raises when its audio is asked for.
+One turn: (speaker, text, audio | audio_path). Audio given as a path is
+read, mixed to mono and resampled to 24 kHz (`utils.audio.read_audio`) the
+first time it is asked for, and kept: a long synthesis re-reads its
+context segments on every `generate` call.
 """
 
 from __future__ import annotations
@@ -30,9 +31,12 @@ class Segment:
     def audio(self) -> np.ndarray:
         if self._audio is not None:
             return self._audio
-        raise NotImplementedError(
-            f"reading {self.audio_path} is not ported yet (ROADMAP queue 1, "
-            f"item 3: audio tokenization)")
+        if self.audio_path is not None:
+            from csm_mlx_tpu_torch.utils.audio import read_audio
+
+            self._audio = read_audio(self.audio_path, SAMPLING_RATE)
+            return self._audio
+        raise ValueError("Neither 'audio' nor 'audio_path' is provided")
 
     @audio.setter
     def audio(self, value):

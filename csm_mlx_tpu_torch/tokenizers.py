@@ -1,11 +1,13 @@
-"""Text frames for the prompt and the codec singleton (port of
-`csm_mlx_tpu/tokenizers.py`, without the Mimi encoder).
+"""Prompt frames and the codec singleton (port of `csm_mlx_tpu/tokenizers.py`).
 
 The Llama-3.2 text tokenizer is read from a LOCAL path only (a directory
 holding `tokenizer.json`, or the file itself) with the `tokenizers`
 package, imported when first needed; the BOS/EOS template of the JAX
 package is applied. Tokens of "[speaker]text" go in column 32 of an
-(S, 33) frame, with a parallel 0/1 mask.
+(S, 33) frame, Mimi's codes of a turn's audio in columns 0-31 (one row a
+frame, and an all-zero EOS frame), each with a parallel 0/1 mask;
+`tokenize_segments_with_loss_mask` builds a conversation's rows and loss
+mask, `decode_audio` turns codes back into audio.
 
 As in the JAX package, `get_text_tokenizer` and `get_audio_tokenizer` keep
 one canonical instance each: a startup call with an explicit path installs
@@ -20,9 +22,10 @@ from __future__ import annotations
 import json
 import os
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 BOS = "<|begin_of_text|>"
 EOS = "<|end_of_text|>"
@@ -84,35 +87,38 @@ def get_text_tokenizer(path: Optional[str] = None):
 get_text_tokenizer.cache_clear = _TEXT_TOK_CACHE.clear
 
 
-_MIMI_CACHE: dict = {}  # (n_codebooks, device) -> Mimi
+_MIMI_CACHE: dict = {}  # (n_codebooks, device) -> (weights path | None, Mimi)
 
 
 def get_audio_tokenizer(n_audio_codebooks: int = 32,
                         weights: Optional[str] = None, *, device=None):
     """The Mimi codec singleton of a codebook count (and device, default
-    `cuda`). Random-init from seed 0 when no weights are given, as the JAX
-    package does when none resolve. A given path (`weights`, else
-    `CSM_TPU_MIMI_WEIGHTS`) that does not exist raises FileNotFoundError;
-    one that exists raises NotImplementedError until the checkpoint loader
-    is ported (ROADMAP queue 1, item 3)."""
+    `cuda`). A path (`weights`, else `CSM_TPU_MIMI_WEIGHTS`) is a local
+    checkpoint, loaded by `models.mimi.weights.load_mimi_checkpoint`: a
+    path that does not exist raises FileNotFoundError, a file the loader
+    cannot read raises its error, and no random-init codec is put in its
+    place. Without a path, a random-init codec from seed 0, as the JAX
+    package makes when none resolves. A startup call with a path installs
+    the instance that later calls without one share."""
     from csm_mlx_tpu_torch.device import resolve_device
     from csm_mlx_tpu_torch.models.mimi import Mimi, mimi_202407
+    from csm_mlx_tpu_torch.models.mimi.weights import load_mimi_checkpoint
 
     path = weights or os.environ.get(MIMI_WEIGHTS_ENV)
-    if path is not None:
-        if not os.path.exists(path):
-            raise FileNotFoundError(
-                f"Mimi weights not found: {path!r} (from the weights argument "
-                f"or {MIMI_WEIGHTS_ENV}); refusing to fall back to a "
-                f"random-init codec")
-        raise NotImplementedError(
-            f"loading Mimi weights ({path!r}) is not ported yet (ROADMAP "
-            f"queue 1, item 3: load_mimi_checkpoint)")
+    if path is not None and not os.path.exists(path):
+        raise FileNotFoundError(
+            f"Mimi weights not found: {path!r} (from the weights argument "
+            f"or {MIMI_WEIGHTS_ENV}); refusing to fall back to a random-init "
+            f"codec")
     key = (n_audio_codebooks, str(resolve_device(device)))
-    if key not in _MIMI_CACHE:
-        _MIMI_CACHE[key] = Mimi(mimi_202407(n_audio_codebooks),
-                                device=key[1])
-    return _MIMI_CACHE[key]
+    cached = _MIMI_CACHE.get(key)
+    if cached is not None and (path is None or cached[0] == path):
+        return cached[1]
+    cfg = mimi_202407(n_audio_codebooks)
+    params = None if path is None else load_mimi_checkpoint(
+        path, cfg, device=key[1])
+    _MIMI_CACHE[key] = (path, Mimi(cfg, params=params, device=key[1]))
+    return _MIMI_CACHE[key][1]
 
 
 get_audio_tokenizer.cache_clear = _MIMI_CACHE.clear
@@ -129,3 +135,75 @@ def tokenize_text_segment(text: str, speaker: int, n_audio_codebooks: int = 32
     frame[:, -1] = np.asarray(ids, dtype=np.int32)
     mask[:, -1] = 1
     return frame, mask
+
+
+def _codec(n_audio_codebooks: int, mimi):
+    return mimi if mimi is not None else get_audio_tokenizer(n_audio_codebooks)
+
+
+def tokenize_audio(audio, *, n_audio_codebooks: int = 32, mimi=None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """24 kHz mono audio -> ((F+1, K+1) frames with the all-zero EOS frame,
+    mask), through the codec `mimi`, by default the singleton on the
+    card."""
+    audio = np.asarray(audio, dtype=np.float32)
+    if audio.ndim == 0 or sum(d > 1 for d in audio.shape) > 1:
+        # a blind reshape(-1) would interleave stereo channels into one
+        # double-speed waveform and encode it without any error
+        raise ValueError(
+            f"tokenize_audio expects mono 1-D audio, got shape "
+            f"{audio.shape}; downmix or select a channel first")
+    codec = _codec(n_audio_codebooks, mimi)
+    codes = codec.encode(torch.from_numpy(audio.reshape(1, 1, -1)))[0]
+    codes = codes.to(torch.int32).cpu().numpy()  # (K, F)
+    f = codes.shape[1] + 1  # and the EOS frame
+    frame = np.zeros((f, n_audio_codebooks + 1), dtype=np.int32)
+    mask = np.zeros((f, n_audio_codebooks + 1), dtype=np.int32)
+    frame[:-1, :-1] = codes.T
+    mask[:, :-1] = 1
+    return frame, mask
+
+
+def tokenize_segment(segment, *, n_audio_codebooks: int = 32, mimi=None
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """A turn's text rows, then its audio rows -> ((S, K+1), mask)."""
+    text_tokens, text_masks = tokenize_text_segment(
+        segment.text, segment.speaker, n_audio_codebooks)
+    audio_tokens, audio_masks = tokenize_audio(
+        segment.audio, n_audio_codebooks=n_audio_codebooks, mimi=mimi)
+    return (np.concatenate([text_tokens, audio_tokens]).astype(np.int32),
+            np.concatenate([text_masks, audio_masks]).astype(np.int32))
+
+
+def tokenize_segments_with_loss_mask(
+        segments: List, *, n_audio_codebooks: int = 32,
+        mask_speaker_ids: List[int], max_audio_length_ms: Optional[int],
+        mimi=None) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A conversation's turns, concatenated -> (tokens, masks, loss masks);
+    the loss mask is 0 on the rows of `mask_speaker_ids`' turns, and every
+    array is cut to max_audio_length_ms / 80 rows."""
+    tokens_list, masks_list = zip(*[
+        tokenize_segment(s, n_audio_codebooks=n_audio_codebooks, mimi=mimi)
+        for s in segments])
+    tokens = np.concatenate(tokens_list, axis=0)
+    masks = np.concatenate(masks_list, axis=0)
+    loss_masks = np.ones_like(tokens)
+    pos = 0
+    for seg_tokens, segment in zip(tokens_list, segments):
+        n = seg_tokens.shape[0]
+        if segment.speaker in mask_speaker_ids:
+            loss_masks[pos:pos + n] = 0
+        pos += n
+    if max_audio_length_ms is not None:
+        max_rows = int(max_audio_length_ms / 80)
+        tokens = tokens[:max_rows]
+        masks = masks[:max_rows]
+        loss_masks = loss_masks[:max_rows]
+    return tokens, masks, loss_masks
+
+
+def decode_audio(audio_tokens, *, n_audio_codebooks: int = 32, mimi=None
+                 ) -> torch.Tensor:
+    """(B, K, F) codes -> (B, 1, F * frame_size) waveform, through the codec
+    `mimi`, by default the singleton on the card."""
+    return _codec(n_audio_codebooks, mimi).decode(audio_tokens)

@@ -839,3 +839,86 @@ def test_kernels_read_their_scalars_from_device_memory(cuda_device):
         picks.append(toks.clone())
     assert not torch.equal(picks[0], picks[1])
     assert torch.equal(picks[0], picks[2])  # the same seed, the same draw
+
+
+# --- context audio: the Mimi encoder and generate(context=...) --------------
+
+
+def _tiny_codec(device):
+    from csm_mlx_tpu_torch.models.mimi import Mimi, MimiConfig
+
+    cfg = MimiConfig(sampling_rate=240, hidden_size=16, num_filters=4,
+                     upsampling_ratios=(4, 3), codebook_size=32,
+                     codebook_dim=8, num_quantizers=8, upsample_groups=16,
+                     num_hidden_layers=2, intermediate_size=32,
+                     num_attention_heads=2, num_key_value_heads=2,
+                     head_dim=8, sliding_window=6, frame_rate=10.0)
+    return Mimi(cfg, generator=torch.Generator(device=device).manual_seed(4),
+                device=device)
+
+
+def test_mimi_encoder_on_card_matches_cpu(cuda_device, monkeypatch):
+    """The tiny codec's encode on the card against its CPU copy (fp32, TF32
+    off: sum order only): the latent within 1e-5 of its largest magnitude,
+    the codes equal; the streamed encode_step equals the batch encode."""
+    from csm_mlx_tpu_torch.models.mimi import Mimi
+    from csm_mlx_tpu_torch.models.mimi.mimi import mimi_encode_latent
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    card = _tiny_codec(cuda_device)
+    cpu = Mimi(card.cfg, params=_to_cpu(card.params))
+    fs, f = card.frame_size, 20
+    audio = torch.from_numpy((0.5 * np.random.RandomState(8).randn(
+        2, 1, f * fs)).astype(np.float32))
+    want = mimi_encode_latent(cpu.params, cpu.cfg, audio)
+    got = mimi_encode_latent(card.params, card.cfg, audio.to(cuda_device))
+    err = (got.cpu() - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+    codes = card.encode(audio)
+    assert codes.device.type == "cuda" and codes.shape == (2, 8, f)
+    assert torch.equal(codes.cpu(), cpu.encode(audio))
+    state = card.init_encode_state(batch=2)
+    streamed = torch.cat([card.encode_step(audio[:, :, i * fs:(i + 1) * fs],
+                                           state)[0] for i in range(f)],
+                         dim=-1)
+    assert torch.equal(streamed, codes)
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+def test_generate_with_context_through_the_captured_step(cuda_device,
+                                                         monkeypatch):
+    """generate(context=...) on the card: the context's audio encoded on the
+    card into the prompt, the frames through the replayed graph (one
+    kernel-3 launch a frame), the waveform equal to the decode of the eager
+    step's frames of the same prompt."""
+    from csm_mlx_tpu_torch import generation, tokenizers
+    from csm_mlx_tpu_torch.segment import Segment
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    model = resident_model("tiny", cuda_device)
+    mimi = _tiny_codec(cuda_device)
+    prompt, mask = _prompt(model.args, 9, 9)
+    monkeypatch.setattr(tokenizers, "tokenize_text_segment",
+                        lambda *a: (prompt, mask))
+    audio = (0.3 * np.sin(np.arange(5 * mimi.frame_size) * 0.3)).astype(
+        np.float32)
+    ctx = [Segment(1, "before", audio)]
+    before = resident.resident_decode_frame.launches
+    wav = generation.generate(model, "t", 0, ctx, 1600, temperature=0.0,
+                              mimi=mimi)
+    launched = resident.resident_decode_frame.launches - before
+    full, full_mask = generation._assemble_prompt(model, "t", 0, ctx, mimi)
+    assert full.shape[0] == 9 + 6 + 9 and full[9:14, :-1].any()
+    frames, n = generation.generate_tokens(model, full, full_mask, 20,
+                                           temperature=0.0, _eager_step=True)
+    want = mimi.decode(torch.from_numpy(frames.T[None].copy()))[0, 0]
+    assert n >= 1 and launched == (n if n == 20 else n + 1)  # and EOS's
+    assert wav.shape == (n * mimi.frame_size,) and torch.equal(wav, want)

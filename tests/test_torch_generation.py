@@ -2,6 +2,8 @@
 configs) — frames, EOS, the context-window guard, W8A8 teacher-forced
 logits — and the Mimi decode."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +33,7 @@ from csm_mlx_tpu_torch.ops.attention import causal_mask_bias as tcausal
 from csm_mlx_tpu_torch.ops.kv_cache import KVCache as TKVCache
 from csm_mlx_tpu_torch.ops.layers import linear as tlinear
 from csm_mlx_tpu_torch.ops.rope import rope_cache_for as trope_cache
+from csm_mlx_tpu_torch.segment import Segment
 
 
 @pytest.fixture(scope="module")
@@ -243,8 +246,6 @@ def fresh_tokenizers(monkeypatch):
 def test_generate_text_to_waveform(base_params, tmp_path, fresh_tokenizers):
     """`generate` = the canonical local-path text tokenizer (BOS/EOS
     template, text in column 32) + `generate_tokens` + Mimi decode."""
-    import dataclasses
-
     ttok = fresh_tokenizers
     ttok.get_text_tokenizer(_word_tokenizer(tmp_path))  # installs it
     prompt, mask = ttok.tokenize_text_segment("hello world", 0, 8)
@@ -291,9 +292,10 @@ def test_generate_in_jax_argument_order(base_params, tmp_path, monkeypatch,
     """`generate(model, text, speaker, context, max_audio_length_ms,
     mimi=...)` as JAX calls it, with the codec from the
     `get_audio_tokenizer` singleton when none is given: one random-init
-    codec per codebook count and device; a given weights path raises
-    (FileNotFoundError when it is missing, NotImplementedError until the
-    loader is ported), and so does context audio."""
+    codec per codebook count and device. Context audio is encoded into the
+    prompt: the frames are `generate_tokens`' on `_assemble_prompt`'s rows.
+    A given weights path that is missing raises FileNotFoundError, one the
+    loader cannot read its ValueError."""
     ttok = fresh_tokenizers
     monkeypatch.setenv(ttok.TEXT_TOKENIZER_ENV, _word_tokenizer(tmp_path))
     tm = torch_model_from_jax(_jax_model(base_params))
@@ -313,12 +315,27 @@ def test_generate_in_jax_argument_order(base_params, tmp_path, monkeypatch,
     torch.testing.assert_close(wav, want, rtol=0, atol=0)
     torch.testing.assert_close(default, wav, rtol=0, atol=0)
 
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tgen.generate(tm, "hello world", 0, [object()], 800, mimi=codec)
+    # context audio, through a codec whose codes lie in the tiny model's
+    # audio vocabulary (the singleton's 2048 entries do not)
+    small = TMimi(mimi_config_from(dataclasses.replace(TINY_MIMI,
+                                                       num_quantizers=8)),
+                  generator=torch.Generator().manual_seed(5), device="cpu")
+    ctx = [Segment(1, "before", np.sin(np.arange(2 * small.frame_size)
+                                       * 0.5).astype(np.float32) * 0.3)]
+    wav = tgen.generate(tm, "hello world", 0, ctx, 800, mimi=small,
+                        temperature=0)
+    prompt, mask = tgen._assemble_prompt(tm, "hello world", 0, ctx, small)
+    t = ttok.tokenize_text_segment("before", 1, 8)[0].shape[0]
+    assert prompt.shape[0] == t + 3 + 7  # text, 2 frames + EOS, text
+    assert prompt[t:t + 2, :-1].any() and not prompt[t + 2].any()
+    frames, n = tgen.generate_tokens(tm, prompt, mask, 10, temperature=0.0)
+    want = small.decode(torch.from_numpy(frames.T[None].copy()))[0, 0]
+    assert n >= 1 and wav.shape == (n * small.frame_size,)
+    torch.testing.assert_close(wav, want, rtol=0, atol=0)
     with pytest.raises(FileNotFoundError):
         ttok.get_audio_tokenizer(8, str(tmp_path / "missing.safetensors"))
     weights = tmp_path / "mimi.safetensors"
     weights.write_bytes(b"")
     monkeypatch.setenv(ttok.MIMI_WEIGHTS_ENV, str(weights))
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(ValueError, match="safetensors"):
         ttok.get_audio_tokenizer(8, device="cpu")

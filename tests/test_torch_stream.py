@@ -24,11 +24,13 @@ from csm_mlx_tpu.models import csm as jcsm
 from csm_mlx_tpu.models.mimi import Mimi as JMimi
 from csm_mlx_tpu.ops import quant as jquant
 from csm_mlx_tpu.ops import sampling as jsampling
+from csm_mlx_tpu.segment import Segment as JSegment
 from csm_mlx_tpu_torch import generation as tgen
 from csm_mlx_tpu_torch import tokenizers as ttok
 from csm_mlx_tpu_torch.bridge import mimi_config_from
 from csm_mlx_tpu_torch.models.mimi import Mimi as TMimi
 from csm_mlx_tpu_torch.ops import sampling as tsampling
+from csm_mlx_tpu_torch.segment import Segment as TSegment
 
 
 @pytest.fixture(scope="module")
@@ -111,6 +113,7 @@ def test_stream_generate_equals_jax_and_generate(jax_model, monkeypatch):
     jmimi = JMimi(mcfg, rng=jax.random.PRNGKey(33))
     tmimi = TMimi(mimi_config_from(mcfg), params=to_torch(jmimi.params))
     prompt, mask = text_prompt(jm.args, 7, seed=6)
+    jassemble = jgen._assemble_prompt
     monkeypatch.setattr(jgen, "_assemble_prompt",
                         lambda *a: (prompt, mask))
     monkeypatch.setattr(jtok, "get_audio_tokenizer", lambda *a: jmimi)
@@ -134,8 +137,27 @@ def test_stream_generate_equals_jax_and_generate(jax_model, monkeypatch):
                         temperature=0.0, mimi=tmimi)
     np.testing.assert_allclose(torch.cat(got).numpy(), wav.numpy(),
                                rtol=1e-4, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        next(tgen.stream_generate(tm, "hi", 0, [object()], mimi=tmimi))
+    # with a context segment: its rows (the stand-in prompt, the codes of
+    # its audio and the EOS frame) go before the text's, in both packages
+    monkeypatch.setattr(jgen, "_assemble_prompt", jassemble)
+    monkeypatch.setattr(jtok, "tokenize_text_segment",
+                        lambda *a: (prompt, mask))
+    audio = (0.3 * np.sin(np.arange(3 * mcfg.frame_size) * 0.07)).astype(
+        np.float32)
+    jgen._build_stream_fns.cache_clear()
+    try:
+        want = [np.asarray(c) for c in jgen.stream_generate(
+            jm, "hi", 0, [JSegment(1, "ctx", audio)],
+            max_audio_length_ms=480, temperature=0.0,
+            key=jax.random.PRNGKey(0))]
+    finally:
+        jgen._build_stream_fns.cache_clear()
+    got = list(tgen.stream_generate(tm, "hi", 0, [TSegment(1, "ctx", audio)],
+                                    max_audio_length_ms=480, temperature=0.0,
+                                    mimi=tmimi))
+    assert len(got) == len(want) >= 1
+    np.testing.assert_allclose(np.stack([c.numpy() for c in got]),
+                               np.stack(want), rtol=1e-4, atol=1e-5)
 
 
 def test_generate_tokens_with_filters_and_penalty_equals_jax(jax_model):

@@ -23,6 +23,17 @@ def to_torch(tree, dtype=None):
     return bridge.tree_to_torch(jax.device_get(tree), dtype=dtype)
 
 
+def to_jax(tree):
+    """A tree of the port's tensors -> the same tree of JAX arrays (through
+    numpy): the port's random init is fast where JAX's compiles an op per
+    shape."""
+    if isinstance(tree, dict):
+        return {k: to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_jax(v) for v in tree]
+    return jax.numpy.asarray(tree.detach().cpu().numpy())
+
+
 def torch_model_from_jax(model, dtype=torch.float32) -> TorchCSM:
     a = model.args
     args = TorchModelArgs(a.backbone_name, a.decoder_name, a.n_text_vocab,
