@@ -53,6 +53,27 @@ captured and eager alternated, the prefill's device ms,
 chunk timed, and `generate_batch` of 4 rows with 0, 1, 2 and 2 context
 segments.
 
+Serving: the continuous engine (`continuous.ContinuousEngine`) at its
+defaults, 64 slots and blocks of K = 8 frames, each block one replayed
+CUDA graph per KV bucket, on CSM-1B W8A8 with Mimi(32): two context
+requests (a 512-row prompt bucket: kernel 2 and kernel 1's GEMM route in
+their admission) and 96 32-row requests of 10-60 frames, 64 admitted at
+once and the rest as slots free, then 8 short ones (a bucket grow, an
+eager rebase and a shrink): frames a second, the aggregate RTF, the first
+chunk's p50 and p90, kernel 3 exactly once a frame stepped; a first-wave
+request's chunks against the batch decode; 8 requests against their solo
+`generate_tokens` runs (each first difference a near tie); kernel 4
+against its plain version on the engine's cache as a bucket's graph reads
+it (a prefix view, the engine's pads); captured blocks against eager ones
+(equal frames and chunks), a block's device time by part (the engine's
+own eager block, with its timing marks), the PCM16 transfer, T = 0.8 (new
+draws each replay) and kernel 4 (`flash_decode_min_b=8`) on and off,
+alternated, with ms a block and its frames against the engine's without
+it (equal or a near tie); then both servers, as the `serve` CLI's flags
+make them, through `serve_http` (POST /tts, POST /tts-stream against it,
+GET /stats, a 503 past --max-pending) and `--watermark-key` on one
+request through each, the mark detected on the card and on the CPU.
+
 Then the MLX-affine and batch flash-decode paths: kernel 5 (the
 grouped-affine matvec) against its plain version at the quantized
 linears' shapes, 4- and 8-bit, group 64 (and 128), B = 1, 2, 8, 16, 32,
@@ -253,6 +274,22 @@ ENCODE_LATENT_TOL = 1e-4
 ENCODE_MIN_AGREEMENT = 0.99
 ENCODE_TIE = 1e-3
 SAMPLED_FRAMES = 40  # frames of the T = 0.8 captured run
+# The serving phase: the continuous engine at its defaults (64 slots,
+# K = 8 frames a block, prompt buckets up to 512) takes SERVE_REQUESTS
+# 32-row prompts with max_frames drawn in SERVE_FRAMES, the first 64 at once
+# and the rest as slots free, and the two context requests of run_context
+# for SERVE_CONTEXT_FRAMES frames (their low pads hold the index up, so the
+# KV bucket grows); then SERVE_TAIL short requests (an eager rebase and a
+# shrink).
+SERVE_SLOTS, SERVE_K = 64, 8
+SERVE_REQUESTS, SERVE_FRAMES, SERVE_CONTEXT_FRAMES = 96, (10, 60), 300
+SERVE_TAIL = 8
+SERVE_SOLO = 8      # requests held to their solo runs
+SERVE_AB_FRAMES = 48  # frames a request of the captured/eager A/B (6 blocks)
+SERVE_AB_CAP = 64     # max_frames of the A/B engines (capacity 704)
+SERVE_SAMPLED_FRAMES = 40
+SERVE_HTTP_MS = 1600  # audio a request of the HTTP servers
+WATERMARK_KEY, WATERMARK_MS = 7, 3200
 PROFILE_FRAMES = 4  # frames a profiled frame-step run
 # device kernels of a wrapper, by a part of their name: one per launch
 PROFILED_KERNELS = {
@@ -393,9 +430,9 @@ def check_w8a8(dev, gen) -> dict:
     same int32 products (exact) and the same fp32 fix-up, up to the order of
     the fp32 row sum; bf16 outputs may then differ by one bf16 step:
     tolerance 2**-7 of each value plus 1e-3 of the output's largest
-    magnitude. Above 64 rows: the route's launches, its bound and
-    `torch._int_mm`'s time; the 512-row gate-up beside its recorded time
-    before the GEMM route."""
+    magnitude. Above 64 rows: the route's launches; at 64 rows (the serving
+    engine's slots) and above: the bound and `torch._int_mm`'s time; the
+    512-row gate-up beside its recorded time before the GEMM route."""
     worst, timing = 0.0, None
     for name, (in_dim, out_dim) in W8A8_SHAPES.items():
         w = torch.randn((out_dim, in_dim), generator=gen, device=dev) * 0.02
@@ -441,7 +478,8 @@ def check_w8a8(dev, gen) -> dict:
                 gbs = in_dim * out_dim / (ms_k * 1e-3) / 1e9
                 route = ("tensor cores" if routed else "matvec")
                 extra = ""
-                if routed:
+                # the GEMM route, and 64 rows: the continuous engine's slots
+                if routed or rows == quant.W8A8_MATVEC_MAX_ROWS:
                     esz = x.element_size()
                     n_bytes = (in_dim * out_dim + 8 * out_dim
                                + rows * (in_dim + out_dim) * esz)
@@ -1760,6 +1798,17 @@ def context_text_rows(text: str, n_text_vocab: int):
     return synthetic_prompt(8 + len(text) % 16, n_text_vocab, seed)
 
 
+def context_segments() -> list:
+    """The two context segments (10 s and 8 s `smoke_wave`s, speakers 0
+    and 1)."""
+    from csm_mlx_tpu_torch.segment import Segment
+
+    return [Segment(0, "It rained all morning, then the sun came out.",
+                    smoke_wave(CONTEXT_SECONDS[0], SEED + 300)),
+            Segment(1, "We walked down to the river after lunch.",
+                    smoke_wave(CONTEXT_SECONDS[1], SEED + 301))]
+
+
 def run_context(model: CSM, mimi: Mimi) -> dict:
     """Voice-prompted generation at full CSM-1B width, W8A8, greedy: two
     context segments (10 s and 8 s `smoke_wave`s, speakers 0 and 1) and a
@@ -1775,20 +1824,11 @@ def run_context(model: CSM, mimi: Mimi) -> dict:
     `generate_batch` of 4 rows with 0, 1, 2 and 2 context segments (gates:
     finite audio of the rows' lengths, equal frames captured and eager)
     and, no gate, how many rows' first frames equal their solo run."""
-    from csm_mlx_tpu_torch import tokenizers as port_tokenizers
-    from csm_mlx_tpu_torch.segment import Segment
-
     args = model.args
     card = card_info()
-    ctx = [Segment(0, "It rained all morning, then the sun came out.",
-                   smoke_wave(CONTEXT_SECONDS[0], SEED + 300)),
-           Segment(1, "We walked down to the river after lunch.",
-                   smoke_wave(CONTEXT_SECONDS[1], SEED + 301))]
+    ctx = context_segments()
     text = "And the water was higher than I have ever seen it."
-    saved = port_tokenizers.tokenize_text_segment
-    port_tokenizers.tokenize_text_segment = \
-        lambda text, *_: context_text_rows(text, args.n_text_vocab)
-    try:
+    with with_text_rows(model):
         assemble_ms = []
         for _ in range(3):  # the two context encodes and the rows
             t0 = time.perf_counter()
@@ -1881,8 +1921,6 @@ def run_context(model: CSM, mimi: Mimi) -> dict:
                 or not all(bool(torch.isfinite(w).all()) for w in wavs):
             raise AssertionError("generate_batch rows are not finite audio "
                                  "of their frames' lengths")
-    finally:
-        port_tokenizers.tokenize_text_segment = saved
     first = {("eager" if e else "captured"): (
         float(np.percentile(v, 50)), float(np.percentile(v, 90)))
         for e, v in firsts.items()}
@@ -2661,6 +2699,769 @@ def check_training_vs_plain(dev) -> None:
                              "disagrees with the masked sdpa")
 
 
+# --- serving: the continuous engine, the servers, HTTP, the watermark -------
+
+
+def serving_engine(model: CSM, mimi, seed: int, **kw):
+    """A `ContinuousEngine` at the serving defaults (64 slots, K = 8,
+    prompt buckets up to 512, greedy) with its own seeded generator."""
+    from csm_mlx_tpu_torch.continuous import ContinuousEngine
+
+    kw.setdefault("n_slots", SERVE_SLOTS)
+    kw.setdefault("frames_per_step", SERVE_K)
+    kw.setdefault("temperature", 0.0)
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    return ContinuousEngine(model, mimi=mimi, generator=gen, **kw)
+
+
+def with_text_rows(model: CSM):
+    """A context manager replacing the text tokenizer (absent on the card's
+    machine) with `context_text_rows`."""
+    import contextlib
+
+    from csm_mlx_tpu_torch import tokenizers as port_tokenizers
+
+    @contextlib.contextmanager
+    def swap():
+        saved = port_tokenizers.tokenize_text_segment
+        port_tokenizers.tokenize_text_segment = \
+            lambda text, *_: context_text_rows(text, model.args.n_text_vocab)
+        try:
+            yield
+        finally:
+            port_tokenizers.tokenize_text_segment = saved
+
+    return swap()
+
+
+def serving_spreads(model: CSM, prompts, frames0: np.ndarray) -> tuple:
+    """The size of two noises in the logits, each (c0, decoder): the
+    layout's, the std of the differences between one backbone step of each
+    prompt as a solo run takes it (B = 1, its own cache of prompt bucket +
+    the longest request's frames) and as the engine takes it (the prompts
+    prefilled together, spliced below index 512 of a 768-slot bucket, the
+    pads shifted), both from the same first frames `frames0`; and kernel
+    4's, the std of the differences between the engine's step through
+    kernel 4 and through the masked attention on that same cache. Logits:
+    c0's and, teacher-forced on the solo run's kernel-3 tokens, the plain
+    decoder's. Returns (layout, kernel 4)."""
+    args, params, dev = model.args, model.params, model.device
+    bcfg = args.backbone_config
+    cos_b, sin_b = rope_cache_for(bcfg, bcfg.max_position_embeddings, dev)
+    padded = [generation._pad_prompt(p, m) for p, m in prompts]
+    tok = torch.from_numpy(np.concatenate([x[0] for x in padded])).long()
+    msk = torch.from_numpy(np.concatenate([x[1] for x in padded])).long()
+    pad = torch.from_numpy(np.concatenate([x[2] for x in padded])).long()
+    tok, msk, pad = tok.to(dev), msk.to(dev), pad.to(dev)
+    n, p = tok.shape[0], tok.shape[1]
+    tk, mk = generation._frame_to_next_input(
+        torch.from_numpy(frames0).long().to(dev))
+    index, bucket = 512, 768
+
+    def cache(b, cap):
+        return KVCache.init(bcfg, b, cap, dtype=model.dtype, device=dev)
+
+    with torch.no_grad():
+        hs = []
+        for i in range(n):
+            c = cache(1, p + SERVE_FRAMES[1])
+            generation._prefill(params, args, tok[i:i + 1], msk[i:i + 1],
+                                pad[i:i + 1], c, cos_b, sin_b)
+            hs.append(generation._backbone_step(
+                params, args, tk[i:i + 1], mk[i:i + 1], pad[i:i + 1], c,
+                cos_b, sin_b)[0])
+        hs = torch.cat(hs)
+        rows = cache(n, p)
+        generation._prefill(params, args, tok, msk, pad, rows, cos_b, sin_b)
+        big = cache(n, bucket)
+        big.k[:, :, :, index - p:index].copy_(rows.k)
+        big.v[:, :, :, index - p:index].copy_(rows.v)
+        hb = []
+        for flash in (None, 1):  # each step writes its own slot `index`
+            big.index.fill_(index)
+            big.length = index
+            hb.append(generation._backbone_step(
+                params, args, tk, mk, pad + index - p, big, cos_b, sin_b,
+                flash)[0])
+        hb, hb4 = hb
+        lb = linear(params["codebook0_head"], hb).float()
+        lb4 = linear(params["codebook0_head"], hb4).float()
+        ls = linear(params["codebook0_head"], hs).float()
+        c0 = ls.argmax(-1)
+
+        def proj(h):
+            x01 = torch.stack([h, embed_audio(params, args, 0, c0)
+                               .to(h.dtype)], dim=1)
+            return linear(params["projection"], x01).float().transpose(
+                0, 1).contiguous()
+
+        ps = proj(hs)
+        toks = resident.resident_decode_frame(
+            params["_resident"], args, ps,
+            torch.zeros((), dtype=torch.int32, device=dev), 0.0)
+        ds, db, db4 = (resident.resident_decode_frame_plain(
+            params["_resident"], args, x, 0.0, forced=toks.long())[1]
+            for x in (ps, proj(hb), proj(hb4)))
+    return (((lb - ls).std().item(), (db - ds).std().item()),
+            ((lb4 - lb).std().item(), (db4 - db).std().item()))
+
+
+def first_pick_margins(model: CSM, prompts, gots, wants,
+                       kernel4: bool = False) -> list:
+    """For each request, its prompt (rows, mask), the frames `got` of the
+    run under test and the reference frames `want`, which differ: the
+    logits of a solo run at the first pick where they differ, teacher-forced
+    on `want` before it, as (frame, codebook, kind, top logit - `got`'s
+    pick's logit, one unit in the last place of the top logit in the
+    logits' dtype, noise). With `kernel4`, each step also runs through
+    kernel 4 on the same cache first, and `noise` is the std over the
+    vocabulary of the pick's logits through kernel 4 less those through
+    the masked attention (0 at frame 0, the admission's); else 0. The
+    requests are stepped together, rows of one prompt bucket; kernel 1
+    quantizes each row alone."""
+    args, params, dev = model.args, model.params, model.device
+    bcfg = args.backbone_config
+    firsts = []
+    for got, want in zip(gots, wants):
+        common = min(len(got), len(want))
+        diff = np.argwhere(got[:common] != want[:common])
+        if not len(diff):
+            raise AssertionError(f"a request of {len(got)} frames ends apart "
+                                 f"from its reference of {len(want)}")
+        firsts.append(tuple(int(v) for v in diff[0]))
+    padded = [generation._pad_prompt(p, m) for p, m in prompts]
+    if len({x[3] for x in padded}) != 1:
+        raise ValueError("first_pick_margins steps prompts of one bucket")
+    tokens, masks, pad = (
+        torch.from_numpy(np.concatenate([x[i] for x in padded])).long().to(dev)
+        for i in range(3))
+    last = max(f for f, _ in firsts)
+    cap = padded[0][3] + last + 1
+    cos_b, sin_b = rope_cache_for(bcfg, max(cap, bcfg.max_position_embeddings),
+                                  dev)
+    cache = KVCache.init(bcfg, len(prompts), cap, dtype=model.dtype,
+                         device=dev)
+    at = [None] * len(prompts)  # each row's hidden state at its frame
+    at4 = [None] * len(prompts)  # and through kernel 4
+    with torch.no_grad():
+        h, _ = generation._prefill(params, args, tokens, masks, pad, cache,
+                                   cos_b, sin_b)
+        h4 = h
+        for i in range(last + 1):
+            for r, (f, _) in enumerate(firsts):
+                if f == i:
+                    at[r], at4[r] = h[r], h4[r]
+            if i == last:
+                break
+            # teacher-forced on want; a row past its frame repeats it
+            frame = torch.from_numpy(np.stack(
+                [w[min(i, f)] for w, (f, _) in zip(wants, firsts)])).long()
+            tk, mk = generation._frame_to_next_input(frame.to(dev))
+            index = cache.length
+            if kernel4:  # then the masked step rewrites the slot it wrote
+                h4, _ = generation._backbone_step(params, args, tk, mk, pad,
+                                                  cache, cos_b, sin_b, 1)
+                cache.index.fill_(index)
+                cache.length = index
+            h, _ = generation._backbone_step(params, args, tk, mk, pad,
+                                             cache, cos_b, sin_b)
+            h4 = h4 if kernel4 else h
+        c0 = torch.tensor([int(w[f, 0]) for w, (f, _) in zip(wants, firsts)],
+                          device=dev)
+        forced = torch.from_numpy(np.stack(
+            [g[f] for g, (f, _) in zip(gots, firsts)]).T.copy()).long()
+        logits = []
+        for hid in (torch.stack(at), torch.stack(at4)):
+            c0_logits = linear(params["codebook0_head"], hid)
+            x01 = torch.stack([hid, embed_audio(params, args, 0, c0)
+                               .to(hid.dtype)], dim=1)
+            proj01 = linear(params["projection"], x01).float().transpose(
+                0, 1).contiguous()
+            _, dec = resident.resident_decode_frame_plain(
+                params["_resident"], args, proj01, 0.0, forced=forced.to(dev))
+            logits.append((c0_logits, dec))
+    out = []
+    for r, (f, c) in enumerate(firsts):
+        pick = [c0l[r] if c == 0 else dec[c - 1, r] for c0l, dec in logits]
+        top = pick[0].float().max().item()
+        ulp = torch.finfo(pick[0].dtype).eps * 2.0 ** float(np.floor(
+            np.log2(max(abs(top), 1e-30))))
+        margin = top - pick[0][int(gots[r][f, c])].float().item()
+        noise = (pick[1].float() - pick[0].float()).std().item()
+        out.append((f, c, "c0" if c == 0 else "decoder", margin, ulp, noise))
+    return out
+
+
+def near_ties(model: CSM, prompts, gots, wants, spreads: tuple,
+              kernel4: bool = False) -> tuple:
+    """(requests whose frames equal the reference's, [(request, frame,
+    codebook, margin, margin in spreads)] of the others). A first
+    difference is a near tie when its margin is at most one unit in the
+    last place of the top logit or under 4 spreads; the spread, the layout
+    noise of `serving_spreads` (c0, decoder) for the codebook and, with
+    `kernel4`, kernel 4's noise on that pick (`first_pick_margins`), in
+    quadrature. Returns (equal, lines, every first difference a near
+    tie)."""
+    apart = [i for i, (g, w) in enumerate(zip(gots, wants))
+             if not np.array_equal(g, w)]
+    lines, ties = [], True
+    if apart:
+        margins = first_pick_margins(model, [prompts[i] for i in apart],
+                                     [gots[i] for i in apart],
+                                     [wants[i] for i in apart], kernel4)
+        for i, (f, c, kind, margin, ulp, noise) in zip(apart, margins):
+            spread = max(float(np.hypot(
+                spreads[0] if kind == "c0" else spreads[1], noise)), 1e-12)
+            ties &= margin <= ulp or margin < 4 * spread
+            lines.append((i, f, c, f"{margin:.4g}", margin / spread)
+                         + ((f"noise {noise:.4g}",) if kernel4 else ())
+                         + (("one ulp",) if margin <= ulp else ()))
+    return len(gots) - len(apart), lines, ties
+
+
+def run_serving(model: CSM, mimi: Mimi) -> dict:
+    """The continuous engine at its defaults on full-width CSM-1B W8A8 with
+    Mimi(32), greedy: the two context requests of run_context (a 512-row
+    bucket: kernel 2 and kernel 1's GEMM route in their admission) and
+    SERVE_REQUESTS 32-row prompts with max_frames from a seed, all
+    submitted at once (64 admitted in the first drive, the rest as slots
+    free), then SERVE_TAIL short ones. Gates: an admission burst of 64,
+    slot reuse, a bucket grow, a rebase and a shrink with no capture of a
+    bucket twice; kernels 1 (both routes), 2 and 3 launched, kernel 3
+    exactly once a frame stepped and once an admission; a first-wave
+    request's chunks within STREAM_TOL of the batch decode of its frames
+    (a recycled row's within the JAX test's 2e-3); SERVE_SOLO requests
+    against their solo `generate_tokens` runs, each first difference a near
+    tie (a margin under 4 spreads of the layout noise)."""
+    args, dev, card = model.args, model.device, card_info()
+    rng = np.random.RandomState(SEED + 400)
+    reqs = [(*synthetic_prompt(32, args.n_text_vocab, SEED + 500 + i),
+             int(rng.randint(SERVE_FRAMES[0], SERVE_FRAMES[1] + 1)))
+            for i in range(SERVE_REQUESTS)]
+    ctx = context_segments()
+    with with_text_rows(model):
+        ctx_prompts = [generation._assemble_prompt(model, t, i, ctx, mimi)
+                       for i, t in enumerate((
+                           "And the water was higher than I have ever seen.",
+                           "Then it started to rain again."))]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    eng = serving_engine(model, mimi, SEED + 401)
+    torch.cuda.synchronize()
+    mem_static = torch.cuda.memory_allocated() - mem0
+    cache_gib = 2 * eng._cache.k.numel() * eng._cache.k.element_size() / 2**30
+    reset_counts()
+    t0 = time.perf_counter()
+    ctx_res = [eng.submit_prompt(p, m, max_frames=SERVE_CONTEXT_FRAMES)
+               for p, m in ctx_prompts]
+    results = [eng.submit_prompt(p, m, max_frames=mf) for p, m, mf in reqs]
+    eng._drive_once()
+    burst = eng.stats.admissions
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    main = dataclass_replace(eng.stats)
+    tail = [eng.submit_prompt(*synthetic_prompt(32, args.n_text_vocab,
+                                                SEED + 700 + i), max_frames=16)
+            for i in range(SERVE_TAIL)]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    st = eng.stats
+    reserved = torch.cuda.memory_reserved() - res0
+    graphs = sorted(b for b, g in eng._graphs.items() if g != "warm")
+    lat = st.first_chunk_latency_ms()
+    fps = main.frames_emitted / wall
+    log(f"continuous engine, CSM-1B W8A8 + Mimi(32), {SERVE_SLOTS} slots, "
+        f"K={SERVE_K}, capacity {eng.capacity}, KV buckets {eng._kv_buckets} "
+        f"({card}): {len(ctx_res)} context requests of "
+        f"{[len(p) for p, _ in ctx_prompts]} rows for "
+        f"{SERVE_CONTEXT_FRAMES} frames and {SERVE_REQUESTS} 32-row requests "
+        f"of {SERVE_FRAMES[0]}-{SERVE_FRAMES[1]} frames: {wall:.2f} s, "
+        f"{main.steps} blocks ({1e3 * wall / main.steps:.2f} ms a block in "
+        f"all, admissions and fetches included), {main.frames_emitted} "
+        f"frames emitted = {fps:.1f} frames/s, aggregate RTF {fps * 0.08:.2f}; "
+        f"{main.frames_wasted} slot-frames wasted; first chunk after "
+        f"admission p50 {lat['admit_p50_ms']} ms p90 {lat['admit_p90_ms']} "
+        f"ms, after submission p50 {lat['submit_p50_ms']} ms p90 "
+        f"{lat['submit_p90_ms']} ms")
+    log(f"continuous engine counters (then {SERVE_TAIL} short requests): "
+        f"admissions {st.admissions} in {st.admit_batches} prefills (first "
+        f"drive {burst}), completed {st.completed}, blocks {st.steps}, "
+        f"bucket grows {st.cache_grows}, shrinks "
+        f"{st.cache_resizes - st.cache_grows}, rebases {st.rebases}, graphs "
+        f"captured {st.graph_captures} for buckets {graphs}; KV cache "
+        f"{cache_gib:.2f} GiB ({mem_static / 2**30:.2f} GiB of static "
+        f"buffers in all), reserved after the run +{reserved / 2**30:.2f} "
+        f"GiB (graph pool, admission temporaries); launches {counts}")
+    k3_want = SERVE_K * st.steps + st.admit_batches
+    if burst != SERVE_SLOTS or st.admissions <= SERVE_SLOTS \
+            or st.completed != len(reqs) + len(ctx_res) + len(tail) \
+            or st.cache_grows < 1 or st.rebases < 1 \
+            or st.cache_resizes - st.cache_grows < 1 \
+            or st.graph_captures != len(graphs):
+        raise AssertionError("the engine's counters miss a burst, slot "
+                             "reuse, a grow, a rebase or a shrink, or a "
+                             "bucket was captured twice")
+    if counts["resident_decode_frame"] != k3_want \
+            or counts["flash_prefill_sdpa"] < 1 \
+            or counts["w8a8_matvec.gemm"] < 1 \
+            or counts["w8a8_matvec"] <= counts["w8a8_matvec.gemm"]:
+        raise AssertionError(f"serving launches {counts}: want kernel 3 "
+                             f"{k3_want} times, kernel 2 and both routes of "
+                             f"kernel 1")
+
+    # chunks: a first-wave request (a fresh row) and a recycled one
+    for label, res, tol_rel in (("first-wave", results[0], STREAM_TOL),
+                                ("recycled-row", results[-1], 2e-3)):
+        frames = res.wait(0)
+        audio = res.audio()
+        want = mimi.decode(torch.from_numpy(frames.T[None].copy()).to(dev))
+        want = want[0, 0].cpu().numpy()
+        err = float(np.abs(audio - want).max())
+        tol = tol_rel * float(np.abs(want).max())
+        log(f"engine chunks of a {label} request ({len(frames)} frames) vs "
+            f"mimi.decode of its frames: max_abs_err {err:.3e} (tol {tol:.3e})")
+        if audio.shape != want.shape or not err <= tol:
+            raise AssertionError(f"the engine's chunks of a {label} request "
+                                 f"do not match the batch decode")
+
+    # against solo runs
+    (spread_c0, spread_dec), spreads_k4 = serving_spreads(
+        model, [(p, m) for p, m, _ in reqs[:16]],
+        np.stack([r.wait(0)[0] for r in results[:16]]))
+    picks = [0, 1, 2, 3] + list(range(SERVE_REQUESTS - SERVE_SOLO + 4,
+                                      SERVE_REQUESTS))
+    solo = [generate_tokens(model, *reqs[i], temperature=0.0) for i in picks]
+    equal, lines, ties = near_ties(model, [reqs[i][:2] for i in picks],
+                                   [results[i].wait(0) for i in picks],
+                                   [want[:n] for want, n in solo],
+                                   (spread_c0, spread_dec))
+    lines = [(picks[j], *rest) for j, *rest in lines]
+    log(f"engine vs solo generate_tokens ({card}): {equal} of {len(picks)} "
+        f"requests equal frame for frame; first differences (request, "
+        f"frame, codebook, margin, margin in spreads): {lines}; spreads (std of "
+        f"the logits of a step as solo runs and as the engine take it) c0 "
+        f"{spread_c0:.4f}, decoder {spread_dec:.4f}; kernel 4's (a step of "
+        f"the engine through it and through the masked attention) c0 "
+        f"{spreads_k4[0]:.4f}, decoder {spreads_k4[1]:.4f}")
+    if not ties:
+        raise AssertionError("an engine request's first difference from its "
+                             "solo run is not a near tie")
+    k4 = kernel4_on_engine_view(eng)
+    del eng
+    torch.cuda.empty_cache()
+    return dict(counts=counts, ms_block_all=1e3 * wall / main.steps,
+                fps=fps, first_chunk=lat, solo_equal=(equal, len(picks)),
+                spreads=(spread_c0, spread_dec),
+                k4_view_err=k4)
+
+
+def kernel4_on_engine_view(eng) -> float:
+    """Kernel 4 against `flash_decode_plain` on every layer of the engine's
+    cache as a bucket's graph reads it: the prefix view of the
+    full-capacity buffer (not contiguous), the engine's spliced pads and
+    clamped dead rows, at its index (below the bucket's end), a random
+    bf16 query of the backbone's heads; tolerance FLASH_DECODE_TOL times
+    max |plain| where that is below 1. The largest error."""
+    bcfg, dev = eng.args.backbone_config, eng.device
+    view = eng._view(eng._cap)
+    if view.k[0].is_contiguous():
+        raise AssertionError(f"the engine's bucket {eng._cap} is its whole "
+                             f"cache of {eng.capacity}: no prefix view")
+    index = torch.full((), min(eng._idx, eng._cap - 1), dtype=torch.int32,
+                       device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 405)
+    heads, d = bcfg.num_attention_heads, bcfg.head_dim
+    q = torch.randn((eng.n_slots, heads, 1, d), generator=gen,
+                    device=dev).to(view.k.dtype)
+    worst, worst_tol = 0.0, 0.0
+    for layer in range(bcfg.num_hidden_layers):
+        k, v = view.k[layer], view.v[layer]
+        got = attention.flash_decode_sdpa(q, k, v, d ** -0.5, eng._pad, index)
+        want = attention.flash_decode_plain(q, k, v, d ** -0.5, eng._pad,
+                                            index)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = FLASH_DECODE_TOL[q.dtype] * (
+            min(1.0, want.float().abs().max().item())
+            if q.dtype == torch.bfloat16 else 1.0)
+        if not (err <= tol and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"kernel 4 on the engine's cache view, layer "
+                                 f"{layer}: max_abs_err {err:.3e} (tol "
+                                 f"{tol:.3e})")
+        if err >= worst:
+            worst, worst_tol = err, tol
+    log(f"kernel 4 vs flash_decode_plain on the engine's cache view "
+        f"({eng.n_slots} rows, bucket {eng._cap} of {eng.capacity} slots, "
+        f"strides {tuple(view.k[0].stride())}, index {int(index)}, pads "
+        f"{int(eng._pad.min())}-{int(eng._pad.max())}, {q.dtype}), "
+        f"{bcfg.num_hidden_layers} layers: max_abs_err {worst:.3e} (tol "
+        f"{worst_tol:.3e})")
+    return worst
+
+
+def engine_ab_run(eng, prompts, frames: int) -> tuple:
+    """The prompts through `eng` for `frames` frames each: (the requests'
+    frames, ms a block in steady state: from its third block to the end,
+    fetches included)."""
+    res = [eng.submit_prompt(p, m, max_frames=frames) for p, m in prompts]
+    eng._drive_once()  # the admissions and a block
+    eng._drive_once()
+    torch.cuda.synchronize()
+    n0, t0 = eng.stats.steps, time.perf_counter()
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / (eng.stats.steps - n0)
+    return [r.wait(0) for r in res], [r.audio() for r in res], ms
+
+
+def block_split(eng, prompts) -> dict:
+    """Device ms of one step block's parts on an engine built with
+    `eager=True`, every slot busy with `prompts`: the engine's own eager
+    block with its timing marks (`ContinuousEngine.block_marks`), split
+    into the K backbone steps, the K frames' decode (c0, kernel 3, the
+    seeds and copies) and the Mimi step of the K frames owed with its
+    chunks. The block after the admissions' is timed; the requests then
+    run out."""
+    k = eng.frames_per_step
+    for p, m in prompts:
+        eng.submit_prompt(p, m, max_frames=3 * k)
+    eng._drive_once()  # the admissions and a block
+    eng.block_marks = marks = []
+    eng._drive_once()
+    torch.cuda.synchronize()
+    eng.block_marks = None
+    eng.run_until_idle()
+    ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    return dict(backbone=sum(ms[0:2 * k:2]), decoder=sum(ms[1:2 * k:2]),
+                mimi=ms[-1], block=sum(ms))
+
+
+def run_serving_ab(model: CSM, mimi: Mimi, spreads: tuple) -> dict:
+    """64 32-row requests of SERVE_AB_FRAMES frames through two fresh
+    engines, captured blocks and eager ones, alternated (captured, eager,
+    eager, captured; the two engines stay in the same state, so their
+    layouts match): gate, equal frames and chunks. Then the same through a
+    fresh engine with `transfer="int16"` (gate: equal frames, chunks within
+    one step of the 16-bit grid), T = 0.8 (gate: each block's kernel-3
+    seed new, rows of one prompt apart, codes in the vocabulary), and with
+    `flash_decode_min_b=8` against the captured engine, alternated (gates:
+    16 kernel-4 launches a backbone step; each of its runs' requests equal
+    to the captured engine's run of the same order, or its first
+    difference a near tie by `near_ties`: a margin, in a solo run's
+    logits, of one unit in the last place or under 4 spreads, the layout
+    noise `spreads` of run_serving and kernel 4's noise on that pick in
+    quadrature)."""
+    args, card = model.args, card_info()
+    prompts = [synthetic_prompt(32, args.n_text_vocab, SEED + 800 + i)
+               for i in range(SERVE_SLOTS)]
+    engines = {e: serving_engine(model, mimi, SEED + 402,
+                                 max_frames=SERVE_AB_CAP, eager=e)
+               for e in (False, True)}
+    runs: dict = {False: [], True: []}
+    for eager in (False, True, True, False):
+        runs[eager].append(engine_ab_run(engines[eager], prompts,
+                                         SERVE_AB_FRAMES))
+    for (cf, ca, _), (ef, ea, _) in zip(runs[False], runs[True]):
+        if not (all(np.array_equal(a, b) for a, b in zip(cf, ef))
+                and all(np.array_equal(a, b) for a, b in zip(ca, ea))):
+            raise AssertionError("the engine's captured blocks differ from "
+                                 "its eager blocks")
+    ms = {e: [r[2] for r in runs[e]] for e in runs}
+    log(f"engine block (K={SERVE_K}, {SERVE_SLOTS} slots busy) captured vs "
+        f"eager, alternated captured/eager/eager/captured ({card}): frames "
+        f"and chunks equal; ms a block captured "
+        f"{', '.join(f'{t:.2f}' for t in ms[False])}, eager "
+        f"{', '.join(f'{t:.2f}' for t in ms[True])}; graphs captured "
+        f"{engines[False].stats.graph_captures}")
+    want_frames, want_audio = runs[False][0][0], runs[False][0][1]
+    del engines[True]
+    torch.cuda.empty_cache()
+    splits = {}
+    for label, kw in (("masked attention", {}),
+                      ("kernel 4", dict(flash_decode_min_b=8))):
+        eng = serving_engine(model, mimi, SEED + 404, max_frames=SERVE_AB_CAP,
+                             eager=True, **kw)
+        splits[label] = block_split(eng, prompts)
+        cap = eng.capacity
+        del eng
+    log(f"one block's device ms by part (eager, CUDA events, {SERVE_SLOTS} "
+        f"slots, a {cap}-slot cache; {card}): " + "; ".join(
+            f"{label}: " + ", ".join(f"{k} {v:.2f}" for k, v in sp.items())
+            for label, sp in splits.items()))
+
+    i16 = serving_engine(model, mimi, SEED + 402, max_frames=SERVE_AB_CAP,
+                         transfer="int16")
+    frames16, audio16, _ = engine_ab_run(i16, prompts, SERVE_AB_FRAMES)
+    del i16
+    grid = max(float(np.abs(np.clip(a, -1, 1) - b).max())
+               for a, b in zip(want_audio, audio16))
+    log(f"engine transfer=int16: frames equal "
+        f"{all(np.array_equal(a, b) for a, b in zip(want_frames, frames16))}"
+        f", chunks within {grid * 32767:.3f} steps of the 16-bit grid")
+    if not all(np.array_equal(a, b) for a, b in zip(want_frames, frames16)) \
+            or grid > 1.0 / 32767 + 1e-7:
+        raise AssertionError("the int16 chunks leave the 16-bit grid")
+
+    sampled = serving_engine(model, None, SEED + 403, codec=False,
+                             max_frames=SERVE_AB_CAP, temperature=0.8)
+    p, m = prompts[0]
+    res = [sampled.submit_prompt(p, m, max_frames=SERVE_SAMPLED_FRAMES)
+           for _ in range(SERVE_SLOTS)]
+    seeds = []
+    while sampled._drive_once():
+        seeds.append(int(sampled._seeds[0]))
+    toks = [r.wait(0) for r in res]
+    all_toks = np.concatenate(toks)
+    distinct_rows = len({t.tobytes() for t in toks})
+    log(f"engine T=0.8: {sampled.stats.steps} blocks "
+        f"({sampled.stats.graph_captures} graph, replays after the first), "
+        f"the last frame's "
+        f"kernel-3 seed of each block {len(set(seeds))} distinct of "
+        f"{len(seeds)}; {distinct_rows} distinct streams of {SERVE_SLOTS} "
+        f"rows of one prompt; {len(set(all_toks[:, 0].tolist()))} distinct "
+        f"c0")
+    if len(set(seeds)) != len(seeds) or distinct_rows < SERVE_SLOTS // 2 \
+            or len(set(all_toks[:, 0].tolist())) < 5 \
+            or int(all_toks.min()) < 0 \
+            or int(all_toks.max()) >= args.n_audio_vocab:
+        raise AssertionError("the engine's replays repeat their draws")
+    del sampled
+
+    fd = serving_engine(model, mimi, SEED + 402, max_frames=SERVE_AB_CAP,
+                        flash_decode_min_b=8)
+    fd_ms: dict = {False: [], True: []}
+    k4 = []  # (kernel-4 launches, 16 a backbone step) of the runs with it
+    fd_frames = []
+    layers = args.backbone_config.num_hidden_layers
+    for flash in (False, True, True, False):
+        eng = fd if flash else engines[False]
+        reset_counts()
+        steps0 = eng.stats.steps
+        frames, _, t = engine_ab_run(eng, prompts, SERVE_AB_FRAMES)
+        counts = read_counts()
+        fd_ms[flash].append(t)
+        if flash:
+            k4.append((counts["flash_decode_sdpa"],
+                       layers * SERVE_K * (eng.stats.steps - steps0)))
+            fd_counts = counts
+            fd_frames.append(frames)
+    # the kernel-4 engine's runs against the captured engine's first two,
+    # the same submissions from the same engine state
+    ties = [near_ties(model, prompts, got, want, spreads, kernel4=True)
+            for got, (want, _, _) in zip(fd_frames, runs[False])]
+    log(f"engine block with flash_decode_min_b=8 (kernel 4) vs without, "
+        f"alternated off/on/on/off ({card}): ms a block with "
+        f"{', '.join(f'{t:.2f}' for t in fd_ms[True])}, without "
+        f"{', '.join(f'{t:.2f}' for t in fd_ms[False])}; kernel-4 launches "
+        f"(want) {k4}; launches of the last run with it {fd_counts}; "
+        f"requests equal to the engine's without kernel 4 frame for frame "
+        f"{[eq for eq, _, _ in ties]} of {len(prompts)} a run; first "
+        f"differences (request, frame, codebook, margin, margin in "
+        f"spreads, kernel 4's noise on the pick) "
+        f"{[lines for _, lines, _ in ties]}")
+    if any(got != want for got, want in k4):
+        raise AssertionError("kernel 4 did not run once a layer a backbone "
+                             "step")
+    if not all(ok for _, _, ok in ties):
+        raise AssertionError("a first difference of the kernel-4 engine from "
+                             "the engine without it is not a near tie")
+    del fd, engines
+    torch.cuda.empty_cache()
+    return dict(ms_captured=float(np.mean(ms[False])),
+                ms_eager=float(np.mean(ms[True])), splits=splits,
+                ms_flash=float(np.mean(fd_ms[True])),
+                ms_no_flash=float(np.mean(fd_ms[False])),
+                flash_counts=fd_counts,
+                flash_equal=[eq for eq, _, _ in ties])
+
+
+def wav_samples(body: bytes) -> np.ndarray:
+    """The 16-bit samples of `serve.wav_bytes`'s RIFF layout, its header
+    checked."""
+    import struct
+
+    if body[:4] != b"RIFF" or body[8:12] != b"WAVE" \
+            or struct.unpack("<I", body[24:28])[0] != 24000 \
+            or struct.unpack("<I", body[40:44])[0] != len(body) - 44:
+        raise AssertionError("a malformed WAV body")
+    return np.frombuffer(body[44:], "<i2")
+
+
+async def http_session(server, text: str, joint: bool = False) -> dict:
+    """`serve_http` over `server` on 127.0.0.1:0: /healthz, /tts and
+    /tts-stream of `text` (sent together with `joint`, so that a continuous
+    server admits both in one prefill), /stats; the raw responses."""
+    import asyncio
+
+    from csm_mlx_tpu_torch.serve import serve_http
+
+    http = await serve_http(server, host="127.0.0.1", port=0)
+    port = http.sockets[0].getsockname()[1]
+
+    async def request(raw: bytes) -> bytes:
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        writer.write(raw)
+        await writer.drain()
+        data = await reader.read()
+        writer.close()
+        return data
+
+    def post(path):
+        body = json.dumps({"text": text, "speaker": 0}).encode()
+        return (f"POST {path} HTTP/1.1\r\nHost: x\r\nContent-Length: "
+                f"{len(body)}\r\n\r\n".encode() + body)
+
+    out = {"healthz": await request(b"GET /healthz HTTP/1.1\r\n\r\n")}
+    if joint:
+        server.engine.stop()  # submit both before the engine drives again
+        tts = asyncio.ensure_future(request(post("/tts")))
+        stream = asyncio.ensure_future(request(post("/tts-stream")))
+        while server.engine.pending() < 2:
+            await asyncio.sleep(0.005)
+        server.engine.start()
+        out["tts"], out["stream"] = await tts, await stream
+    else:
+        out["tts"] = await request(post("/tts"))
+        out["stream"] = await request(post("/tts-stream"))
+    out["stats"] = await request(b"GET /stats HTTP/1.1\r\n\r\n")
+    http.close()
+    await http.wait_closed()
+    await server.stop()
+    return out
+
+
+def dechunk(payload: bytes) -> bytes:
+    out = []
+    while payload:
+        size_hex, _, payload = payload.partition(b"\r\n")
+        size = int(size_hex, 16)
+        if size == 0:
+            break
+        out.append(payload[:size])
+        payload = payload[size + 2:]
+    return b"".join(out)
+
+
+def run_http(model: CSM, mimi: Mimi) -> dict:
+    """Both servers as the `serve` CLI makes them (`cli.serve.make_server`
+    from its flags; the random CSM-1B in place of loaded weights, `mimi`
+    installed as the codec singleton, the text tokenizer replaced), greedy,
+    SERVE_HTTP_MS of audio a request, through `serve_http`: /healthz,
+    POST /tts (gate: a WAV of 1,920 samples a frame), POST /tts-stream
+    (gate: chunked audio/L16 whose samples are the /tts body's within
+    STREAM_TOL of its peak plus one step), GET /stats; a 503 past
+    --max-pending 0 on /tts and /tts-stream; then `--watermark-key` on one
+    request of WATERMARK_MS through each server (the continuous one with one
+    slot; gate: the mark detected with its payload in the samples on the
+    card and on the CPU)."""
+    import asyncio
+
+    from csm_mlx_tpu_torch import tokenizers as port_tokenizers
+    from csm_mlx_tpu_torch import watermark
+    from csm_mlx_tpu_torch.cli.application import build_parser
+    from csm_mlx_tpu_torch.cli.serve import make_server
+
+    card = card_info()
+    key = (model.n_audio_codebooks,
+           str(port_tokenizers._codec_device(model.device)))
+    saved = port_tokenizers._MIMI_CACHE.get(key)
+    port_tokenizers._MIMI_CACHE[key] = (None, mimi)
+
+    def server(*flags):
+        args = build_parser().parse_args(
+            ["serve", "--temperature", "0", "--max-audio-length",
+             str(SERVE_HTTP_MS), *flags])
+        return make_server(args, model)
+
+    out: dict = {}
+    try:
+        with with_text_rows(model):
+            for label, flags in (("lockstep", ()),
+                                 ("continuous", ("--continuous",))):
+                t0 = time.perf_counter()
+                r = asyncio.run(http_session(
+                    server(*flags), "Meet me at the station at noon.",
+                    joint=bool(flags)))
+                wall = time.perf_counter() - t0
+                head, _, body = r["tts"].partition(b"\r\n\r\n")
+                shead, _, spay = r["stream"].partition(b"\r\n\r\n")
+                whole = wav_samples(body).astype(np.int32)
+                streamed = np.frombuffer(dechunk(spay), "<i2").astype(
+                    np.int32)
+                diff = int(np.abs(streamed - whole).max()) \
+                    if streamed.shape == whole.shape else None
+                tol = STREAM_TOL * int(np.abs(whole).max()) + 1
+                stats = json.loads(r["stats"].split(b"\r\n\r\n", 1)[1])
+                log(f"HTTP, {label} server ({card}): /healthz "
+                    f"{r['healthz'][:15]!r}; /tts {head.split(b' ')[1]} "
+                    f"{len(whole)} samples ({len(whole) // 1920} frames); "
+                    f"/tts-stream {shead.split(b' ')[1]} {len(streamed)} "
+                    f"samples, max |stream - /tts| {diff} steps (tol "
+                    f"{tol:.1f}); /stats {stats}; {wall:.2f} s")
+                if not (r["healthz"].endswith(b"ok")
+                        and head.startswith(b"HTTP/1.1 200")
+                        and b"audio/wav" in head
+                        and shead.startswith(b"HTTP/1.1 200")
+                        and b"Transfer-Encoding: chunked" in shead
+                        and b"audio/L16" in shead
+                        and len(whole) and len(whole) % 1920 == 0
+                        and len(whole) <= SERVE_HTTP_MS // 80 * 1920
+                        and diff is not None and diff <= tol
+                        and stats["requests"] == 2
+                        and (label == "lockstep"
+                             or stats["engine"]["admissions"] == 2)):
+                    raise AssertionError(f"the {label} server's HTTP answers "
+                                         f"fail their checks")
+                out[label] = wall
+                busy = server(*flags, "--max-pending", "0", "--slots", "1")
+                r = asyncio.run(http_session(busy, "Too many."))
+                codes = (r["tts"][:12], r["stream"][:12])
+                log(f"HTTP, {label} server with --max-pending 0: /tts "
+                    f"{codes[0]!r}, /tts-stream {codes[1]!r}")
+                if codes != (b"HTTP/1.1 503",) * 2:
+                    raise AssertionError("no 503 past max_pending")
+
+            async def marked(srv):
+                try:
+                    return await srv.synthesize("The river was high.")
+                finally:
+                    await srv.stop()
+
+            marks = {label: asyncio.run(marked(server(
+                *flags, "--watermark-key", str(WATERMARK_KEY),
+                "--max-audio-length", str(WATERMARK_MS))))
+                for label, flags in (("lockstep", ()),
+                                     ("continuous", ("--continuous",
+                                                     "--slots", "1")))}
+        for label, audio in marks.items():
+            samples = audio.astype(np.float32)
+            found = {}
+            for where in ("cuda", "cpu"):
+                res = watermark.detect_watermark(samples, WATERMARK_KEY,
+                                                 device=where)
+                wrong = watermark.detect_watermark(samples, WATERMARK_KEY + 1,
+                                                   device=where)
+                found[where] = (bool(res.present),
+                                bool(watermark.check_payload(
+                                    res, WATERMARK_KEY)),
+                                float(res.score), float(wrong.score))
+            log(f"--watermark-key {WATERMARK_KEY}, one request of "
+                f"{len(samples)} samples through the {label} server "
+                f"({card}): (present, payload, score, wrong key's score) "
+                f"{found}")
+            if not all(p and ok for p, ok, *_ in found.values()):
+                raise AssertionError(f"the {label} server's watermark is not "
+                                     f"detected")
+    finally:
+        if saved is None:
+            port_tokenizers._MIMI_CACHE.pop(key, None)
+        else:
+            port_tokenizers._MIMI_CACHE[key] = saved
+    return out
+
+
 def affine_generator(dev) -> torch.Generator:
     """The generator of kernel 5's cases added with its redesign."""
     gen = torch.Generator(device=dev)
@@ -2732,6 +3533,9 @@ def main() -> None:
     timed(run_batch, model)
     batch = timed(run_batch_flash_decode, model, gen45)
     timed(frame_step_memory, model)
+    serving = timed(run_serving, model, mimi)
+    serving_ab = timed(run_serving_ab, model, mimi, serving["spreads"])
+    timed(run_http, model, mimi)
     del model
     torch.cuda.empty_cache()
     affine_path = timed(run_affine_path, dev, mimi)
@@ -2748,18 +3552,21 @@ def main() -> None:
              source="csm_mlx_tpu_torch/csrc/w8a8_matvec.cu",
              replaces="csm_mlx_tpu/ops/quant.py:152",
              launches=launches["w8a8_matvec"],
-             context_launches=context["counts"]["w8a8_matvec"], **w8a8),
+             context_launches=context["counts"]["w8a8_matvec"],
+             serving_launches=serving["counts"]["w8a8_matvec"], **w8a8),
         dict(name="flash_prefill_sdpa", route="cuda",
              source="csm_mlx_tpu_torch/csrc/flash_prefill.cu",
              replaces="csm_mlx_tpu/ops/attention.py:34",
              launches=launches["flash_prefill_sdpa"],
              context_launches=context["counts"]["flash_prefill_sdpa"],
+             serving_launches=serving["counts"]["flash_prefill_sdpa"],
              **flash),
         dict(name="resident_decode_frame", route="cuda",
              source="csm_mlx_tpu_torch/csrc/resident_frame.cu",
              replaces="csm_mlx_tpu/ops/resident_decoder.py:198",
              launches=launches["resident_decode_frame"],
              context_launches=context["counts"]["resident_decode_frame"],
+             serving_launches=serving["counts"]["resident_decode_frame"],
              max_abs_err=k3["max_abs_err"], agreement=k3["agreement"],
              ms=k3["ms"],
              plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
@@ -2771,7 +3578,9 @@ def main() -> None:
         dict(name="flash_decode_sdpa", route="cuda",
              source="csm_mlx_tpu_torch/csrc/flash_decode.cu",
              replaces="csm_mlx_tpu/ops/attention.py:166",
-             launches=batch["counts"]["flash_decode_sdpa"], **decode),
+             launches=batch["counts"]["flash_decode_sdpa"],
+             serving_launches=serving_ab["flash_counts"]["flash_decode_sdpa"],
+             **decode),
         dict(name="flash_train_fwd", route="cuda",
              source="csm_mlx_tpu_torch/csrc/flash_train.cu",
              replaces="csm_mlx_tpu/ops/flash_train.py:88",

@@ -29,8 +29,9 @@ ones, which take conversational context (`Segment`s whose audio Mimi
 encodes into prompt rows, `_assemble_prompt`): `generate`,
 `generate_batch` (one row per text, each with its own context),
 `stream_generate` and `generate_long` (sentence by sentence, with a
-rolling context of what it generated). Not ported yet: the watermark
-(`watermark_key` raises).
+rolling context of what it generated). `watermark_key` embeds the keyed
+watermark of `watermark.py` in the waveforms of `generate`,
+`generate_batch` and `generate_long`, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -266,11 +267,12 @@ def _assemble_prompt(model: CSM, text: str, speaker: int, context: Sequence,
             np.concatenate(masks, axis=0).astype(np.int32))
 
 
-def _no_watermark(watermark_key) -> None:
-    if watermark_key is not None:
-        raise NotImplementedError(
-            "watermark_key: the watermark is not ported yet (ROADMAP queue "
-            "1, item 6)")
+def _watermarked(audio: torch.Tensor, watermark_key) -> torch.Tensor:
+    if watermark_key is None:
+        return audio
+    from csm_mlx_tpu_torch.watermark import embed_watermark
+
+    return embed_watermark(audio, watermark_key)
 
 
 def _codec_for(model: CSM, mimi):
@@ -652,7 +654,6 @@ def generate(
     `CSM_TPU_TEXT_TOKENIZER`); `mimi` is the codec that encodes the
     context's audio and decodes the frames, by default the
     `get_audio_tokenizer` singleton on the model's device."""
-    _no_watermark(watermark_key)
     codec = _codec_for(model, mimi)
     max_frames = int(max_audio_length_ms / FRAME_MS)
     prompt, mask = _assemble_prompt(model, text, speaker, context, codec)
@@ -663,7 +664,7 @@ def generate(
     if n == 0:
         return torch.zeros((0,), dtype=torch.float32)
     codes = torch.from_numpy(frames.T[None].copy()).long()  # (1, K, F)
-    return codec.decode(codes)[0, 0]
+    return _watermarked(codec.decode(codes)[0, 0], watermark_key)
 
 
 def generate_batch(
@@ -681,8 +682,8 @@ def generate_batch(
     row. The rows' prompts, each with its own context, are left-padded to
     one bucket (`generate_tokens_batch`, which takes `kwargs`); the frames
     of every row go through one Mimi decode over the longest row, sliced
-    per row to its own frames."""
-    _no_watermark(watermark_key)
+    per row to its own frames (each then watermarked with
+    `watermark_key`, if given)."""
     contexts = contexts or [()] * len(texts)
     if not (len(texts) == len(speakers) == len(contexts)):
         # zip would truncate, and the per-row slicing drop rows
@@ -703,7 +704,8 @@ def generate_batch(
         np.ascontiguousarray(frames[:f_max].transpose(1, 2, 0))).long()
     audio = codec.decode(codes)
     frame_size = audio.shape[-1] // f_max
-    return [audio[i, 0, :int(n[i]) * frame_size] for i in range(len(texts))]
+    return [_watermarked(audio[i, 0, :int(n[i]) * frame_size], watermark_key)
+            for i in range(len(texts))]
 
 
 def generate_long(
@@ -730,12 +732,12 @@ def generate_long(
     segment) against the backbone window less `max_segment_audio_ms`; a
     sentence too long alone is split at words (`fit_sentence`), a word too
     long at characters (`hard_split`). `generator` draws for every
-    sentence in turn (JAX splits its `key`)."""
+    sentence in turn (JAX splits its `key`); `watermark_key` marks the
+    joined waveform."""
     from csm_mlx_tpu_torch.apps.voice_chat import split_sentences
     from csm_mlx_tpu_torch.segment import SAMPLING_RATE, Segment
     from csm_mlx_tpu_torch.tokenizers import get_text_tokenizer
 
-    _no_watermark(watermark_key)
     sentences = split_sentences(text) or (
         [text.strip()] if text.strip() else [])
     ctx = list(context)
@@ -830,7 +832,9 @@ def generate_long(
             ctx, ctx_lens = [], []
     if not pieces:
         return torch.zeros((0,), dtype=torch.float32)
-    return torch.from_numpy(np.concatenate(pieces))
+    # marked on the model's device, returned on the CPU
+    return _watermarked(torch.from_numpy(np.concatenate(pieces)).to(
+        model.device), watermark_key).cpu()
 
 
 class FrameState(tuple):

@@ -24,6 +24,10 @@ import torch
 from csm_mlx_tpu_torch import safetensors_io
 from csm_mlx_tpu_torch.device import resolve_device
 
+# checkpoint names tried in a weights directory, in order
+WEIGHT_FILE_CANDIDATES = ("mlx-ckpt.safetensors", "ckpt.safetensors",
+                          "latest.safetensors")
+
 
 def _load_flat(path: str, device) -> Dict[str, torch.Tensor]:
     if not os.path.exists(path):
@@ -204,3 +208,32 @@ def load_csm_weights(path: str, dtype=torch.bfloat16, strict: bool = True,
 def save_csm_weights(path: str, params: Dict[str, Any]) -> None:
     """Write the params (reference names) to a safetensors file."""
     safetensors_io.save_file(params_to_reference_flat(params), path)
+
+
+def resolve_weight_path(model_or_path: str,
+                        filename: Optional[str] = None) -> str:
+    """A local checkpoint file, or a directory holding `filename` (which
+    must be there) or else the first of `WEIGHT_FILE_CANDIDATES`: the
+    local half of the JAX package's resolver. Anything else raises
+    FileNotFoundError: the port downloads nothing, so a hub repo id must
+    be fetched beforehand and given as a path."""
+    if os.path.exists(model_or_path):
+        if not os.path.isdir(model_or_path):
+            return model_or_path
+        if filename:
+            p = os.path.join(model_or_path, filename)
+            if not os.path.exists(p):
+                raise FileNotFoundError(
+                    f"Requested checkpoint {filename!r} not found in "
+                    f"{model_or_path}")
+            return p
+        for cand in WEIGHT_FILE_CANDIDATES:
+            p = os.path.join(model_or_path, cand)
+            if os.path.exists(p):
+                return p
+        raise FileNotFoundError(
+            f"No checkpoint ({WEIGHT_FILE_CANDIDATES}) in {model_or_path}")
+    raise FileNotFoundError(
+        f"{model_or_path!r} is not a local path; weights are read from "
+        f"local files only (nothing is downloaded): fetch the checkpoint "
+        f"and pass its path")

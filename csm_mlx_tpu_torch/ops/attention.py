@@ -166,6 +166,39 @@ def flash_prefill_sdpa(
 launches.register(flash_prefill_sdpa)
 
 
+def kv_prefix_buckets(capacity: int, min_capacity: int = 1024,
+                      start: int = 512, step: int = 256) -> tuple:
+    """Host-side table of KV prefix lengths for bucketed decode attention
+    (a copy of the JAX package's): ascending lengths from `start` by
+    `step`, ending at `capacity`; () when the buffer is small enough that
+    reading it whole is cheap, or with `CSM_TPU_KV_BUCKETS=0`.
+
+    A decode step's attention reads every slot of the cache it is given,
+    so the continuous engine gives each step block a prefix view of its
+    cache, `kv_bucket_for` the live end of it: the dead tail is never
+    read. Masked slots add exactly 0 to the softmax, so a prefix changes
+    no result beyond the order of the sums."""
+    import os
+
+    if capacity < min_capacity or \
+            os.environ.get("CSM_TPU_KV_BUCKETS", "1") == "0":
+        return ()
+    buckets = list(range(start, capacity, step))
+    buckets.append(capacity)
+    return tuple(buckets)
+
+
+def kv_bucket_for(live_end: int, buckets: tuple) -> int | None:
+    """The smallest bucket covering `live_end` leading KV slots (the last
+    one past it); None when buckets are off."""
+    if not buckets:
+        return None
+    for b in buckets:
+        if b >= live_end:
+            return b
+    return buckets[-1]
+
+
 def decode_splits(batch: int, n_kv: int, cap: int) -> tuple[int, int]:
     """(splits, chunk) of kernel 4 for a cache of `cap` slots: `splits`
     blocks a (row, kv head), each over `chunk` keys (a multiple of 64; the

@@ -90,6 +90,20 @@ get_text_tokenizer.cache_clear = _TEXT_TOK_CACHE.clear
 _MIMI_CACHE: dict = {}  # (n_codebooks, device) -> (weights path | None, Mimi)
 
 
+def _codec_device(device) -> torch.device:
+    """The cache's device key: an indexed device for CUDA (`cuda` is the
+    current card, so "cuda" and "cuda:0" name one instance), `cpu` for the
+    CPU."""
+    from csm_mlx_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    if dev.type == "cpu":
+        return torch.device("cpu")
+    return dev
+
+
 def get_audio_tokenizer(n_audio_codebooks: int = 32,
                         weights: Optional[str] = None, *, device=None):
     """The Mimi codec singleton of a codebook count (and device, default
@@ -97,10 +111,11 @@ def get_audio_tokenizer(n_audio_codebooks: int = 32,
     checkpoint, loaded by `models.mimi.weights.load_mimi_checkpoint`: a
     path that does not exist raises FileNotFoundError, a file the loader
     cannot read raises its error, and no random-init codec is put in its
-    place. Without a path, a random-init codec from seed 0, as the JAX
-    package makes when none resolves. A startup call with a path installs
-    the instance that later calls without one share."""
-    from csm_mlx_tpu_torch.device import resolve_device
+    place. A startup call with a path installs the instance that later
+    calls without one share; a call on another device loads that same
+    path there. Only when no path is known for the count, a random-init
+    codec from seed 0, as the JAX package makes when none resolves: two
+    inconsistent codecs of one count never sit in the cache together."""
     from csm_mlx_tpu_torch.models.mimi import Mimi, mimi_202407
     from csm_mlx_tpu_torch.models.mimi.weights import load_mimi_checkpoint
 
@@ -110,13 +125,22 @@ def get_audio_tokenizer(n_audio_codebooks: int = 32,
             f"Mimi weights not found: {path!r} (from the weights argument "
             f"or {MIMI_WEIGHTS_ENV}); refusing to fall back to a random-init "
             f"codec")
-    key = (n_audio_codebooks, str(resolve_device(device)))
+    key = (n_audio_codebooks, str(_codec_device(device)))
     cached = _MIMI_CACHE.get(key)
-    if cached is not None and (path is None or cached[0] == path):
+    if path is None:
+        if cached is not None:
+            return cached[1]
+        # the path installed on another device, if any
+        path = next((p for (n, _), (p, _) in _MIMI_CACHE.items()
+                     if n == n_audio_codebooks and p is not None), None)
+    elif cached is not None and cached[0] == path:
         return cached[1]
     cfg = mimi_202407(n_audio_codebooks)
     params = None if path is None else load_mimi_checkpoint(
         path, cfg, device=key[1])
+    for k in [k for k, (p, _) in _MIMI_CACHE.items()
+              if k[0] == n_audio_codebooks and p != path]:
+        del _MIMI_CACHE[k]  # another source's instance on another device
     _MIMI_CACHE[key] = (path, Mimi(cfg, params=params, device=key[1]))
     return _MIMI_CACHE[key][1]
 

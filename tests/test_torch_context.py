@@ -190,8 +190,13 @@ def test_assemble_prompt_and_generate_with_context_equal_jax(installed,
     _assert_same_calls(installed)
     assert twav.shape == jwav.shape and twav.shape[0] > 0
     np.testing.assert_allclose(twav.numpy(), jwav, rtol=0, atol=WAVE_ATOL)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tgen.generate(tm, "Say it.", 0, tsegs, 640, watermark_key=3)
+    # watermark_key: the marked waveform equals JAX's marked one
+    jmark = np.asarray(jgen.generate(jm, "Say it.", 0, jsegs, 640,
+                                     temperature=0.0, watermark_key=3))
+    tmark = tgen.generate(tm, "Say it.", 0, tsegs, 640, temperature=0.0,
+                          watermark_key=3)
+    assert tmark.shape == jmark.shape and not np.allclose(jmark, jwav)
+    np.testing.assert_allclose(tmark.numpy(), jmark, rtol=0, atol=WAVE_ATOL)
 
 
 def test_stream_generate_with_context_equals_jax(installed, models):

@@ -143,15 +143,16 @@ def i32(value, device):
     return torch.tensor(value, dtype=torch.int32, device=device)
 
 
-def resident_model(name, device):
+def resident_model(name, device, backbone_head_dim=32):
     """A random W8A8 CSM on `device` whose decoder is RESIDENT_CONFIGS[name]
-    (a one-layer backbone); `quantize_model` on CUDA prepares kernel 3's
-    tables."""
+    (a one-layer backbone of two heads of `backbone_head_dim`; kernel 4
+    takes 64); `quantize_model` on CUDA prepares kernel 3's tables."""
     dec, vocab, n_cb = RESIDENT_CONFIGS[name]
-    key = f"resident_{name}"
+    key = f"resident_{name}_{backbone_head_dim}"
     port_config.BACKBONE_CONFIGURATION[key] = port_config.LlamaConfig(
         num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=1,
-        head_dim=32, intermediate_size=128, hidden_size=64)
+        head_dim=backbone_head_dim, intermediate_size=128,
+        hidden_size=2 * backbone_head_dim)
     port_config.DECODER_CONFIGURATION[key] = port_config.LlamaConfig(**dec)
     args = ModelArgs(key, key, 128, vocab, n_cb)
     gen = torch.Generator(device=device).manual_seed(3)
@@ -633,6 +634,31 @@ def test_flash_decode_kernel_matches_plain(cuda_device, dtype, b, h, n_kv,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=atol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_on_a_prefix_view(cuda_device, dtype):
+    """Kernel 4 over the first 768 slots of a 1,890-slot cache layer, the
+    view a continuous engine's bucket graph reads (its slots rows of the
+    full buffer, not contiguous), against the plain version on a
+    contiguous copy of the same keys."""
+    rng = np.random.RandomState(11)
+    b, h, n_kv, cap, bucket, index = 8, 32, 8, 1890, 768, 700
+    kc, vc = (torch.from_numpy(rng.randn(2, b, n_kv, cap, 64).astype(
+        np.float32)).to(cuda_device, dtype) for _ in range(2))
+    q = torch.from_numpy(rng.randn(b, h, 1, 64).astype(np.float32)).to(
+        cuda_device, dtype)
+    pad = torch.from_numpy(rng.randint(0, index + 1, (b,))).to(cuda_device)
+    k, v = kc[1, :, :, :bucket], vc[1, :, :, :bucket]
+    assert not k.is_contiguous()
+    idx = i32(index, cuda_device)
+    got = attention.flash_decode_sdpa(q, k, v, 0.125, pad, idx)
+    want = attention.flash_decode_plain(q, k.contiguous(), v.contiguous(),
+                                        0.125, pad, idx)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    atol = tol if dtype == torch.float32 else \
+        tol * min(1.0, want.float().abs().max().item())
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=atol)
+
+
 def test_flash_decode_kernel_rejects_what_it_does_not_take(cuda_device):
     q = torch.zeros((2, 8, 1, 32), device=cuda_device)
     k = torch.zeros((2, 2, 40, 32), device=cuda_device)
@@ -922,3 +948,180 @@ def test_generate_with_context_through_the_captured_step(cuda_device,
     want = mimi.decode(torch.from_numpy(frames.T[None].copy()))[0, 0]
     assert n >= 1 and launched == (n if n == 20 else n + 1)  # and EOS's
     assert wav.shape == (n * mimi.frame_size,) and torch.equal(wav, want)
+
+
+# --- serving: the codec singleton and the continuous engine ------------------
+
+
+def test_codec_singleton_cuda_and_cuda0_are_one(cuda_device, monkeypatch,
+                                                tmp_path):
+    """A codec installed from a path on "cuda" is the one a call on
+    "cuda:0" (or with no device) gets, and no random-init codec is made
+    beside it."""
+    from csm_mlx_tpu_torch import tokenizers
+    from csm_mlx_tpu_torch.models.mimi import mimi as mimi_module
+    from csm_mlx_tpu_torch.models.mimi import weights
+
+    path = tmp_path / "mimi.safetensors"
+    path.write_bytes(b"")
+    real_init = mimi_module.init_mimi_params
+    loads = []
+
+    def fake_load(p, cfg, dtype=torch.float32, device=None):
+        loads.append((p, str(device)))
+        return real_init(torch.Generator(device=device).manual_seed(5), cfg,
+                         dtype, device)
+
+    def no_random_init(*a, **k):
+        raise AssertionError("a random-init codec beside an installed one")
+
+    monkeypatch.delenv(tokenizers.MIMI_WEIGHTS_ENV, raising=False)
+    monkeypatch.setattr(weights, "load_mimi_checkpoint", fake_load)
+    tokenizers.get_audio_tokenizer.cache_clear()
+    try:
+        codec = tokenizers.get_audio_tokenizer(8, str(path), device="cuda")
+        monkeypatch.setattr(mimi_module, "init_mimi_params", no_random_init)
+        assert tokenizers.get_audio_tokenizer(8, device="cuda:0") is codec
+        assert tokenizers.get_audio_tokenizer(8) is codec
+        assert tokenizers.get_audio_tokenizer(8, str(path),
+                                              device="cuda:0") is codec
+        # another device loads the same path there
+        cpu = tokenizers.get_audio_tokenizer(8, device="cpu")
+        assert cpu is not codec and loads == [(str(path), "cuda:0"),
+                                              (str(path), "cpu")]
+    finally:
+        tokenizers.get_audio_tokenizer.cache_clear()
+
+
+def _engine_requests(model, n, seed=0):
+    rng = np.random.RandomState(seed)
+    return [(*_prompt(model.args, int(rng.randint(4, 20)), 100 + i),
+             int(rng.randint(3, 16))) for i in range(n)]
+
+
+def _run_engine(model, requests, **kw):
+    """Every request through a fresh engine: (frames, audio) per request,
+    and the engine."""
+    from csm_mlx_tpu_torch.continuous import ContinuousEngine
+
+    kw.setdefault("n_slots", 3)
+    kw.setdefault("max_frames", 16)
+    kw.setdefault("max_prompt_bucket", 32)
+    kw.setdefault("capacity_slack", 16)
+    kw.setdefault("frames_per_step", 3)
+    eng = ContinuousEngine(
+        model, temperature=0.0,
+        generator=torch.Generator(device=model.device).manual_seed(1), **kw)
+    res = [eng.submit_prompt(p, m, max_frames=mf) for p, m, mf in requests]
+    eng.run_until_idle()
+    return [(r.wait(0), r.audio()) for r in res], eng
+
+
+def test_engine_captured_blocks_equal_eager(cuda_device):
+    """The continuous engine's blocks as replayed graphs against the same
+    blocks run eagerly: equal frames and equal chunks, more requests than
+    slots; one kernel-3 launch a frame stepped and a row admitted."""
+    from csm_mlx_tpu_torch.ops import launches
+
+    model = resident_model("tiny", cuda_device)
+    mimi = _tiny_codec(cuda_device)
+    requests = _engine_requests(model, 7)
+    launches.reset()
+    got, eng = _run_engine(model, requests, mimi=mimi)
+    k3 = resident.resident_decode_frame.launches
+    want, eager = _run_engine(model, requests, mimi=mimi, eager=True)
+    assert eng.stats.graph_captures == 1 and eager.stats.graph_captures == 0
+    for (frames, audio), (wframes, waudio) in zip(got, want):
+        np.testing.assert_array_equal(frames, wframes)
+        assert audio.shape == (frames.shape[0] * mimi.frame_size,)
+        np.testing.assert_array_equal(audio, waudio)
+    # admissions run kernel 3 once a same-bucket group (<= 16 rows)
+    blocks = eng.stats.steps * eng.frames_per_step
+    assert blocks < k3 <= blocks + eng.stats.admissions
+
+
+def test_engine_bucket_graphs_are_kept(cuda_device, monkeypatch):
+    """A long stream grows the engine's bucket past two edges, short ones
+    after it rebase and shrink it: each bucket's graph is captured once and
+    kept (no capture when a bucket comes back), and the frames equal the
+    eager engine's."""
+    import functools
+
+    from csm_mlx_tpu_torch import continuous
+
+    monkeypatch.setattr(continuous, "kv_prefix_buckets", functools.partial(
+        attention.kv_prefix_buckets, min_capacity=0, start=64, step=64))
+    model = resident_model("tiny", cuda_device)
+    requests = [(*_prompt(model.args, 6, 1), 150)] + [
+        (*_prompt(model.args, 5 + i, 2 + i), 6) for i in range(3)]
+
+    def run(eager):
+        from csm_mlx_tpu_torch.continuous import ContinuousEngine
+
+        eng = ContinuousEngine(model, n_slots=2, max_frames=200,
+                               max_prompt_bucket=32, capacity_slack=16,
+                               frames_per_step=3, codec=False, eager=eager,
+                               generator=torch.Generator(
+                                   device=cuda_device).manual_seed(1))
+        eng._EAGER_REBASE_SHIFT = 48
+        eng._SHRINK_HYSTERESIS = 16
+        long = eng.submit_prompt(*requests[0])
+        eng.run_until_idle()
+        captured = eng.stats.graph_captures
+        rest = [eng.submit_prompt(p, m, max_frames=mf)
+                for p, m, mf in requests[1:]]
+        eng.run_until_idle()
+        return [r.wait(0) for r in [long] + rest], eng, captured
+
+    got, eng, captured = run(False)
+    want, _, _ = run(True)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert eng.stats.cache_grows >= 2 and eng.stats.rebases >= 1
+    assert eng.kv_capacity == 64  # shrunk back to a bucket used before
+    graphs = [b for b, g in eng._graphs.items() if g != "warm"]
+    assert captured >= 2 and eng.stats.graph_captures == len(graphs)
+    assert 64 in graphs
+
+
+def test_engine_pipelined_fetch_equals_depth_one(cuda_device):
+    """Two blocks in flight (block k+1 replayed before block k is read,
+    each flight in its own pinned buffers) give the frames and chunks of
+    one in flight."""
+    model = resident_model("tiny", cuda_device)
+    mimi = _tiny_codec(cuda_device)
+    requests = _engine_requests(model, 6, seed=3)
+    got, _ = _run_engine(model, requests, mimi=mimi, pipeline_depth=2)
+    want, _ = _run_engine(model, requests, mimi=mimi, pipeline_depth=1)
+    for (frames, audio), (wframes, waudio) in zip(got, want):
+        np.testing.assert_array_equal(frames, wframes)
+        np.testing.assert_array_equal(audio, waudio)
+
+
+def test_engine_with_kernel_4_equals_the_engine_without(cuda_device,
+                                                        monkeypatch):
+    """`flash_decode_min_b=1`: every backbone step of a block runs its
+    attention through kernel 4, over a bucket's prefix view of the cache
+    (buckets of 64 slots in a cache of 88); frames and chunks equal the
+    same engine's without it, fp32."""
+    import functools
+
+    from csm_mlx_tpu_torch import continuous
+
+    monkeypatch.setattr(continuous, "kv_prefix_buckets", functools.partial(
+        attention.kv_prefix_buckets, min_capacity=0, start=64, step=64))
+    model = resident_model("tiny", cuda_device, backbone_head_dim=64)
+    mimi = _tiny_codec(cuda_device)
+    requests = _engine_requests(model, 7, seed=5)
+    before = attention.flash_decode_sdpa.launches
+    got, eng = _run_engine(model, requests, mimi=mimi, max_frames=40,
+                           flash_decode_min_b=1)
+    launched = attention.flash_decode_sdpa.launches - before
+    want, plain = _run_engine(model, requests, mimi=mimi, max_frames=40)
+    assert eng.capacity == 88 and 64 in eng._graphs
+    layers = model.args.backbone_config.num_hidden_layers
+    assert launched == layers * eng.frames_per_step * eng.stats.steps > 0
+    assert plain.stats.steps == eng.stats.steps
+    for (frames, audio), (wframes, waudio) in zip(got, want):
+        np.testing.assert_array_equal(frames, wframes)
+        np.testing.assert_array_equal(audio, waudio)

@@ -144,6 +144,10 @@ PORT_MODULES = [
     "csm_mlx_tpu_torch.finetune", "csm_mlx_tpu_torch.finetune.dataset",
     "csm_mlx_tpu_torch.finetune.lora", "csm_mlx_tpu_torch.finetune.loss",
     "csm_mlx_tpu_torch.finetune.trainer",
+    "csm_mlx_tpu_torch.continuous", "csm_mlx_tpu_torch.serve",
+    "csm_mlx_tpu_torch.watermark", "csm_mlx_tpu_torch.cli",
+    "csm_mlx_tpu_torch.cli.application", "csm_mlx_tpu_torch.cli.config",
+    "csm_mlx_tpu_torch.cli.generate", "csm_mlx_tpu_torch.cli.serve",
 ]
 
 
