@@ -74,6 +74,23 @@ make them, through `serve_http` (POST /tts, POST /tts-stream against it,
 GET /stats, a 503 past --max-pending) and `--watermark-key` on one
 request through each, the mark detected on the card and on the CPU.
 
+The user entry points: the int8 audio head (`quantize_model` with
+"audio_head" among its targets: 31 heads padded to 2,176 rows, the
+dispatched decoder) — kernel 1 on a head at 1 and 64 rows against its
+plain version, timed over the 31 heads with its bound and
+`torch._int_mm` over the same heads, 20 frames captured against eager,
+one kernel-1 launch a codebook, and replayed frames of the raw and the
+int8 head timed alternately; the CLI's `generate` run end to end on a
+saved bf16 CSM-1B checkpoint (flags through `build_parser()`, the WAV
+equal to a direct `generate` call's on the checkpoint loaded again),
+`finetune convert` of two `smoke_wave` turns and one `finetune lora sft`
+step on that model whose adapters reload to the trained model's logits;
+then CSM-1B W4A8 (4-bit codes in int8 carriers, kernel 3's tables):
+kernel 1 on its codes at 1, 64 and 300 rows, kernel 3 bit-equal to its
+plain version at B = 1 and 64, each with the bound of packed 4-bit
+codes beside the carriers', and the main path's 125 frames captured
+against eager, each beside its W8A8 time.
+
 Then the MLX-affine and batch flash-decode paths: kernel 5 (the
 grouped-affine matvec) against its plain version at the quantized
 linears' shapes, 4- and 8-bit, group 64 (and 128), B = 1, 2, 8, 16, 32,
@@ -412,16 +429,40 @@ def bound_ms(n_bytes: float, n_ops: float, kind: str) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def int_mm_ms(x, weight_q) -> float:
+def int_mm_ms(x, weights: list) -> float:
     """Device ms of `torch._int_mm` (cuBLASLt) on the same int8 codes as
     kernel 1's GEMM route: the yardstick, without the quantization and the
-    fix-up; the port never calls it."""
+    fix-up; the port never calls it. It cycles over `weights` as kernel 1's
+    timing does, so both read the codes as warm or as cold in L2."""
     xf = x.float()
     absmax = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-6)
     xq = torch.clamp(torch.round(xf * (127.0 / absmax)), -127,
                      127).to(torch.int8)
-    wt = weight_q.t()
-    return time_ms(lambda: torch._int_mm(xq, wt))[0]
+    wts = [w.t() for w in weights]
+    it = iter(range(1 << 30))
+    return time_ms(lambda: torch._int_mm(xq, wts[next(it) % len(wts)]))[0]
+
+
+def kernel1_vs_plain(x, q: dict) -> tuple:
+    """Kernel 1 and `w8a8_matvec_plain` on `x` and the codes of `q`: (the
+    largest error, the output's largest magnitude, whether the GEMM route
+    took it, ok). Both compute the same int32 products (exact) and the
+    same fp32 fix-up, up to the order of the fp32 row sum; bf16 outputs may
+    then differ by one bf16 step: ok is every value within 2**-7 of itself
+    plus 1e-3 of the output's largest magnitude, finite, on the route of
+    its row count."""
+    gemm_before = quant.w8a8_matvec.gemm_launches
+    got = quant.w8a8_matvec(x, q["weight_q"], q["scales"], q["biases"])
+    routed = quant.w8a8_matvec.gemm_launches - gemm_before
+    want = quant.w8a8_matvec_plain(x, q["weight_q"], q["scales"],
+                                   q["biases"])
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    scale = want.float().abs().max().item()
+    ok = bool((diff <= 2.0 ** -7 * want.float().abs() + 1e-3 * scale).all()) \
+        and bool(torch.isfinite(got).all()) \
+        and routed == (x.shape[0] > quant.W8A8_MATVEC_MAX_ROWS)
+    return diff.max().item(), scale, bool(routed), ok
 
 
 def check_w8a8(dev, gen) -> dict:
@@ -447,20 +488,7 @@ def check_w8a8(dev, gen) -> dict:
             for dtype in dtypes:
                 x = x32.to(dtype)
                 q = copies[0]
-                gemm_before = quant.w8a8_matvec.gemm_launches
-                got = quant.w8a8_matvec(x, q["weight_q"], q["scales"],
-                                        q["biases"])
-                routed = quant.w8a8_matvec.gemm_launches - gemm_before
-                want = quant.w8a8_matvec_plain(x, q["weight_q"], q["scales"],
-                                               q["biases"])
-                torch.cuda.synchronize()
-                diff = (got.float() - want.float()).abs()
-                scale = want.float().abs().max().item()
-                bound = 2.0 ** -7 * want.float().abs() + 1e-3 * scale
-                err = diff.max().item()
-                ok = bool((diff <= bound).all()) \
-                    and bool(torch.isfinite(got).all()) \
-                    and routed == (rows > quant.W8A8_MATVEC_MAX_ROWS)
+                err, scale, routed, ok = kernel1_vs_plain(x, q)
                 it = iter(range(1 << 30))
 
                 def run_kernel():
@@ -485,7 +513,7 @@ def check_w8a8(dev, gen) -> dict:
                                + rows * (in_dim + out_dim) * esz)
                     b_ms, b_by = bound_ms(n_bytes, 2 * rows * in_dim
                                           * out_dim, "int8")
-                    lib = int_mm_ms(x, q["weight_q"])
+                    lib = int_mm_ms(x, [q["weight_q"]])
                     extra = (f"  bound {b_ms:.4f} ms ({b_by}) = "
                              f"{b_ms / ms_k:.1%} of the kernel; "
                              f"torch._int_mm on the same codes {lib:.4f} ms")
@@ -907,11 +935,14 @@ def params_to_cpu(tree):
     return map_params(torch.Tensor.cpu, tree)
 
 
-def resident_bound(res, args, rows: int) -> tuple[float, str]:
+def resident_bound(res, args, rows: int, code_bits: int = 8
+                   ) -> tuple[float, str]:
     """Kernel 3's bound for one call of `rows` rows: every table read once
     (the embed rows this call gathers: 30 per row), proj01 read and the
     tokens written, against the int8 operations of 32 decoder steps and
-    31 heads."""
+    31 heads. `code_bits=4`: the layers' codes as packed 4-bit codes would
+    be read, half a byte each (W4A8 keeps them in int8 carriers); the
+    head stays 8-bit."""
     def nbytes(t):
         return t.numel() * t.element_size()
 
@@ -924,6 +955,7 @@ def resident_bound(res, args, rows: int) -> tuple[float, str]:
                + n_cb * rows * 4)
     codes = sum(t.numel() for lw in res["layers"] for t in lw
                 if t.dtype == torch.int8)
+    n_bytes -= codes * (8 - code_bits) / 8
     n_ops = 2 * rows * (n_cb * codes + res["audio_head_q"].numel())
     return bound_ms(n_bytes, n_ops, "int8")
 
@@ -999,60 +1031,71 @@ def fmt_split(split: dict) -> str:
         split.items(), key=lambda kv: -kv[1]))
 
 
-def check_resident(model: CSM, gen, gen_new) -> dict:
-    """Kernel 3 against its plain version at full CSM-1B width, greedy, on
-    random proj01 rows, the plain version teacher-forced on the kernel's
-    tokens: every logit within FLIP_MARGIN_TOL of its row's std, >= 99% of
+def resident_case(model: CSM, rows: int, g, label: str = "resident"
+                  ) -> tuple:
+    """Kernel 3 against its plain version at `rows` random proj01 rows,
+    greedy, the plain version teacher-forced on the kernel's tokens: every
+    logit within FLIP_MARGIN_TOL of its row's std and bit-equal, >= 99% of
     the picks agree, every disagreement sits at a plain top-2 margin below
     FLIP_MARGIN_TOL of the std, and a second launch gives identical
-    tokens."""
+    tokens. Returns (its times and errors, proj01, the tokens)."""
     res, args = model.params["_resident"], model.args
     d = args.decoder_config.hidden_size
+    proj01 = torch.randn((2, rows, d), generator=g, device=model.device)
+    # the seed as the frame step hands it over: an int32 on the card
+    seed = torch.zeros((1,), dtype=torch.int32, device=model.device)
+    toks, k_logits = resident.resident_decode_frame(
+        res, args, proj01, seed, 0.0, return_logits=True)
+    again = resident.resident_decode_frame(res, args, proj01, seed, 0.0)
+    torch.cuda.synchronize()
+    agree, flip_m, rel_err, abs_err = forced_flips(res, args, proj01,
+                                                   toks, k_logits)
+    # the plain version against itself, its input moved by 1e-6
+    nudged = proj01 * (1 + 1e-6 * torch.randn(
+        proj01.shape, generator=g, device=proj01.device))
+    _, p_logits = resident.resident_decode_frame_plain(
+        res, args, nudged, 0.0, forced=toks.long())
+    base = forced_flips(res, args, proj01, toks, p_logits)[2]
+    worst = flip_m.max().item() if flip_m.numel() else 0.0
+    same = bool(torch.equal(toks, again))
+    ok = (agree >= MIN_AGREEMENT and worst < FLIP_MARGIN_TOL and same
+          and rel_err <= FLIP_MARGIN_TOL and abs_err == 0.0
+          and not bool(toks[0].any()) and int(toks.min()) >= 0
+          and int(toks.max()) < args.n_audio_vocab)
+    ms_k, wall_k = time_ms(lambda: resident.resident_decode_frame(
+        res, args, proj01, seed, 0.0), reps=10)
+    # one call each way (about a second at every B): the two forced
+    # calls above warmed it at this shape
+    ms_p, wall_p = time_ms(lambda: resident.resident_decode_frame_plain(
+        res, args, proj01, 0.0), reps=1, warmup=0)
+    b_ms, b_by = resident_bound(res, args, rows)
+    log(f"{label} B={rows:2d}  max_abs_err {abs_err:.3e} of the logits "
+        f"= {rel_err:.4f} std (tol {FLIP_MARGIN_TOL}; plain vs plain "
+        f"with its input moved by 1e-6: {base:.4f} std)  agreement "
+        f"{agree:.4f} (need >= "
+        f"{MIN_AGREEMENT}), logits bit-equal {abs_err == 0.0} (need "
+        f"True), {flip_m.numel()} flips, worst margin "
+        f"{worst:.4f} std (tol {FLIP_MARGIN_TOL}), repeat identical "
+        f"{same}  kernel {ms_k:.4f} ms device, {wall_k:.4f} ms wall  "
+        f"plain {ms_p:.4f} ms device, {wall_p:.4f} ms wall  bound "
+        f"{b_ms:.4f} ms ({b_by}) = {b_ms / ms_k:.1%} of the kernel  "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"kernel 3 disagrees with its plain version "
+                             f"at B={rows} ({label})")
+    return (dict(max_abs_err=abs_err, agreement=agree, ms=ms_k,
+                 wall_ms=wall_k, plain_ms=ms_p, bound_ms=b_ms,
+                 bound_by=b_by), proj01, toks)
+
+
+def check_resident(model: CSM, gen, gen_new) -> dict:
+    """Kernel 3 against its plain version at full CSM-1B width
+    (`resident_case`) at RESIDENT_ROWS, each with its phase split."""
+    res, args = model.params["_resident"], model.args
     out = {}
     for rows in RESIDENT_ROWS:
         g = gen_new if rows in RESIDENT_NEW_ROWS else gen
-        proj01 = torch.randn((2, rows, d), generator=g, device=model.device)
-        # the seed as the frame step hands it over: an int32 on the card
-        seed = torch.zeros((1,), dtype=torch.int32, device=model.device)
-        toks, k_logits = resident.resident_decode_frame(
-            res, args, proj01, seed, 0.0, return_logits=True)
-        again = resident.resident_decode_frame(res, args, proj01, seed, 0.0)
-        torch.cuda.synchronize()
-        agree, flip_m, rel_err, abs_err = forced_flips(res, args, proj01,
-                                                       toks, k_logits)
-        # the plain version against itself, its input moved by 1e-6
-        nudged = proj01 * (1 + 1e-6 * torch.randn(
-            proj01.shape, generator=g, device=proj01.device))
-        _, p_logits = resident.resident_decode_frame_plain(
-            res, args, nudged, 0.0, forced=toks.long())
-        base = forced_flips(res, args, proj01, toks, p_logits)[2]
-        worst = flip_m.max().item() if flip_m.numel() else 0.0
-        same = bool(torch.equal(toks, again))
-        ok = (agree >= MIN_AGREEMENT and worst < FLIP_MARGIN_TOL and same
-              and rel_err <= FLIP_MARGIN_TOL and abs_err == 0.0
-              and not bool(toks[0].any()) and int(toks.min()) >= 0
-              and int(toks.max()) < args.n_audio_vocab)
-        ms_k, wall_k = time_ms(lambda: resident.resident_decode_frame(
-            res, args, proj01, seed, 0.0), reps=10)
-        # one call each way (about a second at every B): the two forced
-        # calls above warmed it at this shape
-        ms_p, wall_p = time_ms(lambda: resident.resident_decode_frame_plain(
-            res, args, proj01, 0.0), reps=1, warmup=0)
-        b_ms, b_by = resident_bound(res, args, rows)
-        log(f"resident B={rows:2d}  max_abs_err {abs_err:.3e} of the logits "
-            f"= {rel_err:.4f} std (tol {FLIP_MARGIN_TOL}; plain vs plain "
-            f"with its input moved by 1e-6: {base:.4f} std)  agreement "
-            f"{agree:.4f} (need >= "
-            f"{MIN_AGREEMENT}), logits bit-equal {abs_err == 0.0} (need "
-            f"True), {flip_m.numel()} flips, worst margin "
-            f"{worst:.4f} std (tol {FLIP_MARGIN_TOL}), repeat identical "
-            f"{same}  kernel {ms_k:.4f} ms device, {wall_k:.4f} ms wall  "
-            f"plain {ms_p:.4f} ms device, {wall_p:.4f} ms wall  bound "
-            f"{b_ms:.4f} ms ({b_by}) = {b_ms / ms_k:.1%} of the kernel  "
-            f"{'ok' if ok else 'MISMATCH'}")
-        if not ok:
-            raise AssertionError(f"kernel 3 disagrees with its plain version "
-                                 f"at B={rows}")
+        out[rows], proj01, toks = resident_case(model, rows, g)
         split = phase_split(res, args, proj01, toks)
         log(f"resident B={rows:2d} phases (kernel's own records, tokens equal"
             f" to the call without them): {split['total_ms']:.4f} ms, "
@@ -1063,9 +1106,6 @@ def check_resident(model: CSM, gen, gen_new) -> dict:
             log(f"resident B={rows:2d} before the redesign (H100 80GB HBM3, "
                 f"700 W): {RESIDENT_RECORDED_MS[rows]} ms, 1086 barriers; "
                 f"frame ms: {fmt_split(RESIDENT_RECORDED_SPLIT[rows])}")
-        out[rows] = dict(max_abs_err=abs_err, agreement=agree, ms=ms_k,
-                         wall_ms=wall_k,
-                         plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)
     codes = sum(t.numel() for lw in res["layers"] for t in lw
                 if t.dtype == torch.int8)
     n_cb = args.n_audio_codebooks
@@ -3462,6 +3502,370 @@ def run_http(model: CSM, mimi: Mimi) -> dict:
     return out
 
 
+def kernel1_case(label: str, q: dict, rows: int, gen, dtype=torch.bfloat16
+                 ) -> float:
+    """Kernel 1 against its plain version on the codes of `q` at `rows`
+    random rows (`kernel1_vs_plain`, `check_w8a8`'s tolerance). Returns
+    the largest error."""
+    out_dim, in_dim = q["weight_q"].shape
+    x = torch.randn((rows, in_dim), generator=gen,
+                    device=q["weight_q"].device).to(dtype)
+    err, scale, routed, ok = kernel1_vs_plain(x, q)
+    log(f"{label} B={rows:4d} {str(dtype)[6:]:8s} IN={in_dim:5d} "
+        f"OUT={out_dim:5d} [{'tensor cores' if routed else 'matvec'}]  "
+        f"max_abs_err={err:.3e} (tol 2^-7*|y| + {1e-3 * scale:.2e})  "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"kernel 1 disagrees on {label} at B={rows}")
+    return err
+
+
+def kernel1_timing(label: str, qs: list, rows: int, gen,
+                   code_bits: int = 8) -> dict:
+    """Device ms of kernel 1 and of its plain version at `rows` bf16 rows,
+    cycling over the code tables `qs` (as a frame reads them: cold in L2),
+    with the bound of one call and, above 16 rows, `torch._int_mm` on the
+    same codes, cycled the same way. `code_bits=4` adds the bound of the
+    same call with packed 4-bit codes, half a byte each."""
+    out_dim, in_dim = qs[0]["weight_q"].shape
+    x = torch.randn((rows, in_dim), generator=gen,
+                    device=qs[0]["weight_q"].device).to(torch.bfloat16)
+    it = iter(range(1 << 30))
+
+    def run(fn):
+        q = qs[next(it) % len(qs)]
+        fn(x, q["weight_q"], q["scales"], q["biases"])
+
+    ms_k = time_ms(lambda: run(quant.w8a8_matvec))[0]
+    ms_p = time_ms(lambda: run(quant.w8a8_matvec_plain))[0]
+    rest = 8 * out_dim + rows * (in_dim + out_dim) * 2
+    b_ms, b_by = bound_ms(in_dim * out_dim + rest,
+                          2 * rows * in_dim * out_dim, "int8")
+    lib = int_mm_ms(x, [q["weight_q"] for q in qs]) if rows > 16 else None
+    out = dict(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib)
+    packed = ""
+    if code_bits != 8:
+        p_ms, p_by = bound_ms(in_dim * out_dim * code_bits / 8 + rest,
+                              2 * rows * in_dim * out_dim, "int8")
+        out.update(bound_packed_ms=p_ms, bound_packed_by=p_by)
+        packed = (f"; with packed {code_bits}-bit codes {1e3 * p_ms:.2f} us "
+                  f"({p_by}) = {p_ms / ms_k:.1%}")
+    log(f"{label} B={rows} ({card_info()}): kernel {1e3 * ms_k:.2f} us "
+        f"device over {len(qs)} tables, plain {1e3 * ms_p:.2f} us; bound "
+        f"{1e3 * b_ms:.2f} us ({b_by}) = {b_ms / ms_k:.1%} of the kernel"
+        + packed
+        + (f"; torch._int_mm on the same codes over the same tables "
+           f"{1e3 * lib:.2f} us" if lib is not None else ""))
+    return out
+
+
+def run_w4a8(dev, w8a8: dict, frame: dict, main_path: dict) -> dict:
+    """CSM-1B W4A8 (`quantize_model(mode="w4a8")`, fused, random weights
+    from SEED as the W8A8 model's): codes in [-7, 7] in int8 carriers and
+    kernel 3's tables. Kernel 3 on the W4A8 tables against its plain
+    version at B = 1 and 64 (`resident_case`: bit-equal logits); kernel 1
+    on the 4-bit codes at 1, 64 and 300 rows against its plain version;
+    the main path, 125 greedy frames from the 32-row prompt, captured
+    against eager (equal frames; kernels 1 and 3 counted, kernel 3 once a
+    frame); ms a frame, and kernel 1's and kernel 3's times beside
+    W8A8's, with their bounds as the int8 carriers read and as packed
+    4-bit codes would."""
+    args = csm_1b()
+    t0 = time.perf_counter()
+    model = random_csm(args, torch.bfloat16, dev, SEED)
+    quant.quantize_model(model, mode="w4a8", fuse=True)
+    torch.cuda.synchronize()
+    if "_resident" not in model.params:
+        raise AssertionError("W4A8 quantize_model prepared no kernel-3 tables")
+    layers = model.params["backbone"]["layers"]
+    codes = [lp["mlp"]["gateup_proj"] for lp in layers]
+    widest = max(int(c["weight_q"].abs().max()) for c in codes)
+    if widest != 7 or any(c["weight_q"].dtype != torch.int8 for c in codes):
+        raise AssertionError(f"W4A8 codes are not 4-bit in int8 ({widest})")
+    log(f"CSM-1B random init (seed {SEED}) + W4A8 + kernel-3 tables: "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 120)
+    err = 0.0
+    for name, q in (("backbone gate-up", codes[0]),
+                    ("backbone down", layers[0]["mlp"]["down_proj"]),
+                    ("decoder qkv", model.params["decoder"]["layers"][0]
+                     ["self_attn"]["qkv_proj"])):
+        for rows in (1, 64, 300):
+            err = max(err, kernel1_case(f"w4a8 {name:16s}", q, rows, gen))
+    timing = {rows: kernel1_timing("w4a8 backbone gate-up", codes, rows, gen,
+                                   code_bits=4)
+              for rows in (1, 64)}
+    log(f"w4a8 backbone gate-up B=1: kernel {1e3 * timing[1]['ms']:.2f} us "
+        f"against W8A8's {1e3 * w8a8['ms']:.2f} us in this run (the same "
+        f"int8 bytes)")
+    k3 = {}
+    for rows in (1, 64):
+        k3[rows], _, _ = resident_case(model, rows, gen, label="w4a8 resident")
+        p_ms, p_by = resident_bound(model.params["_resident"], args, rows,
+                                    code_bits=4)
+        k3[rows].update(bound_packed_ms=p_ms, bound_packed_by=p_by)
+        log(f"w4a8 resident B={rows}: kernel 3 {k3[rows]['ms']:.4f} ms against"
+            f" W8A8's {frame[rows]['ms']:.4f} ms in this run; bound with "
+            f"packed 4-bit codes {p_ms:.4f} ms ({p_by}) = "
+            f"{p_ms / k3[rows]['ms']:.1%} of the kernel")
+    prompt, mask = synthetic_prompt(32, args.n_text_vocab, SEED)
+    ab = captured_vs_eager(
+        lambda eager, n: generate_tokens(model, prompt, mask, n,
+                                         temperature=0.0, _eager_step=eager),
+        "main path W4A8", 125)
+    n = int(ab["n"])
+    counts = ab["counts"]
+    if counts["resident_decode_frame"] != n or counts["w8a8_matvec"] < 1:
+        raise AssertionError(f"W4A8 frames did not run kernels 1 and 3 "
+                             f"({counts})")
+    log(f"main path W4A8 ({card_info()}): {ab['ms_captured']:.2f} ms a frame "
+        f"captured, {ab['ms_eager']:.2f} eager, against W8A8's "
+        f"{main_path['ms_per_frame']:.2f} / {main_path['ms_eager']:.2f} in "
+        f"this run; launches {counts}")
+    del model
+    torch.cuda.empty_cache()
+    return dict(kernel1=dict(max_abs_err=err, **timing[1]),
+                kernel1_64=timing[64], kernel3=k3, counts=counts,
+                ms_per_frame=ab["ms_captured"], ms_eager=ab["ms_eager"])
+
+
+def replay_step(model: CSM, frames: int) -> "generation.FrameStep":
+    """The captured frame step at B = 1 from the 32-row prompt, greedy,
+    past its prefill, first frame, warm-up frame and capture, with room
+    for `frames` more."""
+    prompt, mask = synthetic_prompt(32, model.args.n_text_vocab, SEED)
+    tokens, masks, pad, bucket = generation._pad_prompt(prompt, mask)
+    step = generation.FrameStep(model, 1, bucket + frames + 3,
+                                SamplerConfig(temperature=0.0), (), None)
+    step.first(step.prefill(tokens, masks, pad))
+    step()
+    step()
+    return step
+
+
+def time_replays(step, frames: int) -> dict:
+    """Device ms and launch counts a frame of `frames` replays of `step`,
+    the counts set to 0 just before: CUDA events around the replays, which
+    queue with no host read between them (the frame loop's EOS read left
+    out), so the events time the frames' own work: no prefill, no eager
+    first frame."""
+    torch.cuda.synchronize()
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(frames):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    return dict(ms=start.elapsed_time(end) / frames,
+                counts={k: v / frames for k, v in read_counts().items()})
+
+
+def run_int8_head(model: CSM, disp: dict) -> dict:
+    """The W8A8 CSM-1B with "audio_head" among `quantize_model`'s targets
+    (`quantize_audio_head`: 31 heads of 1024 -> 2051, padded to 2176 rows,
+    8-bit per row), which runs the dispatched decoder: kernel 1 on a head
+    at 1 and 64 rows against its plain version; 20 greedy frames captured
+    against eager (equal frames); then the raw head's dispatched decoder
+    and the int8 head's, each a captured frame step, 10 replayed frames
+    at a time, alternated raw, int8, int8, raw: device ms a frame and
+    kernel-1 launches a frame (the int8 head's 31 more: one a codebook);
+    their profiled frames (`profile_frames`); kernel 1's time at the
+    head's shape with its bound and, at 64 rows, `torch._int_mm`'s."""
+    args = model.args
+    raw = {k: v for k, v in model.params.items() if k != "_resident"}
+    dispatched = CSM(args, params=raw, dtype=model.dtype)
+    head_model = CSM(args, params=dict(raw), dtype=model.dtype)
+    quant.quantize_model(head_model, mode="w8a8", targets=("audio_head",),
+                         fuse=False)
+    head = head_model.params["audio_head"]
+    n_heads = args.n_audio_codebooks - 1
+    shape = (n_heads, -(-args.n_audio_vocab // 128) * 128, args.decoder_dim)
+    if not isinstance(head, dict) or "_resident" in head_model.params \
+            or tuple(head["weight_q"].shape) != shape:
+        raise AssertionError(f"the int8 audio head is not {shape}")
+    heads = [{k: v[i] for k, v in head.items()} for i in range(n_heads)]
+    gen = torch.Generator(device=model.device).manual_seed(SEED + 130)
+    err = max(kernel1_case("int8 audio head", heads[i], rows, gen)
+              for i in (0, n_heads - 1) for rows in (1, 64))
+    timing = {rows: kernel1_timing("int8 audio head", heads, rows, gen)
+              for rows in (1, 64)}
+    prompt, mask = synthetic_prompt(32, args.n_text_vocab, SEED)
+    ab = captured_vs_eager(
+        lambda eager, n: generate_tokens(head_model, prompt, mask, n,
+                                         temperature=0.0, _eager_step=eager),
+        "int8 audio head", 20, eager_runs=1)
+    if ab["counts"]["resident_decode_frame"]:
+        raise AssertionError("the int8-head model took kernel 3")
+    frames = 10
+    steps = {"raw": replay_step(dispatched, 2 * frames),
+             "int8": replay_step(head_model, 2 * frames)}
+    runs: dict = {"raw": [], "int8": []}
+    for name in ("raw", "int8", "int8", "raw"):
+        runs[name].append(time_replays(steps[name], frames))
+    del steps
+    ms = {k: [r["ms"] for r in v] for k, v in runs.items()}
+    with_head = runs["int8"][0]["counts"]["w8a8_matvec"]
+    without = runs["raw"][0]["counts"]["w8a8_matvec"]
+    trace = profile_frames(head_model, "trace, int8 audio head")
+    cap, raw_cap = trace["captured"], disp["trace"]["captured"]
+    log(f"int8 audio head ({card_info()}): {frames} replayed frames a run, "
+        f"alternated raw/int8/int8/raw: device ms a frame int8 head "
+        f"{', '.join(f'{t:.3f}' for t in ms['int8'])}, raw head "
+        f"{', '.join(f'{t:.3f}' for t in ms['raw'])}; profiled captured "
+        f"frame: int8 head {cap['events']:.0f} events, {cap['busy_ms']:.3f}"
+        f" ms busy; raw head {raw_cap['events']:.0f} events, "
+        f"{raw_cap['busy_ms']:.3f} ms busy; whole 20-frame calls (prefill "
+        f"and eager first frame included) {ab['ms_captured']:.2f} ms a "
+        f"frame captured, {ab['ms_eager']:.2f} eager; kernel-1 launches a "
+        f"replayed frame {with_head:.0f}, with the raw head {without:.0f}: "
+        f"{with_head - without:.0f} head launches a frame (need {n_heads})")
+    if with_head - without != n_heads:
+        raise AssertionError("the int8 head is not one kernel-1 launch a "
+                             "codebook")
+    return dict(kernel1=dict(max_abs_err=err, **timing[1]),
+                kernel1_64=timing[64], counts=ab["counts"],
+                head_launches=with_head - without,
+                ms_replayed=ms, trace=trace,
+                ms_per_frame=ab["ms_captured"], ms_eager=ab["ms_eager"])
+
+
+def c0_logits(model: CSM, prompt, mask) -> torch.Tensor:
+    """codebook 0's logits after one backbone prefill of the prompt."""
+    tokens, masks, pad, bucket = generation._pad_prompt(prompt, mask)
+    run = prefill_runner(model, tokens, masks, pad, bucket + 1)
+    with torch.no_grad():
+        return linear(model.params["codebook0_head"], run()).float()
+
+
+def run_cli(dev, mimi: Mimi, workdir: str) -> dict:
+    """The `generate` and `finetune` commands, their flags parsed by
+    `build_parser()`, `mimi` installed as the codec singleton and the text
+    tokenizer replaced, on a random bf16 CSM-1B (SEED + 7) saved with
+    `save_weights`: `generate -w <that file> --temperature 0` run as the
+    command runs it (`args.func`: the checkpoint loaded onto the card,
+    not quantized, so the dispatched decoder with the raw head; gate: its
+    WAV equals the one of a direct `generate` call on the checkpoint
+    loaded again); `finetune convert` of two `smoke_wave` turns; one
+    `finetune lora sft` step at batch 1 on that JSON, on the saved model
+    in hand (`lora_finetune.train`; gates: a finite loss;
+    `adapter_config.json` and `adapters.safetensors` written;
+    `load_adapters` into the loaded checkpoint gives the trained model's
+    codebook-0 logits on one prompt within bf16 noise, 2**-7 of their
+    largest magnitude)."""
+    from csm_mlx_tpu_torch import tokenizers as port_tokenizers
+    from csm_mlx_tpu_torch.cli.application import build_parser
+    from csm_mlx_tpu_torch.cli.finetune import lora_finetune
+    from csm_mlx_tpu_torch.loaders import load_csm_weights
+    from csm_mlx_tpu_torch.ops.sampling import make_sampler
+    from csm_mlx_tpu_torch.utils.audio import write_audio
+
+    text = "The quick brown fox jumps over the lazy dog."
+    t0 = time.perf_counter()
+    trained = random_csm(csm_1b(), torch.bfloat16, dev, SEED + 7)
+    ckpt = os.path.join(workdir, "csm-1b.safetensors")
+    trained.save_weights(ckpt)
+    log(f"CSM-1B random init (seed {SEED + 7}, bf16) saved to a "
+        f"{os.path.getsize(ckpt) / 2**30:.2f} GiB checkpoint: "
+        f"{time.perf_counter() - t0:.1f} s")
+    key = (trained.n_audio_codebooks,
+           str(port_tokenizers._codec_device(trained.device)))
+    saved = port_tokenizers._MIMI_CACHE.get(key)
+    port_tokenizers._MIMI_CACHE[key] = (None, mimi)
+    out: dict = {}
+    try:
+        with with_text_rows(trained):
+            wav = os.path.join(workdir, "cli.wav")
+            args = build_parser().parse_args(
+                ["generate", text, "-w", ckpt, "--temperature", "0", "-l",
+                 "2000", "-o", wav])
+            reset_counts()
+            t0 = time.perf_counter()
+            args.func(args)
+            torch.cuda.synchronize()
+            t_cli = time.perf_counter() - t0
+            counts = read_counts()
+            loaded = CSM(trained.args, params=load_csm_weights(ckpt,
+                                                               device=dev))
+            direct = generation.generate(
+                loaded, text, 0, (), 2000,
+                sampler=make_sampler(temp=0.0, top_k=50))
+            want = os.path.join(workdir, "direct.wav")
+            write_audio(direct.float().cpu().numpy(), want, 24000)
+            with open(wav, "rb") as f, open(want, "rb") as g:
+                same = f.read() == g.read()
+            n = direct.numel() // 1920
+            log(f"CLI generate -w <checkpoint> --temperature 0 -l 2000 "
+                f"({card_info()}): {n} frames, {t_cli:.2f} s with the "
+                f"checkpoint's load; the WAV equals a direct generate "
+                f"call's on the checkpoint loaded again: {same}; launches "
+                f"{counts} (bf16, not quantized: no kernel of the "
+                f"slice's path)")
+            if not (same and n >= 1 and direct.numel() == n * 1920
+                    and direct.device.type == "cuda"):
+                raise AssertionError("the CLI's WAV is not generate's")
+            out["generate"] = dict(counts=counts, seconds=t_cli, frames=n)
+
+            src = os.path.join(workdir, "conversations", "conv1")
+            os.makedirs(src)
+            for i, name in enumerate(("turn1_speaker0", "turn2_speaker1")):
+                write_audio(smoke_wave(2.0, SEED + 140 + i),
+                            os.path.join(src, f"{name}.wav"), 24000)
+                with open(os.path.join(src, f"{name}.txt"), "w") as f:
+                    f.write(f"Turn {i + 1} of the smoke conversation.\n")
+            data = os.path.join(workdir, "data.json")
+            args = build_parser().parse_args(
+                ["finetune", "convert", os.path.dirname(src), data])
+            args.func(args)
+            with open(data) as f:
+                convs = json.load(f)
+            if [[t["speaker"] for t in c] for c in convs] != [[0, 1]]:
+                raise AssertionError(f"finetune convert wrote {convs}")
+
+            run_dir = os.path.join(workdir, "lora")
+            args = build_parser().parse_args(
+                ["finetune", "lora", "sft", "--data-path", data, "-o",
+                 run_dir, "--batch-size", "1", "--epochs", "1",
+                 "--log-freq", "1", "--ckpt-freq", "0", "--lr", "1e-3"])
+            reset_counts()
+            t0 = time.perf_counter()
+            lora_finetune.train(args, trained)
+            torch.cuda.synchronize()
+            t_sft = time.perf_counter() - t0
+            sft_counts = read_counts()
+        with open(os.path.join(run_dir, "trainer_state.json")) as f:
+            losses = [r["loss"] for r in json.load(f)["history"]]
+        files = sorted(os.listdir(run_dir))
+        prompt, mask = synthetic_prompt(32, trained.args.n_text_vocab, SEED)
+        want_logits = c0_logits(trained, prompt, mask)
+        loaded.frame_steps.clear()
+        lora.load_adapters(loaded, run_dir)
+        got_logits = c0_logits(loaded, prompt, mask)
+        diff = (got_logits - want_logits).abs().max().item()
+        tol = 2.0 ** -7 * want_logits.abs().max().item()
+        log(f"CLI finetune convert + lora sft ({card_info()}): "
+            f"{len(convs[0])} turns, {len(losses)} step(s), loss {losses}, "
+            f"{t_sft:.2f} s; wrote {files}; reloaded adapters' c0 logits vs "
+            f"the trained model's: max |diff| {diff:.3e} (tol {tol:.3e}); "
+            f"launches {sft_counts}")
+        if not (len(losses) == 1 and np.isfinite(losses[0])
+                and {"adapter_config.json", "adapters.safetensors"}
+                <= set(files) and diff <= tol):
+            raise AssertionError("the LoRA SFT step's adapters do not "
+                                 "reload to the trained model")
+        out["sft"] = dict(loss=losses[0], seconds=t_sft, diff=diff)
+        del trained, loaded
+        torch.cuda.empty_cache()
+    finally:
+        if saved is None:
+            port_tokenizers._MIMI_CACHE.pop(key, None)
+        else:
+            port_tokenizers._MIMI_CACHE[key] = saved
+    return out
+
+
 def affine_generator(dev) -> torch.Generator:
     """The generator of kernel 5's cases added with its redesign."""
     gen = torch.Generator(device=dev)
@@ -3536,8 +3940,12 @@ def main() -> None:
     serving = timed(run_serving, model, mimi)
     serving_ab = timed(run_serving_ab, model, mimi, serving["spreads"])
     timed(run_http, model, mimi)
+    head = timed(run_int8_head, model, disp)
     del model
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        timed(run_cli, dev, mimi, workdir)
+    w4a8 = timed(run_w4a8, dev, w8a8, frame, main_path)
     affine_path = timed(run_affine_path, dev, mimi)
 
     flash_tr = timed(check_flash_train, dev, gen)
@@ -3553,7 +3961,13 @@ def main() -> None:
              replaces="csm_mlx_tpu/ops/quant.py:152",
              launches=launches["w8a8_matvec"],
              context_launches=context["counts"]["w8a8_matvec"],
-             serving_launches=serving["counts"]["w8a8_matvec"], **w8a8),
+             serving_launches=serving["counts"]["w8a8_matvec"],
+             w4a8_launches=w4a8["counts"]["w8a8_matvec"],
+             int8_head_launches=head["counts"]["w8a8_matvec"],
+             int8_head_launches_a_frame=head["head_launches"],
+             w4a8=w4a8["kernel1"], w4a8_64_rows=w4a8["kernel1_64"],
+             int8_head=head["kernel1"], int8_head_64_rows=head["kernel1_64"],
+             **w8a8),
         dict(name="flash_prefill_sdpa", route="cuda",
              source="csm_mlx_tpu_torch/csrc/flash_prefill.cu",
              replaces="csm_mlx_tpu/ops/attention.py:34",
@@ -3567,6 +3981,8 @@ def main() -> None:
              launches=launches["resident_decode_frame"],
              context_launches=context["counts"]["resident_decode_frame"],
              serving_launches=serving["counts"]["resident_decode_frame"],
+             w4a8_launches=w4a8["counts"]["resident_decode_frame"],
+             w4a8=w4a8["kernel3"],
              max_abs_err=k3["max_abs_err"], agreement=k3["agreement"],
              ms=k3["ms"],
              plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],

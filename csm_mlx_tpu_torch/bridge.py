@@ -4,9 +4,10 @@ The JAX package keeps parameters as a nested dict / list pytree; fetched
 to the host (`jax.device_get`) its leaves are numpy arrays (bf16 ones as
 `ml_dtypes.bfloat16`). `tree_to_torch` turns such a tree into the port's
 tensors under the same nested names — raw CSM params, CSM params after
-`quantize_model(..., fuse=True)` in either mode (W8A8: int8 codes; affine:
-uint8 or packed uint4 codes; fp32 scales and biases, fused qkv/gate-up)
-and Mimi params alike — so both sides compute
+`quantize_model(..., fuse=True)` in any mode (W8A8: int8 codes; W4A8:
+int4 codes widened to int8; affine: uint8 or packed uint4 codes; fp32
+scales and biases, fused qkv/gate-up; the int8 audio head's dict leaf by
+leaf) and Mimi params alike — so both sides compute
 the same function. A `_resident` entry (the JAX whole-frame decoder's
 tables) is carried across in the port's layout by `resident_to_torch`.
 Configs (any object with the dataclass fields of `LlamaConfig` /
@@ -34,10 +35,11 @@ def array_to_torch(a: Any, device: torch.device | str = "cpu",
     codes (`ml_dtypes` uint4, (OUT, IN)) are packed two to a byte into the
     port's uint8 (OUT, IN/2) layout (`ops.quant.pack_uint4`); uint8 codes,
     also a TPU's 4-bit codes in uint8 carriers, stay 8-bit codes (the same
-    dequantized weight)."""
+    dequantized weight). Signed int4 codes (W4A8 on the JAX CPU) are widened
+    to the port's int8 carriers, the layout a TPU keeps them in."""
     a = np.asarray(a)
     if a.dtype.name == "int4":
-        raise ValueError("signed int4 (W4A8) codes are not ported yet")
+        return torch.from_numpy(a.astype(np.int8)).to(device)
     if a.dtype.name == "uint4":
         from csm_mlx_tpu_torch.ops.quant import pack_uint4
 

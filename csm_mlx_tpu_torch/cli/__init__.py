@@ -1,1 +1,2 @@
-"""Command-line interface of the port (`serve`; see `application.py`)."""
+"""Command-line interface of the port: `generate`, `serve` and `finetune`
+(see `application.py`)."""

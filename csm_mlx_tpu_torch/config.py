@@ -82,3 +82,14 @@ DECODER_CONFIGURATION = {
         rope_scaling=RopeScalingConfig(),
     )
 }
+
+# The published sources of the tokenizers (JAX `config.py:94-102`), for
+# reference: the port reads both from local paths only
+# (`tokenizers.get_text_tokenizer`, `tokenizers.get_audio_tokenizer`).
+TOKENIZERS = {
+    "audio": {
+        "repo_id": "kyutai/moshiko-pytorch-bf16",
+        "filename": "tokenizer-e351c8d8-checkpoint125.safetensors",
+    },
+    "text": {"repo_id": "unsloth/Llama-3.2-1B"},
+}

@@ -193,7 +193,7 @@ def dispatched_decode(params, args: ModelArgs, proj01, dec_sampler,
     dcfg = args.decoder_config
     b, n_cb = proj01.shape[0], args.n_audio_codebooks
     device, dtype = proj01.device, proj01.dtype
-    audio_head = params["audio_head"]
+    audio_head, n_vocab = params["audio_head"], args.n_audio_vocab
     cap = n_cb + 1
     dcache = KVCache.init(dcfg, b, cap, dtype=dtype, device=device)
 
@@ -204,7 +204,7 @@ def dispatched_decode(params, args: ModelArgs, proj01, dec_sampler,
     hidden, dcache = llama_forward(
         params["decoder"], dcfg, proj01, cos_d, sin_d,
         torch.arange(2, device=device)[None], dec_bias(2, 0), dcache)
-    logits = [audio_head_logits(audio_head, 0, hidden[:, -1])]
+    logits = [audio_head_logits(audio_head, 0, hidden[:, -1], n_vocab)]
     codes = [dec_sampler(generator, logits[0])]
     table = emb_table(params["audio_embeddings"])
     for i in range(2, n_cb):
@@ -216,7 +216,8 @@ def dispatched_decode(params, args: ModelArgs, proj01, dec_sampler,
         hidden, dcache = llama_forward(params["decoder"], dcfg, x, cos_d,
                                        sin_d, positions, dec_bias(1, i),
                                        dcache)
-        logits.append(audio_head_logits(audio_head, i - 1, hidden[:, 0]))
+        logits.append(audio_head_logits(audio_head, i - 1, hidden[:, 0],
+                                        n_vocab))
         codes.append(dec_sampler(generator, logits[-1]))
     return torch.stack(codes, dim=1), torch.stack(logits).float()
 

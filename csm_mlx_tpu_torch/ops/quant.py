@@ -27,9 +27,18 @@ parity) and W8A8.
    int8 tensor cores, with the same exact int32 products; on CPU tensors it
    runs `w8a8_matvec_plain`, the mirror of `_xla_w8a8_matvec`.
 
-Not ported yet: W4A8 (mode="w4a8") and `quantize_audio_head` (the
-whole-frame decoder's own int8 head is, in
-`ops.resident_decoder.set_resident_audio_head`).
+3. W4A8 (`quantize_weight_w8(bits=4)`, mode="w4a8"): the same per-channel
+   scheme with codes in [-7, 7], stored in int8 carriers as the JAX package
+   stores them off the CPU, so they run kernel 1 (and kernel 3) as W8A8
+   codes do. W4A8 reads as many bytes as W8A8.
+
+4. The int8 audio head (`quantize_audio_head`, the "audio_head" target in
+   W8A8 and W4A8 mode, always 8-bit): (K-1, V_pad, D) per-row codes with the
+   vocabulary padded to a multiple of 128, scored by `audio_head_logits`
+   through kernel 1 with the pad sliced off. It is not the whole-frame
+   decoder's own head (`ops.resident_decoder.set_resident_audio_head`,
+   symmetric per column): a model with this head runs the dispatched
+   decoder.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from csm_mlx_tpu_torch.ops import launches
 
@@ -50,13 +60,18 @@ AFFINE_MAX_ROWS = 64
 # above (kMaxMatvecRows of csrc/w8a8_matvec.cu)
 W8A8_MATVEC_MAX_ROWS = 64
 
-_INV_254 = float(np.float32(1.0 / 254.0))
+# 1 / (2 * limit) of the W8A8 / W4A8 scale as fp32 constants (see
+# `quantize_weight_w8`)
+_INV_2LIM = {8: float(np.float32(1.0 / 254.0)),
+             4: float(np.float32(1.0 / 14.0))}
 # 1 / n_levels of the affine codes as fp32 constants: under `jax.jit` XLA
 # turns the division by the constant 15 or 255 into a product with its fp32
 # reciprocal, and `quantize_model` runs the jitted quantizer
 _INV_LEVELS = {4: float(np.float32(1.0 / 15.0)),
                8: float(np.float32(1.0 / 255.0))}
 _NO_QUANT = ("layernorm", "norm", "embeddings", "layer_scale", "codebook")
+# the per-channel modes and their code width
+_PER_CHANNEL = {"w8a8": 8, "w4a8": 4}
 
 
 # --- grouped affine ----------------------------------------------------------
@@ -200,19 +215,41 @@ launches.register(affine_matvec)
 # --- W8A8 --------------------------------------------------------------------
 
 
-def quantize_weight_w8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """(out, in) float -> {"weight_q" int8 (out, in), "scales" (out, 1) fp32,
-    "biases" (out, 1) fp32}, equal to the JAX `quantize_weight_w8` under
-    `jax.jit`, as `quantize_model` runs it: XLA turns the division by the
-    constant 254 into a product with its fp32 reciprocal, so this does too
-    (the eager JAX call divides, and its scales may differ in the last bit)."""
+def quantize_weight_w8(w: torch.Tensor, bits: int = 8
+                       ) -> Dict[str, torch.Tensor]:
+    """(..., out, in) float -> {"weight_q" int8 (..., out, in), "scales"
+    (..., out, 1) fp32, "biases" (..., out, 1) fp32}: per-row signed codes
+    in [-127, 127] (bits=8, W8A8) or [-7, 7] (bits=4, W4A8, still in int8
+    carriers), w ~= s * q + z with z the row midpoint. Equal to the JAX
+    `quantize_weight_w8` under `jax.jit`, as `quantize_model` runs it: XLA
+    turns the division by the constant 2 * limit into a product with its
+    fp32 reciprocal, so this does too (the eager JAX call divides, and its
+    scales may differ in the last bit)."""
+    if bits not in _INV_2LIM:
+        raise ValueError(f"quantize_weight_w8: bits {bits}; 4 or 8")
+    lim = 127 if bits == 8 else 7
     wf = w.float()
     w_max = wf.amax(dim=-1, keepdim=True)
     w_min = wf.amin(dim=-1, keepdim=True)
     z = (w_max + w_min) / 2.0
-    s = torch.clamp((w_max - w_min) * _INV_254, min=1e-12)
-    q = torch.clamp(torch.round((wf - z) / s), -127, 127).to(torch.int8)
+    s = torch.clamp((w_max - w_min) * _INV_2LIM[bits], min=1e-12)
+    q = torch.clamp(torch.round((wf - z) / s), -lim, lim).to(torch.int8)
     return {"weight_q": q, "scales": s, "biases": z}
+
+
+def quantize_audio_head(audio_head: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The (K-1, D, V) audio head -> {"weight_q" int8 (K-1, V_pad, D),
+    "scales", "biases" fp32 (K-1, V_pad, 1)}: each head transposed to the
+    matvec's (OUT, IN) orientation, V zero-padded to V_pad = ceil(V / 128)
+    * 128 and quantized per row in 8 bits, as the JAX function does. Each
+    tensor is contiguous, so `weight_q[i]` is a (V_pad, D) view on a
+    16-byte boundary (D % 16 == 0) that kernel 1 takes as it is."""
+    v = audio_head.shape[-1]
+    v_pad = -(-v // 128) * 128
+    with torch.no_grad():
+        wt = F.pad(audio_head.float().transpose(1, 2), (0, 0, 0, v_pad - v))
+        q = quantize_weight_w8(wt, bits=8)
+    return {k: t.contiguous() for k, t in q.items()}
 
 
 def _int_dot(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -293,18 +330,24 @@ launches.register(w8a8_matvec)
 launches.register(w8a8_matvec, "gemm_launches", "w8a8_matvec.gemm")
 
 
-def audio_head_logits(head: torch.Tensor, i: int,
-                      hidden: torch.Tensor) -> torch.Tensor:
-    """Logits of codebook i+1: hidden (B, D_dec) x audio_head[i] (D_dec, V),
-    in fp32. Only the raw head is ported (its int8 form waits)."""
-    if not isinstance(head, torch.Tensor):
-        raise ValueError("a quantized audio_head is not ported yet")
+def audio_head_logits(head, i: int, hidden: torch.Tensor,
+                      n_vocab: int) -> torch.Tensor:
+    """Logits of codebook i+1, (B, V) fp32, from hidden (B, D_dec): against
+    the raw (K-1, D_dec, V) head in fp32, or against head i of
+    `quantize_audio_head`'s dict through kernel 1 (`quant_linear`) over the
+    padded vocabulary, the pad sliced off (`n_vocab` = V)."""
+    if isinstance(head, dict):
+        y = quant_linear({"weight_q": head["weight_q"][i],
+                          "scales": head["scales"][i],
+                          "biases": head["biases"][i]}, hidden).float()
+        return y[:, :n_vocab]
     return torch.matmul(hidden.float(), head[i].float())
 
 
 def quant_linear(params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     """Linear over a quantized dict, dispatched on the code type as in JAX:
-    signed int8 codes (W8A8) go through `w8a8_matvec` at every row count;
+    signed int8 codes (W8A8, and W4A8 in int8 carriers) go through
+    `w8a8_matvec` at every row count;
     unsigned (affine) codes through `affine_matvec` at <= 64 rows, else the
     weight dequantized to x.dtype and one matmul. The affine code width and
     group come from the stored arrays against x's width."""
@@ -322,7 +365,7 @@ def quant_linear(params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
             y = torch.matmul(xf, w.t())
     else:
         raise ValueError(f"quant_linear: codes of type {wq.dtype} are not "
-                         f"ported (int8 W8A8 or uint8 affine)")
+                         f"ported (int8 W8A8 / W4A8 or uint8 affine)")
     y = y.reshape(*lead, -1)
     if "bias" in params:
         y = y + params["bias"].to(y.dtype)
@@ -345,12 +388,13 @@ def _quantize_tree(tree: Any, bits: int, group_size: int, min_size: int,
             return tree
         w = tree.get("weight")
         if isinstance(w, torch.Tensor) and w.dim() == 2 and not blocked:
-            # w8a8 is per-channel: no input-group alignment needed.
-            align = 1 if mode == "w8a8" else group_size
+            # w8a8/w4a8 are per-channel: no input-group alignment needed.
+            align = 1 if mode in _PER_CHANNEL else group_size
             large = w.numel() >= min_size
             if large and w.shape[-1] % align == 0:
                 new = {k: v for k, v in tree.items() if k != "weight"}
-                new.update(quantize_weight_w8(w) if mode == "w8a8"
+                new.update(quantize_weight_w8(w, _PER_CHANNEL[mode])
+                           if mode in _PER_CHANNEL
                            else quantize_weight(w, bits, group_size))
                 return new
             if large:  # large enough but misaligned: say so
@@ -383,25 +427,26 @@ def quantize_model(model, bits: int = DEFAULT_BITS,
     and `group_size` (4-bit, group 64 by default, as `nn.quantize`); a leaf
     whose IN is not a multiple of `group_size` stays as it is, with a
     warning. mode="w8a8": per-channel int8 weights with dynamic int8
-    activations; `bits`/`group_size` are ignored.
+    activations; mode="w4a8": the same with codes in [-7, 7] in int8
+    carriers; in both `bits`/`group_size` are ignored.
 
-    Embeddings, norms and `audio_head` stay as they are (an "audio_head"
-    target is skipped silently in affine mode, as in JAX; its W8A8 form is
-    not ported), and DoRA leaves are skipped with a warning. On a CUDA
-    model, W8A8 with `fuse` and the decoder among the targets also derives
-    the whole-frame decoder's tables (`params["_resident"]`,
-    `ops.resident_decoder`), as the JAX package does on any backend but the
-    CPU; generation then runs each decoder frame as one kernel-3 launch per
-    chunk of <= 64 rows. The affine path runs the dispatched decoder."""
-    if mode not in ("affine", "w8a8"):
-        raise ValueError(f"quantize_model: mode {mode!r} is not ported yet; "
-                         f"'affine' or 'w8a8'")
+    Embeddings and norms stay as they are, and DoRA leaves are skipped with
+    a warning. An "audio_head" target becomes `quantize_audio_head`'s
+    8-bit dict in W8A8 and W4A8 mode and is skipped in affine mode, as in
+    JAX. On a CUDA model, W8A8 or W4A8 with `fuse` and the decoder among
+    the targets also derives the whole-frame decoder's tables
+    (`params["_resident"]`, `ops.resident_decoder`; not with the int8
+    head); generation then runs each decoder frame as one kernel-3 launch
+    per chunk of <= 64 rows. The affine path runs the dispatched
+    decoder."""
+    if mode not in ("affine",) + tuple(_PER_CHANNEL):
+        raise ValueError(f"quantize_model: mode {mode!r} is not supported; "
+                         f"'affine', 'w8a8' or 'w4a8'")
     p = model.params
     for key in targets:
         if key == "audio_head" and key in p and not isinstance(p[key], dict):
-            if mode == "w8a8":
-                raise ValueError("quantize_model: the int8 audio_head is not "
-                                 "ported yet")
+            if mode in _PER_CHANNEL:
+                p[key] = quantize_audio_head(p[key])
             continue
         if key in p:
             p[key] = _quantize_tree(p[key], bits, group_size, min_size,
@@ -412,7 +457,7 @@ def quantize_model(model, bits: int = DEFAULT_BITS,
         for key in ("backbone", "decoder"):
             if key in p:
                 fuse_layer_weights(p[key])
-    if mode == "w8a8" and fuse and "decoder" in targets \
+    if mode in _PER_CHANNEL and fuse and "decoder" in targets \
             and model.device.type == "cuda":
         from csm_mlx_tpu_torch.ops.resident_decoder import \
             prepare_resident_decoder

@@ -95,8 +95,9 @@ def _row(t: torch.Tensor) -> torch.Tensor:
 def prepare_resident_decoder(model) -> bool:
     """Derive the kernel's tables into `model.params["_resident"]`.
 
-    Needs the decoder W8A8-quantized with fused qkv / gate-up
-    (`quantize_model(mode="w8a8", fuse=True)`), a raw audio_head and no
+    Needs the decoder's codes in int8 with fused qkv / gate-up
+    (`quantize_model(mode="w8a8" or "w4a8", fuse=True)`), a raw audio_head
+    (the int8 head of `quantize_audio_head` is not the kernel's) and no
     LoRA adapters on what the tables bake in. Returns False and leaves the
     params as they were otherwise: generation then keeps the dispatched
     decoder."""

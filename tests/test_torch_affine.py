@@ -253,7 +253,7 @@ def test_quantize_model_affine_matches_jax(bits):
 
 def test_quantize_model_defaults_and_skips():
     """The JAX defaults (affine, 4-bit, group 64, min_size 1 << 16), a DoRA
-    leaf skipped with JAX's warning, and W4A8 refused."""
+    leaf skipped with JAX's warning, and a mode that JAX lacks refused."""
     import inspect
 
     sig = inspect.signature(tquant.quantize_model)
@@ -271,8 +271,8 @@ def test_quantize_model_defaults_and_skips():
     gate = tm.params["backbone"]["layers"][0]["mlp"]["gate_proj"]
     assert gate["weight_q"].shape == (128, 32)  # 4-bit packed, IN 64
     assert gate["scales"].shape == (128, 1)  # group 64
-    with pytest.raises(ValueError, match="w4a8"):
-        tquant.quantize_model(tm, mode="w4a8")
+    with pytest.raises(ValueError, match="w2a8"):
+        tquant.quantize_model(tm, mode="w2a8")
 
 
 @pytest.fixture(scope="module")

@@ -64,6 +64,49 @@ def test_w8a8_kernel_matches_plain(cuda_device, rows, dtype, in_dim):
                                atol=1e-5 * scale)
 
 
+@pytest.mark.parametrize("case,rows", [
+    (case, rows) for case in ("w4a8", "int8 head") for rows in (1, 64, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w8a8_kernel_on_w4a8_codes_and_the_int8_head(cuda_device, case, rows,
+                                                     dtype):
+    """Kernel 1 on 4-bit codes in int8 carriers (2048 -> 1024) and on one
+    head of the int8 audio head at CSM-1B's shape (31 heads of 1024 -> 2051,
+    padded to 2176 rows, each a view of the stored tensor), against its
+    plain version: as `test_w8a8_kernel_matches_plain`. The head through
+    `audio_head_logits` slices the pad off."""
+    rng = np.random.RandomState(rows)
+    if case == "w4a8":
+        w = torch.from_numpy((rng.randn(1024, 2048) * 0.02).astype(
+            np.float32)).to(cuda_device)
+        q = quant.quantize_weight_w8(w, bits=4)
+        assert int(q["weight_q"].abs().max()) == 7
+        in_dim = 2048
+    else:
+        head = torch.from_numpy((rng.randn(31, 1024, 2051) * 0.02).astype(
+            np.float32)).to(cuda_device)
+        stored = quant.quantize_audio_head(head)
+        assert stored["weight_q"].shape == (31, 2176, 1024)
+        q = {k: v[30] for k, v in stored.items()}
+        in_dim = 1024
+    x = torch.from_numpy(rng.randn(rows, in_dim).astype(np.float32)).to(
+        cuda_device, dtype)
+    before = quant.w8a8_matvec.launches
+    got = quant.w8a8_matvec(x, q["weight_q"], q["scales"], q["biases"])
+    want = quant.w8a8_matvec_plain(x, q["weight_q"], q["scales"],
+                                   q["biases"])
+    torch.cuda.synchronize()
+    assert quant.w8a8_matvec.launches == before + 1
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-5 * scale)
+    if case == "int8 head":
+        logits = quant.audio_head_logits(stored, 30, x, 2051)
+        assert logits.shape == (rows, 2051) and logits.dtype == torch.float32
+        torch.testing.assert_close(logits, got.float()[:, :2051], rtol=0,
+                                   atol=0)
+
+
 def test_w8a8_kernel_rejects_what_it_does_not_take(cuda_device):
     q = {k: v.to(cuda_device)
          for k, v in quant.quantize_weight_w8(torch.randn(64, 40)).items()}
@@ -143,10 +186,11 @@ def i32(value, device):
     return torch.tensor(value, dtype=torch.int32, device=device)
 
 
-def resident_model(name, device, backbone_head_dim=32):
-    """A random W8A8 CSM on `device` whose decoder is RESIDENT_CONFIGS[name]
-    (a one-layer backbone of two heads of `backbone_head_dim`; kernel 4
-    takes 64); `quantize_model` on CUDA prepares kernel 3's tables."""
+def resident_model(name, device, backbone_head_dim=32, mode="w8a8"):
+    """A random W8A8 (or W4A8) CSM on `device` whose decoder is
+    RESIDENT_CONFIGS[name] (a one-layer backbone of two heads of
+    `backbone_head_dim`; kernel 4 takes 64); `quantize_model` on CUDA
+    prepares kernel 3's tables."""
     dec, vocab, n_cb = RESIDENT_CONFIGS[name]
     key = f"resident_{name}_{backbone_head_dim}"
     port_config.BACKBONE_CONFIGURATION[key] = port_config.LlamaConfig(
@@ -159,7 +203,7 @@ def resident_model(name, device, backbone_head_dim=32):
     model = CSM(args, dtype=torch.float32, generator=gen, device=device)
     model.params["audio_head"] = torch.randn(
         model.params["audio_head"].shape, generator=gen, device=device)
-    quant.quantize_model(model, mode="w8a8", min_size=0)
+    quant.quantize_model(model, mode=mode, min_size=0)
     assert "_resident" in model.params
     return model
 
@@ -213,6 +257,28 @@ def test_resident_kernel_matches_plain(cuda_device, name, rows):
     # may differ by 0.3 std, and picks only at near-ties below that margin.
     agree, worst, err = forced_agreement(model, proj01, toks, logits)
     assert agree >= 0.99 and worst < 0.3 and err <= 0.3, (agree, worst, err)
+
+
+@pytest.mark.parametrize("rows", [1, 8])
+def test_resident_kernel_on_w4a8_tables(cuda_device, rows):
+    """Kernel 3 on the tables of a W4A8 model (codes in [-7, 7] in int8):
+    its logits bit-equal to the plain version's teacher-forced on its
+    tokens, which the plain version picks too."""
+    model = resident_model("medium", cuda_device, mode="w4a8")
+    res = model.params["_resident"]
+    assert all(int(t.abs().max()) <= 7 for lw in res["layers"] for t in lw
+               if t.dtype == torch.int8)
+    d = model.args.decoder_config.hidden_size
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + 40)
+    proj01 = torch.randn((2, rows, d), generator=gen, device=cuda_device)
+    toks, logits = resident.resident_decode_frame(
+        res, model.args, proj01, i32(0, cuda_device), 0.0, return_logits=True)
+    plain_toks, plain_logits = resident.resident_decode_frame_plain(
+        res, model.args, proj01, 0.0, forced=toks.long())
+    torch.cuda.synchronize()
+    assert torch.equal(logits, plain_logits)
+    torch.testing.assert_close(plain_toks.to(toks.dtype), toks, rtol=0,
+                               atol=0)
 
 
 def test_resident_kernel_samples_at_temperature(cuda_device):
@@ -690,14 +756,20 @@ def _prompt(args, s, seed):
     return prompt, mask
 
 
-@pytest.mark.parametrize("decoder", ["kernel 3", "dispatched"])
+@pytest.mark.parametrize("decoder", ["kernel 3", "dispatched", "w4a8",
+                                     "int8 head"])
 def test_captured_frames_equal_eager(cuda_device, decoder):
     """Greedy frames of the replayed graph equal the eager step's, token
     for token, at B = 1 and 3; every replayed frame counts its kernel-3
-    launch."""
+    launch. "w4a8": kernel 3 on a W4A8 model's tables; "int8 head": the
+    dispatched decoder scoring the int8 audio head through kernel 1."""
     from csm_mlx_tpu_torch import generation
 
-    model = resident_model("tiny", cuda_device)
+    if decoder == "int8 head":
+        model = int8_head_model(cuda_device)
+    else:
+        model = resident_model("tiny", cuda_device,
+                               mode="w4a8" if decoder == "w4a8" else "w8a8")
     if decoder == "dispatched":
         model = CSM(model.args, params={k: v for k, v in model.params.items()
                                         if k != "_resident"},
@@ -713,7 +785,7 @@ def test_captured_frames_equal_eager(cuda_device, decoder):
             model, ps, ms, 12, temperature=0.0, _eager_step=True)
         np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(n, n_want)
-        assert launched == (12 if decoder == "kernel 3" else 0)
+        assert launched == (12 if decoder in ("kernel 3", "w4a8") else 0)
         again, _ = generation.generate_tokens_batch(model, ps, ms, 12,
                                                     temperature=0.0)
         np.testing.assert_array_equal(again, want)  # the cached graph
@@ -1038,6 +1110,35 @@ def test_engine_captured_blocks_equal_eager(cuda_device):
     # admissions run kernel 3 once a same-bucket group (<= 16 rows)
     blocks = eng.stats.steps * eng.frames_per_step
     assert blocks < k3 <= blocks + eng.stats.admissions
+
+
+def int8_head_model(device):
+    """`resident_model("tiny")` without kernel 3's tables, its audio head
+    quantized by `quantize_model` ("audio_head" target): the dispatched
+    decoder, scoring the int8 head through kernel 1."""
+    model = resident_model("tiny", device)
+    model = CSM(model.args, params={k: v for k, v in model.params.items()
+                                    if k != "_resident"}, dtype=model.dtype)
+    quant.quantize_model(model, mode="w8a8", targets=("audio_head",),
+                         fuse=False)
+    assert isinstance(model.params["audio_head"], dict)
+    return model
+
+
+def test_engine_with_the_int8_head_captured_equals_eager(cuda_device):
+    """The continuous engine over the int8-head model: its blocks replayed
+    as graphs give the eager blocks' frames and chunks; no kernel 3."""
+    model = int8_head_model(cuda_device)
+    mimi = _tiny_codec(cuda_device)
+    requests = _engine_requests(model, 5, seed=3)
+    before = resident.resident_decode_frame.launches
+    got, eng = _run_engine(model, requests, mimi=mimi)
+    want, _ = _run_engine(model, requests, mimi=mimi, eager=True)
+    assert eng.stats.graph_captures == 1
+    assert resident.resident_decode_frame.launches == before
+    for (frames, audio), (wframes, waudio) in zip(got, want):
+        np.testing.assert_array_equal(frames, wframes)
+        np.testing.assert_array_equal(audio, waudio)
 
 
 def test_engine_bucket_graphs_are_kept(cuda_device, monkeypatch):

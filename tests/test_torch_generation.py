@@ -164,8 +164,8 @@ def _torch_teacher_logits(model, prompt, mask, frames):
         for i in range(1, args.n_audio_codebooks):
             hd, dc = tfwd(params["decoder"], dcfg, x, cos_d, sin_d, pos,
                           tcausal(x.shape[1], cap_d, q_off)[None, None], dc)
-            logits.append(tquant.audio_head_logits(params["audio_head"],
-                                                   i - 1, hd[:, -1])[0])
+            logits.append(tquant.audio_head_logits(
+                params["audio_head"], i - 1, hd[:, -1], args.n_audio_vocab)[0])
             emb = tcsm.embed_audio(params, args, i, fr[:, i])
             x = tlinear(params["projection"], emb[:, None, :])
             pos, q_off = torch.full((1, 1), dc.index), dc.index

@@ -148,6 +148,12 @@ PORT_MODULES = [
     "csm_mlx_tpu_torch.watermark", "csm_mlx_tpu_torch.cli",
     "csm_mlx_tpu_torch.cli.application", "csm_mlx_tpu_torch.cli.config",
     "csm_mlx_tpu_torch.cli.generate", "csm_mlx_tpu_torch.cli.serve",
+    "csm_mlx_tpu_torch.__main__", "csm_mlx_tpu_torch.cli.finetune",
+    "csm_mlx_tpu_torch.cli.finetune.common",
+    "csm_mlx_tpu_torch.cli.finetune.dataset",
+    "csm_mlx_tpu_torch.cli.finetune.full_finetune",
+    "csm_mlx_tpu_torch.cli.finetune.lora_finetune",
+    "csm_mlx_tpu_torch.cli.finetune.utils",
 ]
 
 
