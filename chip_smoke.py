@@ -91,6 +91,27 @@ plain version at B = 1 and 64, each with the bound of packed 4-bit
 codes beside the carriers', and the main path's 125 frames captured
 against eager, each beside its W8A8 time.
 
+The voice chat (`apps/voice_chat.py`) on the W8A8 CSM-1B with Mimi(32):
+a `VoiceChatPipeline` fed from numpy through `NullAudioIO`, a scripted
+STT and streaming LLM, `build_tts_stream_fn` with the app's sampler (T
+0.6, top-k 50, min-p 0.05): three turns of three 35-frame sentences (the
+context fills and rolls at 6 segments, the prompts pass 256 rows: kernel
+1's GEMM route and kernel 2) and a turn interrupted while the bot speaks,
+each turn's voice-to-voice latency and each sentence's first chunk,
+context rows and prompt-assembly ms (gates: the session WAV is the played
+chunks, kernel 3 once a frame, no TTS failure or timeout logged, the
+barge-in fades within FADE_CHUNKS and drops the reply's other sentences),
+then one turn on CSM-1B affine 4-bit g64 (kernel 5 alone); a trace by
+`utils.profiling.trace` of 4 replayed frames in one `annotate` span (it
+names kernels 1 and 3 and the span); the int8 codec
+(`models/mimi/quant.py` on a copy of Mimi(32)): the 125 frames decoded
+int8 against fp32 and streamed against batched within JAX's bounds, each
+int8 conv's int32 sums (one `torch._int_mm`) bit-equal to the plain
+version on the CPU and timed against the fp32 conv, kernel 1 on the codec
+transformer's linears, the engine with `quantize_codec` on and off
+alternated (ms a block, the Mimi part of its eager block) and `serve
+--continuous --quantize-codec` through `make_server`.
+
 Then the MLX-affine and batch flash-decode paths: kernel 5 (the
 grouped-affine matvec) against its plain version at the quantized
 linears' shapes, 4- and 8-bit, group 64 (and 128), B = 1, 2, 8, 16, 32,
@@ -115,8 +136,12 @@ S=575) and (B=1, S=2048) in fp32 and bf16, timed beside the library's
 `scaled_dot_product_attention`; CSM-1B at full width and depth in bf16
 trained on synthetic (B=2, S=576) batches — full SFT with remat, a DPO and
 a KTO step, LoRA rank 8, `train()` with checkpoints and a resume — with
-the kernels' launch counts per step; and one training step through the
-kernels against the masked sdpa on a 2-layer full-width backbone. Any
+the kernels' launch counts per step; full SFT with
+`checkpoint_backend="orbax"` (asynchronous saves, each step after the
+first with a save in flight, then a synchronous one) and its resume
+(gate: weights and optimizer state bit-equal); and one training step
+through the kernels against the masked sdpa on a 2-layer full-width
+backbone. Any
 failure raises; the last line of standard output is then missing.
 
 Prints the card's name and power limit, one line per check and phase, the
@@ -356,6 +381,43 @@ FLASH_TRAIN_ROUTE = {torch.float32: "CUDA cores, fp32",
                      torch.bfloat16: "tensor cores, mma.sync bf16"}
 TRAIN_B, TRAIN_S = 2, 576  # the 64-bucket of 575 frames
 # H100 SXM, NVIDIA's data sheet: HBM bytes/s and dense peak ops/s by type
+# The voice chat (run_voice_chat): the app's TTS sampler defaults, and
+# sentences of VOICE_SENTENCE_MS (35 frames) so that six context segments
+# (>= 8 text rows and 36 audio rows each) and a sentence make a prompt of
+# >= 256 rows; VOICE_REPLIES are the
+# scripted streaming LLM's answers, one a turn (the last one's turn is
+# interrupted), and VOICE_AFFINE_REPLY the affine model's turn.
+VOICE_SAMPLER = SamplerConfig(temperature=0.6, top_k=50, top_p=1.0,
+                              min_p=0.05)
+VOICE_SENTENCE_MS = 2800
+VOICE_REPLIES = (
+    "Sure, I can help with that. The station is two streets to the north. "
+    "You will see it after the bakery.",
+    "The next train leaves at noon. It takes about forty minutes to the "
+    "city. Tickets are sold on the platform.",
+    "Yes, there is a cafe inside. It opens at seven every morning. The "
+    "coffee there is quite good.",
+    "Let me tell you a longer story about the old bridge. It was built a "
+    "century ago by the river guild. Nobody remembers who drew the plans.",
+)
+VOICE_AFFINE_REPLY = ("The weather will be mild tomorrow. Bring a light "
+                      "jacket anyway. Rain may come in the evening.")
+VOICE_TURN_S = 120  # a turn's deadline
+# The int8 codec (run_int8_codec): JAX's bounds (tests/test_mimi_quant.py)
+# on the relative RMSE of the int8 decode against the fp32 one, batch and
+# streamed against batched; the engine A/B's requests.
+CODEC_BATCH_RMSE, CODEC_STREAM_RMSE = 0.12, 0.05
+CODEC_ENGINE_RMSE = 0.15  # JAX's engine bound (tests/test_continuous.py)
+CODEC_STREAM_FRAMES = 6   # the frames of JAX's streamed-against-batched case
+# JAX's 0.05 on that case holds on its tiny codec; at Mimi(32)'s size JAX
+# itself reads 0.057 (tests/test_torch_mimi_quant.py), so the card's value
+# is held to the CPU copy's, within this share of it (the int8 rounding of
+# fp32 noise moves it a little)
+CODEC_CPU_SHARE = 0.1
+CODEC_AB_FRAMES = 24  # frames a request of the engine A/B (3 blocks)
+CODEC_CONV_ROWS = 4   # batch rows of the int8 convs' bit-equality check
+# The async checkpoints (run_training (f)): steps with a save each
+ASYNC_STEPS, SYNC_STEPS = 3, 1
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "fp32": 67e12}
 
@@ -2560,7 +2622,8 @@ def run_training(dev, workdir: str) -> dict:
     train() over 4 items of 575 frames with ckpt_freq=1, then a new trainer
     on the directory resumes step, epoch, adapters and optimizer state
     bit-equal; (e) every step launches kernel 6 32 times (remat) and kernel
-    7 16 times. Returns the kernels' launches over the whole phase."""
+    7 16 times; (f) the asynchronous checkpoints (`async_checkpoints`).
+    Returns the kernels' launches over the whole phase."""
     args = csm_1b()
     n_layers = args.backbone_config.num_hidden_layers
     model = random_csm(args, torch.bfloat16, dev, SEED + 20)
@@ -2683,8 +2746,10 @@ def run_training(dev, workdir: str) -> dict:
                              "and optimizer state")
     del t1, t2, model
     torch.cuda.empty_cache()
+
+    async_ckpt = async_checkpoints(args, batch, common, optimizer, workdir)
     return dict(launches=flash_counts(), steady_ms=steady, frames_per_s=frames
-                / steady * 1e3)
+                / steady * 1e3, async_ckpt=async_ckpt)
 
 
 def check_training_vs_plain(dev) -> None:
@@ -3866,6 +3931,735 @@ def run_cli(dev, mimi: Mimi, workdir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The voice chat, the int8 codec, the profiling hooks
+# ---------------------------------------------------------------------------
+
+
+class TurnSTT:
+    """The scripted STT: one utterance a turn, given once a turn's second
+    of speech (16,000 samples) has come in."""
+
+    def __init__(self, utterances):
+        self.utterances = list(utterances)
+        self.total = 0
+
+    def insert_audio_chunk(self, chunk):
+        self.total += len(chunk)
+
+    def process_iter(self):
+        if self.total >= 16000 and self.utterances:
+            self.total = 0
+            return self.utterances.pop(0)
+        return ""
+
+    def finish(self):
+        return ""
+
+
+def scripted_llm(replies):
+    """The scripted streaming LLM (the app's `LLMBackend` contract): turn
+    i's reply as an iterator of 9-character text chunks."""
+    def llm(messages):
+        turn = sum(m["role"] == "user" for m in messages) - 1
+        text = replies[turn]
+        return iter([text[i:i + 9] for i in range(0, len(text), 9)])
+
+    return llm
+
+
+class VoiceRecorder:
+    """What a voice-chat session does on the card, by sentence and by turn:
+    a TTS function wrapping `build_tts_stream_fn`'s that records each
+    sentence's context rows, the ms of its prompt's assembly (the context
+    encodes; `generation._assemble_prompt`, timed between two
+    synchronizes), its first chunk's latency, the frames it made, its
+    launch counts and whether it built a new frame step; and the played
+    chunks' times (`play`)."""
+
+    def __init__(self, model: CSM, tts):
+        self.model, self.tts = model, tts
+        self.sentences: list = []
+        self.play_times: list = []
+        self._assemble = None
+
+    def __enter__(self):
+        self._assemble = generation._assemble_prompt
+
+        def assemble(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prompt, mask = self._assemble(*a, **kw)
+            torch.cuda.synchronize()
+            cur = self.sentences[-1]
+            cur["rows"] = prompt.shape[0]
+            cur["assemble_ms"] = 1e3 * (time.perf_counter() - t0)
+            return prompt, mask
+
+        generation._assemble_prompt = assemble
+        return self
+
+    def __exit__(self, *exc):
+        generation._assemble_prompt = self._assemble
+
+    def __call__(self, text, speaker, context):
+        rec = dict(text=text, context=len(context), chunks=0, done=False)
+        self.sentences.append(rec)
+        keys = set(self.model.frame_steps)
+        inner = self.tts(text, speaker, context)
+
+        def stream():
+            before = read_counts()
+            t0 = time.perf_counter()
+            try:
+                for chunk in inner:
+                    if rec["chunks"] == 0:
+                        rec["first_ms"] = 1e3 * (time.perf_counter() - t0)
+                    rec["chunks"] += 1
+                    yield chunk
+                rec["done"] = True
+            finally:
+                inner.close()
+                after = read_counts()
+                rec["counts"] = {k: after[k] - before[k] for k in after}
+                rec["new_step"] = bool(set(self.model.frame_steps) - keys)
+
+        return stream()
+
+    def frames(self, rec, max_frames: int) -> int:
+        """Frames a sentence made: one a chunk, and one more when the
+        stream stopped before its last frame (an EOS frame is not sent; a
+        closed stream had launched its next frame)."""
+        return rec["chunks"] + (rec["chunks"] < max_frames)
+
+
+def timed_audio(recorder: VoiceRecorder):
+    """`NullAudioIO` that also records the host time of each played
+    chunk."""
+    from csm_mlx_tpu_torch.apps.voice_chat import NullAudioIO
+
+    class TimedAudio(NullAudioIO):
+        def play(self, chunk):
+            recorder.play_times.append(time.perf_counter())
+            super().play(chunk)
+
+    return TimedAudio()
+
+
+def voice_session(model: CSM, mimi: Mimi, replies, wav_path: str,
+                  barge_in: bool) -> dict:
+    """One `VoiceChatPipeline` session on `model` with `mimi`: the scripted
+    STT (a turn's utterance once its second of speech is in) and streaming
+    LLM (`replies`, one a turn), `build_tts_stream_fn` with the app's
+    sampler defaults and one seeded generator, the session WAV at
+    `wav_path`. Each turn feeds one second of loud speech (4 chunks of
+    0.25 s) once the bot is quiet and its cooldown over, and waits for the
+    reply's sentences; with `barge_in`, the last turn's speech comes while
+    the bot speaks its first sentence (one loud chunk after its first
+    played chunk). Returns the recorder, the turns' feed times, the played
+    chunks, the barge-in's chunk count and the logged warnings."""
+    import asyncio
+    import logging
+
+    from csm_mlx_tpu_torch.apps import voice_chat as vc
+    from csm_mlx_tpu_torch.apps.voice_chat import (VoiceChatPipeline,
+                                                   build_tts_stream_fn,
+                                                   split_sentences)
+
+    gen = torch.Generator(device=model.device).manual_seed(SEED + 500)
+    tts = build_tts_stream_fn(model, sampler=VOICE_SAMPLER,
+                              max_audio_length_ms=VOICE_SENTENCE_MS,
+                              mimi=mimi, generator=gen)
+    warnings_seen: list = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            warnings_seen.append(record.getMessage())
+
+    catch = Catch(level=logging.WARNING)
+    vc.logger.addHandler(catch)
+    recorder = VoiceRecorder(model, tts)
+    audio = timed_audio(recorder)
+    turns = len(replies)
+    utterances = [f"Question number {i} for you?" for i in range(turns)]
+    pipe = VoiceChatPipeline(TurnSTT(utterances), scripted_llm(replies),
+                             recorder, audio, output_file=wav_path)
+    state = pipe.state
+    expected = [len(split_sentences(r)) for r in replies]
+    out = dict(feeds=[], barge=None)
+
+    async def quiet():
+        while (state.tts_speaking or not state.llm_out_q.empty()
+               or time.monotonic() < state.cooldown_until + 0.1):
+            await asyncio.sleep(0.01)
+
+    async def speak():
+        for i in range(4):
+            audio.feed(np.full(4000, 0.2, dtype=np.float32))
+            t_fed = time.perf_counter()
+            await asyncio.sleep(0.02)
+        return t_fed
+
+    async def scenario():
+        run = asyncio.create_task(pipe.run_async())
+        while audio._on_input is None:  # the pipeline has started
+            await asyncio.sleep(0.01)
+        try:
+            for turn in range(turns):
+                deadline = time.perf_counter() + VOICE_TURN_S
+                await quiet()
+                n_before = len(recorder.sentences)
+                out["feeds"].append((await speak(), len(audio.played)))
+                if barge_in and turn == turns - 1:
+                    while len(audio.played) == out["feeds"][-1][1]:
+                        assert time.perf_counter() < deadline, \
+                            "the barge-in turn never spoke"
+                        await asyncio.sleep(0.002)
+                    played = len(audio.played)
+                    audio.feed(np.full(4000, 0.2, dtype=np.float32))
+                    while state.tts_speaking or \
+                            not recorder.sentences[-1].get("counts"):
+                        assert time.perf_counter() < deadline, \
+                            "the interrupted turn did not stop"
+                        await asyncio.sleep(0.01)
+                    await asyncio.sleep(1.0)  # stragglers are discarded
+                    out["barge"] = dict(
+                        at=played, after=len(audio.played) - played,
+                        spoken=len(recorder.sentences) - n_before)
+                    continue
+                while len(recorder.sentences) < n_before + expected[turn] \
+                        or not recorder.sentences[-1].get("counts") \
+                        or state.tts_speaking:
+                    assert time.perf_counter() < deadline, \
+                        f"turn {turn} did not finish"
+                    await asyncio.sleep(0.01)
+        finally:
+            state.shutdown.set()
+            await run
+
+    try:
+        with recorder:
+            asyncio.run(scenario())
+    finally:
+        vc.logger.removeHandler(catch)
+    out.update(recorder=recorder, played=list(audio.played),
+               warnings=warnings_seen, state=state)
+    return out
+
+
+def wav_pcm(path: str) -> np.ndarray:
+    import wave
+
+    with wave.open(path, "rb") as w:
+        return np.frombuffer(w.readframes(w.getnframes()), "<i2")
+
+
+def check_voice_session(label: str, s: dict, wav_path: str,
+                        max_frames: int) -> dict:
+    """Log a session's turns and sentences and gate it: the WAV is the
+    played chunks (on the 16-bit grid: every sample within one step), no
+    TTS failure or timeout was logged, kernel 3 launched once a frame where
+    the model has its tables."""
+    rec, times = s["recorder"], s["recorder"].play_times
+    played = np.concatenate(s["played"])
+    pcm = wav_pcm(wav_path).astype(np.float64) / 32767.0
+    wav_ok = pcm.shape == played.shape and bool(
+        np.abs(pcm - np.clip(played, -1, 1)).max() <= 1.0 / 32767 + 1e-7)
+    lines = []
+    for i, (t_fed, n_played) in enumerate(s["feeds"]):
+        after = [t for t in times[n_played:]]
+        end = s["feeds"][i + 1][1] if i + 1 < len(s["feeds"]) else len(times)
+        turn_times = times[n_played:end]
+        gap = max(np.diff(turn_times), default=0.0) * 1e3
+        v2v = (after[0] - t_fed) * 1e3 if after else float("nan")
+        lines.append(f"turn {i}: voice-to-voice {v2v:.1f} ms, "
+                     f"{len(turn_times)} chunks, largest gap between played "
+                     f"chunks {gap:.1f} ms")
+    for r in rec.sentences:
+        c = r.get("counts", {})
+        lines.append(
+            f"  sentence {r['text'][:28]!r}: context {r['context']} "
+            f"segments, {r.get('rows')} prompt rows, prompt assembly "
+            f"(context encodes) {r.get('assemble_ms', 0):.1f} ms, first "
+            f"chunk {r.get('first_ms', float('nan')):.1f} ms, "
+            f"{r['chunks']} chunks, new frame step {r.get('new_step')}, "
+            f"kernels 1/2/3/5 {c.get('w8a8_matvec')}/"
+            f"{c.get('flash_prefill_sdpa')}/{c.get('resident_decode_frame')}"
+            f"/{c.get('affine_matvec')}")
+    steps = list(rec.model.frame_steps.values())
+    kept = sum(st.cache.k.nbytes + st.cache.v.nbytes for st in steps)
+    log(f"{label} ({card_info()}): " + "\n  ".join(lines)
+        + f"\n  kept frame steps {len(steps)} "
+        f"{[(st.cache.k.shape[1], st.cache.capacity) for st in steps]}, "
+        f"their KV caches {kept / 2 ** 20:.1f} MiB; session WAV "
+        f"{len(pcm)} samples equal to the {len(s['played'])} played chunks "
+        f"on the 16-bit grid {wav_ok}; warnings logged {s['warnings']}")
+    if not wav_ok:
+        raise AssertionError(f"{label}: the session WAV is not the played "
+                             f"chunks")
+    bad = [w for w in s["warnings"]
+           if "TTS failed" in w or "TTS generation timeout" in w
+           or "LLM" in w]
+    if bad:
+        raise AssertionError(f"{label}: the pipeline logged {bad}")
+    if any(len(c) != 1920 for c in s["played"]):
+        raise AssertionError(f"{label}: a played chunk is not 1,920 samples")
+    for r in rec.sentences:
+        if "_resident" in rec.model.params and \
+                r["counts"]["resident_decode_frame"] != rec.frames(
+                    r, max_frames):
+            raise AssertionError(f"{label}: sentence {r['text']!r} made "
+                                 f"{rec.frames(r, max_frames)} frames and "
+                                 f"{r['counts']['resident_decode_frame']} "
+                                 f"kernel-3 launches")
+
+
+def run_voice_chat(model: CSM, mimi: Mimi, workdir: str) -> dict:
+    """The voice chat at full CSM-1B width on the card: a
+    `VoiceChatPipeline` on the W8A8 model (kernel-3 tables) with Mimi(32),
+    the app's sampler (T 0.6, top-k 50, top-p 1.0, min-p 0.05) through
+    `build_tts_stream_fn`, `NullAudioIO` fed from numpy, the scripted STT
+    and streaming LLM, the text tokenizer replaced (`with_text_rows`):
+    three turns of three sentences (the context window fills and rolls at
+    6 segments; the prompts reach >= 256 rows: kernel 1's GEMM route and
+    kernel 2 in their prefill), then a turn interrupted by loud input while
+    the bot speaks (gate: playback ends within FADE_CHUNKS chunks, the
+    reply's other sentences are discarded). Then one turn on CSM-1B affine
+    4-bit g64, the app's default quantization (gate: kernel 5 on every
+    quantized linear of its frames; kernels 1 and 3 never). Per turn the
+    voice-to-voice latency (the last loud chunk fed to the first chunk
+    played); per sentence the first chunk's latency, the context rows, the
+    ms of the prompt's assembly (the context encodes), whether it built a
+    new frame step."""
+    from csm_mlx_tpu_torch.apps.voice_chat import FADE_CHUNKS, split_sentences
+
+    max_frames = VOICE_SENTENCE_MS // 80
+    model.frame_steps.clear()
+    with with_text_rows(model):
+        wav = os.path.join(workdir, "voice_w8a8.wav")
+        s = voice_session(model, mimi, VOICE_REPLIES, wav, barge_in=True)
+        check_voice_session("voice chat, CSM-1B W8A8 + Mimi(32)", s, wav,
+                            max_frames)
+        rec = s["recorder"]
+        rows = [r.get("rows", 0) for r in rec.sentences]
+        contexts = [r["context"] for r in rec.sentences]
+        segs = s["state"].context_segments
+        long = [r for r in rec.sentences if r.get("rows", 0) >= 256]
+        barge = s["barge"]
+        log(f"voice chat: {len(rec.sentences)} sentences, context segments "
+            f"a sentence {contexts}, prompt rows {rows}; kept context "
+            f"{len(segs)} segments; barge-in at played chunk {barge['at']}: "
+            f"{barge['after']} chunks played after it (FADE_CHUNKS "
+            f"{FADE_CHUNKS}), {barge['spoken']} of "
+            f"{len(split_sentences(VOICE_REPLIES[-1]))} sentences of that "
+            f"reply spoken")
+        if max(contexts) != 6 or len(segs) != 6 or not long:
+            raise AssertionError("the context did not fill its 6 segments "
+                                 "or no prompt reached 256 rows")
+        if any(r["counts"]["flash_prefill_sdpa"] != 16 for r in long) or \
+                not all(r["counts"]["w8a8_matvec.gemm"] for r in long):
+            raise AssertionError("a >= 256-row prompt did not run kernel 2 "
+                                 "and kernel 1's GEMM route in its prefill")
+        if barge["after"] > FADE_CHUNKS + 1 or barge["spoken"] != 1:
+            raise AssertionError("the barge-in did not fade out and discard "
+                                 "the rest of the reply")
+        w8a8_counts = {k: sum(r["counts"][k] for r in rec.sentences)
+                       for k in rec.sentences[0]["counts"]}
+        model.frame_steps.clear()
+
+        args = model.args
+        affine = random_csm(args, torch.bfloat16, model.device, SEED)
+        quant.quantize_model(affine, bits=4, group_size=64, mode="affine")
+        p = affine.params
+        backbone = quantized_linears(p["backbone"])
+        per_frame = backbone + (args.n_audio_codebooks - 1) * (
+            quantized_linears(p["decoder"])
+            + quantized_linears(p["projection"]))
+        wav = os.path.join(workdir, "voice_affine.wav")
+        s = voice_session(affine, mimi, (VOICE_AFFINE_REPLY,), wav,
+                          barge_in=False)
+        check_voice_session("voice chat, CSM-1B affine 4-bit g64 + Mimi(32)",
+                            s, wav, max_frames)
+        arec = s["recorder"]
+        frames = sum(arec.frames(r, max_frames) for r in arec.sentences)
+        counts = {k: sum(r["counts"][k] for r in arec.sentences)
+                  for k in arec.sentences[0]["counts"]}
+        # the first frame decodes the prefill's last hidden state (no
+        # backbone step); a prefill of <= 64 rows runs kernel 5, a longer
+        # one the dequantized weights, as in JAX
+        want = sum(arec.frames(r, max_frames) * per_frame - backbone
+                   + (backbone if r["rows"] <= quant.AFFINE_MAX_ROWS else 0)
+                   for r in arec.sentences)
+        log(f"voice chat, affine turn: {frames} frames, launches {counts}; "
+            f"kernel 5 {counts['affine_matvec']}, {per_frame} a frame "
+            f"({backbone} in the backbone step) and {backbone} a prefill of "
+            f"<= {quant.AFFINE_MAX_ROWS} rows make {want}")
+        if counts["w8a8_matvec"] or counts["resident_decode_frame"] or \
+                counts["affine_matvec"] != want:
+            raise AssertionError("the affine turn did not run kernel 5 alone "
+                                 "on every quantized linear of its frames")
+        del affine
+        torch.cuda.empty_cache()
+    return dict(counts=w8a8_counts, affine_counts=counts)
+
+
+def codec_conv_inputs(dec: dict, cfg, t25: int):
+    """(conv params, dilation, input length, transposed) of every SEANet
+    decoder conv, in decode order, at the lengths a chunk of `t25` frames
+    at 25 Hz gives them (the causal left pads included)."""
+    from csm_mlx_tpu_torch.models.mimi import conv as mconv
+    from csm_mlx_tpu_torch.models.mimi.conv import causal_pad_amount
+
+    out = []
+    t = t25
+
+    def add(p, dilation=1):
+        k = mconv._weight(p).shape[-1]
+        out.append((p, dilation, t + causal_pad_amount(k, 1, dilation),
+                    False))
+
+    add(dec["init"])
+    for stage, ratio in zip(dec["stages"], cfg.upsampling_ratios):
+        out.append((stage["up"], 1, t, True))
+        t *= ratio
+        for j, block in enumerate(stage["residual"]):
+            add(block["conv1"], cfg.dilation_growth_rate ** j)
+            add(block["conv2"])
+    add(dec["final"])
+    return out
+
+
+def run_int8_codec(model: CSM, mimi: Mimi, frames_125: np.ndarray) -> dict:
+    """The int8 Mimi decode on the card (`models/mimi/quant.py` on a copy
+    of Mimi(32)): the main path's 125 frames decoded int8, batch and
+    streamed frame by frame, against fp32 (gate: relative RMSE <
+    CODEC_BATCH_RMSE, JAX's bound), and the first 6 streamed against their
+    int8 batch decode (JAX's case; gate: within CODEC_CPU_SHARE of the
+    same on the CPU copy, printed beside JAX's tiny-codec bound); each
+    int8 conv's int32 sums (one `torch._int_mm`) bit-equal to its plain
+    version on the CPU at the engine block's lengths, timed against the
+    fp32 conv at 64 rows; kernel 1 on the codec transformer's linears
+    against its plain version at 2, 128 and 1,024 rows; the engine at its
+    defaults (64 slots, K = 8) with `quantize_codec` on and off, alternated
+    on/off/off/on (gates: the same frames, audio within CODEC_ENGINE_RMSE,
+    the int8 convs launched), ms a block and the Mimi part of its eager
+    block; and `serve --continuous --quantize-codec` through `make_server`,
+    one request. A slower int8 codec is a finding, not a failure."""
+    import asyncio
+
+    from csm_mlx_tpu_torch import tokenizers as port_tokenizers
+    from csm_mlx_tpu_torch.cli.application import build_parser
+    from csm_mlx_tpu_torch.cli.serve import make_server
+    from csm_mlx_tpu_torch.models.mimi import conv as mconv
+    from csm_mlx_tpu_torch.models.mimi.quant import (
+        mimi_decoder_is_quantized, quantize_mimi_decoder)
+
+    dev = model.device
+    card = card_info()
+    qmimi = Mimi(mimi.cfg, params=map_params(lambda t: t, mimi.params),
+                 device=dev)
+    quantize_mimi_decoder(qmimi)
+    if mimi_decoder_is_quantized(mimi.params):
+        raise AssertionError("quantizing the copy touched the codec")
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return ((a - b).pow(2).mean().sqrt()
+                / (b.pow(2).mean().sqrt() + 1e-12)).item()
+
+    codes = torch.from_numpy(frames_125.T[None].copy()).to(dev)
+
+    def streamed(codec, c):
+        state = codec.init_decode_state(1)
+        chunks = []
+        for i in range(c.shape[-1]):
+            chunk, state = codec.decode_step(c[:, :, i:i + 1], state)
+            chunks.append(chunk)
+        return torch.cat(chunks, dim=-1)
+
+    reset_counts()
+    want = mimi.decode(codes)
+    got = qmimi.decode(codes)
+    batch_counts = read_counts()
+    stream = streamed(qmimi, codes)
+    # JAX's streamed-against-batched case decodes 6 frames; the same on the
+    # CPU copy of the int8 codec, whose arithmetic the CPU tests hold to
+    # JAX's (tests/test_torch_mimi_quant.py, also at this codec's size)
+    short = codes[:, :, :CODEC_STREAM_FRAMES]
+    r_batch, r_stream = rel(got, want), rel(stream, want)
+    r_short = rel(streamed(qmimi, short), qmimi.decode(short))
+    cpu_q = Mimi(mimi.cfg, params=params_to_cpu(qmimi.params), device="cpu")
+    r_cpu = rel(streamed(cpu_q, short.cpu()), cpu_q.decode(short.cpu()))
+    log(f"int8 Mimi(32) decode ({card}): 125 frames, relative RMSE "
+        f"against fp32 {r_batch:.4f} batch, {r_stream:.4f} streamed frame "
+        f"by frame (bound {CODEC_BATCH_RMSE}); streamed against batched "
+        f"{rel(stream, got):.4f} over 125 frames (each batch row's "
+        f"activation scale spans the 10 s), {r_short:.4f} over "
+        f"{CODEC_STREAM_FRAMES} (the same on the CPU {r_cpu:.4f}; JAX's "
+        f"tiny-codec bound {CODEC_STREAM_RMSE}); launches in the batch "
+        f"decode { {k: v for k, v in batch_counts.items() if v} }")
+    if not (torch.isfinite(got).all() and r_batch < CODEC_BATCH_RMSE
+            and r_stream < CODEC_BATCH_RMSE
+            and abs(r_short - r_cpu) <= CODEC_CPU_SHARE * r_cpu):
+        raise AssertionError("the int8 decode is outside JAX's bound, or "
+                             "its stream differs from the CPU's")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 600)
+    conv_lines, all_equal = [], True
+    qconvs = codec_conv_inputs(qmimi.params["decoder"], mimi.cfg,
+                               2 * SERVE_K)
+    fconvs = codec_conv_inputs(mimi.params["decoder"], mimi.cfg, 2 * SERVE_K)
+    for (qp, dil, t, transposed), (fp, *_) in zip(qconvs, fconvs):
+        c_in = qp["weight_q"].shape[0 if transposed else 1]
+        xq = torch.randint(-127, 128, (CODEC_CONV_ROWS, c_in, t),
+                           generator=gen, device=dev).to(torch.int8)
+        if transposed:
+            sums = mconv.int8_conv_transpose1d_sums(xq, qp["weight_q"], 1)
+            plain = mconv.int8_conv_transpose1d_sums_plain(
+                xq.cpu(), qp["weight_q"].cpu(), 1)
+        else:
+            sums = mconv.int8_conv1d_sums(xq, qp["weight_q"], 1, dil)
+            plain = mconv.int8_conv1d_sums_plain(xq.cpu(), qp["weight_q"].cpu(),
+                                                 1, dil)
+        equal = torch.equal(sums.cpu(), plain)
+        all_equal &= equal
+        x = torch.randn((SERVE_SLOTS, c_in, t), generator=gen, device=dev)
+        fn = mconv.conv_transpose1d if transposed else mconv.conv1d
+        kw = {} if transposed else dict(dilation=dil)
+        ms_q = time_ms(lambda: fn(qp, x, **kw))[0]
+        ms_f = time_ms(lambda: fn(fp, x, **kw))[0]
+        conv_lines.append(
+            f"{'convtr' if transposed else 'conv'} "
+            f"{tuple(qp['weight_q'].shape)} T={t}: sums bit-equal {equal}, "
+            f"64 rows int8 {ms_q:.3f} ms, fp32 {ms_f:.3f} ms")
+    log(f"int8 SEANet convs (int32 sums of one torch._int_mm against the "
+        f"plain float64 conv on the CPU, {CODEC_CONV_ROWS} rows; timed at "
+        f"{SERVE_SLOTS} rows, quantization and fix-up included, against "
+        f"the fp32 cuDNN conv, TF32 off): " + "; ".join(conv_lines))
+    if not all_equal:
+        raise AssertionError("an int8 conv's sums differ from its plain "
+                             "version's")
+
+    lin_lines, lin_ok = [], True
+    layer = qmimi.params["decoder_transformer"]["layers"][0]
+    for name, q in (("q_proj", layer["self_attn"]["q_proj"]),
+                    ("fc1", layer["mlp"]["fc1"]),
+                    ("fc2", layer["mlp"]["fc2"])):
+        for rows in (2, 128, 1024):
+            x = torch.randn((rows, q["weight_q"].shape[1]), generator=gen,
+                            device=dev)
+            err, scale, routed, ok = kernel1_vs_plain(x, q)
+            lin_ok &= ok
+            ms = time_ms(lambda: quant.w8a8_matvec(
+                x, q["weight_q"], q["scales"], q["biases"]))[0]
+            lin_lines.append(f"{name} {tuple(q['weight_q'].shape)} {rows} "
+                             f"rows fp32 {'[tensor cores]' if routed else '[matvec]'}"
+                             f": max_abs_err {err:.2e} of {scale:.2e} ok {ok}, "
+                             f"{1e3 * ms:.1f} us")
+    log("kernel 1 on the int8 codec's transformer linears: "
+        + "; ".join(lin_lines))
+    if not lin_ok:
+        raise AssertionError("kernel 1 disagrees with its plain version on "
+                             "the codec's linears")
+
+    prompts = [synthetic_prompt(32, model.args.n_text_vocab, SEED + 700 + i)
+               for i in range(SERVE_SLOTS)]
+    engines = {q: serving_engine(model, mimi, SEED + 701, max_frames=
+                                 SERVE_AB_CAP, quantize_codec=q)
+               for q in (True, False)}
+    runs: dict = {True: [], False: []}
+    for q in (True, False, False, True):
+        reset_counts()
+        frames, audio, ms = engine_ab_run(engines[q], prompts,
+                                          CODEC_AB_FRAMES)
+        runs[q].append(dict(frames=frames, audio=audio, ms=ms,
+                            counts=read_counts(),
+                            blocks=engines[q].stats.steps))
+    same = all(np.array_equal(a, b) for a, b in zip(runs[True][0]["frames"],
+                                                    runs[False][0]["frames"]))
+    rmse = float(np.mean([rel(torch.from_numpy(a), torch.from_numpy(b))
+                          for a, b in zip(runs[True][0]["audio"],
+                                          runs[False][0]["audio"])]))
+    qc = runs[True][0]["counts"]
+    int8_convs = qc["int8_conv1d_sums"] + qc["int8_conv_transpose1d_sums"]
+    split = {q: block_split(serving_engine(model, mimi, SEED + 702,
+                                           max_frames=SERVE_AB_CAP,
+                                           quantize_codec=q, eager=True),
+                            prompts) for q in (True, False)}
+    log(f"engine, 64 slots, K={SERVE_K}, {CODEC_AB_FRAMES} frames a request "
+        f"({card}), int8 codec on/off alternated on/off/off/on: ms a block "
+        f"on {', '.join(f'{r['ms']:.2f}' for r in runs[True])}, off "
+        f"{', '.join(f'{r['ms']:.2f}' for r in runs[False])}; frames equal "
+        f"{same}; audio relative RMSE on against off {rmse:.4f} (bound "
+        f"{CODEC_ENGINE_RMSE}); int8 conv GEMMs {int8_convs}, kernel-1 "
+        f"launches {qc['w8a8_matvec']} (off: "
+        f"{runs[False][0]['counts']['w8a8_matvec']}) in the first on run; "
+        f"eager block by part on: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split[True].items())
+        + " ms; off: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split[False].items())
+        + " ms")
+    if not same or not rmse < CODEC_ENGINE_RMSE or not int8_convs:
+        raise AssertionError("the int8-codec engine's frames or audio are "
+                             "off, or its int8 convs did not run")
+    del engines
+    torch.cuda.empty_cache()
+
+    key = (model.n_audio_codebooks,
+           str(port_tokenizers._codec_device(model.device)))
+    saved = port_tokenizers._MIMI_CACHE.get(key)
+    port_tokenizers._MIMI_CACHE[key] = (None, mimi)
+
+    async def one(srv):
+        try:
+            return await srv.synthesize("The river was high.")
+        finally:
+            await srv.stop()
+
+    try:
+        with with_text_rows(model):
+            srv = make_server(build_parser().parse_args(
+                ["serve", "--continuous", "--quantize-codec", "--slots", "8",
+                 "--temperature", "0", "--max-audio-length",
+                 str(SERVE_HTTP_MS)]), model)
+            quantized = mimi_decoder_is_quantized(srv.engine._mimi.params)
+            audio = asyncio.run(one(srv))
+    finally:
+        if saved is None:
+            port_tokenizers._MIMI_CACHE.pop(key, None)
+        else:
+            port_tokenizers._MIMI_CACHE[key] = saved
+    log(f"serve --continuous --quantize-codec (make_server): the engine's "
+        f"decoder int8 {quantized}, the codec singleton's "
+        f"{mimi_decoder_is_quantized(mimi.params)}; one request: "
+        f"{len(audio)} samples")
+    if not quantized or mimi_decoder_is_quantized(mimi.params) \
+            or not len(audio) or len(audio) % 1920 \
+            or not np.isfinite(audio).all():
+        raise AssertionError("serve --quantize-codec did not serve through "
+                             "the int8 codec")
+    return dict(block_ms={q: [r["ms"] for r in v] for q, v in runs.items()},
+                mimi_ms={q: split[q]["mimi"] for q in split},
+                counts=qc)
+
+
+def run_trace(model: CSM, workdir: str) -> None:
+    """`utils.profiling.trace` around PROFILE_FRAMES replayed main-path
+    frames inside one `annotate` span. Gate: the Chrome trace it writes
+    holds the span and kernels 1 and 3 (kernel 3 once a frame)."""
+    import glob
+
+    from csm_mlx_tpu_torch.utils.profiling import annotate, trace
+
+    step = replay_step(model, PROFILE_FRAMES)
+    torch.cuda.synchronize()
+    logdir = os.path.join(workdir, "trace")
+    with trace(logdir):
+        with annotate("chip_smoke replayed frames"):
+            for _ in range(PROFILE_FRAMES):
+                step()
+            torch.cuda.synchronize()
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    seen = {k: sum(any(n in name for n in kn) for name in names)
+            for k, kn in PROFILED_KERNELS.items()}
+    span = "chip_smoke replayed frames" in names
+    log(f"trace (utils.profiling.trace, {card_info()}): "
+        f"{os.path.basename(files[0])}, {len(events)} events, "
+        f"{os.path.getsize(files[0]) / 2 ** 20:.1f} MiB; the span "
+        f"{span}; kernel launches by name {seen} over {PROFILE_FRAMES} "
+        f"replayed frames")
+    if len(files) != 1 or not span or not seen["w8a8_matvec"] \
+            or seen["resident_decode_frame"] != PROFILE_FRAMES:
+        raise AssertionError("the trace lacks the span or kernels 1 and 3")
+
+
+def async_checkpoints(args, batch: dict, common: dict, optimizer,
+                      workdir: str) -> dict:
+    """(f) Full SFT (B=2, S=576, remat) on a fresh random CSM-1B with
+    `checkpoint_backend="orbax"`: ASYNC_STEPS steps with a save after each
+    (the save copies the weights and AdamW state into pinned host buffers
+    behind the step and a thread writes them to step_N/orbax, committed
+    by a rename: each step after the first runs with the last save in
+    flight), then SYNC_STEPS steps whose save is waited for at once. Logs
+    ms a step with and without a save in flight and the wall of each
+    save() and wait(); keeps the two newest step directories (a save is
+    8.7 GB). Then a new trainer on the directory resumes the newest
+    committed step. Gate: its weights and optimizer state equal the
+    trainer's, which has not stepped since."""
+    import shutil
+
+    model = random_csm(args, torch.bfloat16, torch.device("cuda", 0),
+                       SEED + 24)
+    run_dir = f"{workdir}/async"
+    ckpt = dict(common, checkpoint_backend="orbax")
+    tr = ft.CSMTrainer(ft.TrainArgs(model=model, optimizer=optimizer(),
+                                    output_dir=run_dir, **ckpt))
+    tr.train_step(batch)  # the first step's allocations
+    torch.cuda.synchronize()
+
+    def prune():
+        steps = sorted(int(d.name[5:]) for d in
+                       __import__("pathlib").Path(run_dir).glob("step_*"))
+        for n in steps[:-2]:
+            shutil.rmtree(f"{run_dir}/step_{n}")
+
+    def step_and_save(sync: bool):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_step(batch)  # float(loss): synchronizes
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        tr.state.step += 1
+        t0 = time.perf_counter()
+        tr.checkpointer.save()
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        if sync:
+            tr.checkpointer.wait()
+        wait_ms = 1e3 * (time.perf_counter() - t0)
+        prune()
+        return step_ms, save_ms, wait_ms
+
+    t_all = time.perf_counter()
+    async_runs = [step_and_save(False) for _ in range(ASYNC_STEPS)]
+    t0 = time.perf_counter()
+    tr.checkpointer.wait()
+    last_wait = 1e3 * (time.perf_counter() - t0)
+    sync_runs = [step_and_save(True) for _ in range(SYNC_STEPS)]
+    wall = time.perf_counter() - t_all
+    flat = tree_to_flat(model.params)
+    size = sum(t.nbytes for t in flat.values()) + sum(
+        v.nbytes for st in tr.optimizer.state.values() for v in st.values()
+        if torch.is_tensor(v))
+    live_w = {n: t for n, t in tr.trainable}
+    live_o = {n: tr.optimizer.state[t] for n, t in tr.trainable}
+    t2 = ft.CSMTrainer(ft.TrainArgs(model=model, optimizer=optimizer(),
+                                    output_dir=run_dir, **ckpt))
+    w_equal = all(torch.equal(t, live_w[n]) for n, t in t2.trainable)
+    o_equal = all(torch.equal(t2.optimizer.state[t][k].to(v.device), v)
+                  for n, t in t2.trainable for k, v in live_o[n].items())
+    log(f"(f) async checkpoints, full SFT CSM-1B bf16 B={TRAIN_B} "
+        f"S={TRAIN_S}, {size / 2 ** 30:.2f} GiB a save ({card_info()}): "
+        f"steps with the last save in flight (ms step, save(), which "
+        f"first waits for the last write): "
+        + ", ".join(f"({a:.1f}, {b:.1f})" for a, b, _ in async_runs)
+        + f", the last write waited {last_wait:.1f} ms; steps with "
+        f"synchronous saves (ms step, save(), wait()): "
+        + ", ".join(f"({a:.1f}, {b:.1f}, {c:.1f})" for a, b, c in sync_runs)
+        + f"; {wall:.1f} s in all; resumed step {t2.state.step} (newest "
+        f"committed {tr.state.step}): weights bit-equal {w_equal}, "
+        f"optimizer state bit-equal {o_equal}")
+    if t2.state.step != tr.state.step or not w_equal or not o_equal:
+        raise AssertionError("the async checkpoint did not resume bit-equal")
+    del tr, t2, model, live_w, live_o, flat
+    torch.cuda.empty_cache()
+    return dict(async_ms=[a for a, _, _ in async_runs[1:]],
+                sync_ms=[a for a, _, _ in sync_runs],
+                save_ms=[b + c for _, b, c in sync_runs])
+
+
 def affine_generator(dev) -> torch.Generator:
     """The generator of kernel 5's cases added with its redesign."""
     gen = torch.Generator(device=dev)
@@ -3940,6 +4734,10 @@ def main() -> None:
     serving = timed(run_serving, model, mimi)
     serving_ab = timed(run_serving_ab, model, mimi, serving["spreads"])
     timed(run_http, model, mimi)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        voice = timed(run_voice_chat, model, mimi, workdir)
+        timed(run_trace, model, workdir)
+    codec = timed(run_int8_codec, model, mimi, main_path["frames_125"])
     head = timed(run_int8_head, model, disp)
     del model
     torch.cuda.empty_cache()
@@ -3965,6 +4763,8 @@ def main() -> None:
              w4a8_launches=w4a8["counts"]["w8a8_matvec"],
              int8_head_launches=head["counts"]["w8a8_matvec"],
              int8_head_launches_a_frame=head["head_launches"],
+             voice_chat_launches=voice["counts"]["w8a8_matvec"],
+             int8_codec_engine_launches=codec["counts"]["w8a8_matvec"],
              w4a8=w4a8["kernel1"], w4a8_64_rows=w4a8["kernel1_64"],
              int8_head=head["kernel1"], int8_head_64_rows=head["kernel1_64"],
              **w8a8),
@@ -3973,6 +4773,7 @@ def main() -> None:
              replaces="csm_mlx_tpu/ops/attention.py:34",
              launches=launches["flash_prefill_sdpa"],
              context_launches=context["counts"]["flash_prefill_sdpa"],
+             voice_chat_launches=voice["counts"]["flash_prefill_sdpa"],
              serving_launches=serving["counts"]["flash_prefill_sdpa"],
              **flash),
         dict(name="resident_decode_frame", route="cuda",
@@ -3981,6 +4782,7 @@ def main() -> None:
              launches=launches["resident_decode_frame"],
              context_launches=context["counts"]["resident_decode_frame"],
              serving_launches=serving["counts"]["resident_decode_frame"],
+             voice_chat_launches=voice["counts"]["resident_decode_frame"],
              w4a8_launches=w4a8["counts"]["resident_decode_frame"],
              w4a8=w4a8["kernel3"],
              max_abs_err=k3["max_abs_err"], agreement=k3["agreement"],
@@ -3990,7 +4792,9 @@ def main() -> None:
         dict(name="affine_matvec", route="cuda",
              source="csm_mlx_tpu_torch/csrc/affine_matvec.cu",
              replaces="csm_mlx_tpu/ops/quant.py:102",
-             launches=affine_path["counts"]["affine_matvec"], **affine),
+             launches=affine_path["counts"]["affine_matvec"],
+             voice_chat_launches=voice["affine_counts"]["affine_matvec"],
+             **affine),
         dict(name="flash_decode_sdpa", route="cuda",
              source="csm_mlx_tpu_torch/csrc/flash_decode.cu",
              replaces="csm_mlx_tpu/ops/attention.py:166",

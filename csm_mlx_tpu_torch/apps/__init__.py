@@ -1,1 +1,2 @@
-"""Applications (the voice chat's text hygiene, for now)."""
+"""Applications: the voice chat (`voice_chat`) and its streaming STT
+(`stt`)."""

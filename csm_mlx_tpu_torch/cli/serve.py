@@ -1,8 +1,8 @@
 """`serve` — the TTS HTTP server (port of `csm_mlx_tpu/cli/serve.py`),
 lockstep (`serve.TTSServer`) or, with `--continuous`, over the continuous
 engine (`serve.ContinuousTTSServer`). The flags and defaults are the JAX
-CLI's; `--mesh` and `--quantize-codec` exit naming the ROADMAP item they
-wait for. Weights and adapters are local paths."""
+CLI's; `--mesh` exits naming the ROADMAP item it waits for. Weights and
+adapters are local paths."""
 
 from __future__ import annotations
 
@@ -48,8 +48,8 @@ def add_parser(subparsers) -> None:
                         "always-running batched frame loop (finished rows "
                         "recycle at once; best under mixed lengths)")
     p.add_argument("--quantize-codec", action="store_true",
-                   help="Continuous mode: the int8 Mimi decoder (not "
-                        "ported: exits)")
+                   help="Continuous mode: decode through an int8 copy of "
+                        "the Mimi decoder")
     p.add_argument("--slots", type=int, default=64,
                    help="Continuous mode: concurrent generation slots "
                         "(default: kernel 3's rows a launch)")
@@ -68,7 +68,8 @@ def make_server(args: argparse.Namespace, csm):
             csm, n_slots=args.slots,
             max_audio_length_ms=args.max_audio_length,
             temperature=args.temperature, watermark_key=args.watermark_key,
-            max_pending=args.max_pending, transfer=args.transfer)
+            max_pending=args.max_pending, transfer=args.transfer,
+            quantize_codec=args.quantize_codec)
     return TTSServer(
         csm, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
         max_audio_length_ms=args.max_audio_length,
@@ -87,10 +88,10 @@ def run(args: argparse.Namespace) -> None:
         raise SystemExit(
             "serve: --mesh: parallelism is not ported yet (ROADMAP queue 1, "
             "item 12)")
-    if args.quantize_codec:
+    if args.quantize_codec and not args.continuous:
         raise SystemExit(
-            "serve: --quantize-codec: the int8 codec (models/mimi/quant.py) "
-            "is not ported; it waits for a measurement (ROADMAP queue 1)")
+            "csm-torch serve: --quantize-codec requires --continuous "
+            "(the lockstep server decodes through the shared f32 codec)")
     weight = parse_weight_argument(args.weight)
     adapter = parse_adapter_argument(args.adapter)
 

@@ -45,6 +45,7 @@ alone.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import logging
 import queue
@@ -285,8 +286,11 @@ class ContinuousEngine:
     model's device (default: one seeded at random). `flash_decode_min_b`
     runs each backbone step's attention through kernel 4 at B >= it, as in
     `generate_tokens_batch` (None: never). `mimi` is the codec (default
-    the `get_audio_tokenizer` singleton on the model's device). `eager`
-    runs every block eagerly on the card, for comparing.
+    the `get_audio_tokenizer` singleton on the model's device);
+    `quantize_codec` decodes through an int8 copy of its decoder
+    (`models/mimi/quant.py`: int8 SEANet convs, the codec transformer's
+    linears on kernel 1). `eager` runs every block eagerly on the card, for
+    comparing.
     """
 
     # admissions pad up to the next of these batch sizes (by repeating the
@@ -326,11 +330,6 @@ class ContinuousEngine:
             raise NotImplementedError(
                 "ContinuousEngine(mesh=...): parallelism is not ported yet "
                 "(ROADMAP queue 1, item 12)")
-        if quantize_codec:
-            raise NotImplementedError(
-                "ContinuousEngine(quantize_codec=True): the int8 codec "
-                "(models/mimi/quant.py) is not ported; it waits for a "
-                "measurement (ROADMAP queue 1)")
         if transfer not in ("float32", "int16"):
             raise ValueError(f"transfer must be 'float32' or 'int16', "
                              f"got {transfer!r}")
@@ -374,6 +373,19 @@ class ContinuousEngine:
 
                 mimi = get_audio_tokenizer(args.n_audio_codebooks,
                                            device=device)
+            if quantize_codec:
+                # the int8 decode path (models/mimi/quant.py) on a PRIVATE
+                # copy of the codec's parameter tree: the codec is a
+                # process-wide singleton whose encode (prompt and context
+                # encodes) and decode stay exact fp32
+                from csm_mlx_tpu_torch.loaders import _copy_spine
+                from csm_mlx_tpu_torch.models.mimi.quant import \
+                    quantize_mimi_decoder
+
+                mimi = copy.copy(mimi)
+                mimi.params = _copy_spine(mimi.params)  # same tensors
+                mimi.reset_state()
+                quantize_mimi_decoder(mimi)
             self._mimi = mimi
 
         bcfg = args.backbone_config

@@ -1,14 +1,12 @@
 """Trainers: SFT (`CSMTrainer`), DPO and KTO, with checkpoints and resume
 (port of `csm_mlx_tpu/finetune/trainer.py`).
 
-- `train_step` runs the loss, the gradients of the trainable leaves (those
-  that carry `requires_grad`), global-norm clipping
-  min(1, max_norm / (gnorm + 1e-6)) and a torch optimizer step. Only the
-  trainable tensors go to the optimizer.
-- Clipping takes the norm over the trainable leaves' gradients. The JAX
-  step takes it over every parameter's gradient, frozen ones included,
-  and then zeroes the frozen updates; the two agree whenever every
-  parameter trains (full SFT) or clipping is off (`max_norm=0`).
+- `train_step` runs the loss, the gradients of the trainable leaves,
+  global-norm clipping min(1, max_norm / (gnorm + 1e-6)) and a torch
+  optimizer step. Only the trainable tensors go to the optimizer. As in
+  JAX, the clipping norm is taken over the gradients of every floating
+  parameter, frozen ones included: with `max_norm > 0` the frozen leaves
+  take gradients for the norm alone, freed after it.
 - `TrainerState` / `History` / `TrainingRecord` keep the
   `trainer_state.json` schema and the resume arithmetic of the JAX `train`
   (per-epoch `RandomState(1234 + epoch)` shuffles, the exact-epoch-boundary
@@ -16,19 +14,24 @@
 - `CheckpointManager` writes `latest.safetensors` (reference names,
   trainable-only on request), `optimizer_state.safetensors` (the port's own
   entry names) and `trainer_state.json` to `step_N/` and to the run root,
-  and resumes from the root when the trainer is built.
+  and resumes from the root when the trainer is built. With
+  `checkpoint_backend="orbax"` (JAX's name for its asynchronous saves) a
+  save copies the tensors to host buffers and a background thread writes
+  them once, to `step_N/orbax`, committed by a rename; resume takes the
+  newest committed step.
 - `gradient_checkpointing` recomputes every layer in the backward pass
   (`torch.utils.checkpoint`).
 
-Not ported: the orbax backend and the mesh / FSDP options (ROADMAP queue
-1, items 9 and 12).
+Not ported: the mesh / FSDP options (ROADMAP queue 1, item 12).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
+import threading
 from dataclasses import asdict, dataclass
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
@@ -86,6 +89,7 @@ class TrainArgs:
     learning_rate: Optional[float] = None  # for state reporting only
     trainable_filter: Optional[Callable[[str], bool]] = None  # LoRA
     flash_min_len: int = FLASH_MIN_LEN  # see finetune.loss
+    checkpoint_backend: str = "safetensors"  # or "orbax" (async saves)
 
 
 @dataclass
@@ -142,24 +146,44 @@ _JAX_OPT_KEY = re.compile(r"^opt\.\d+$")
 class CheckpointManager:
     """Safetensors checkpoints in the JAX package's directory layout.
 
-    `load()` resumes weights and trainer state from the run root and reads
-    the optimizer file; the trainer then builds its optimizer over the
-    resumed tensors and `attach`es it, which restores the optimizer state.
-    Optimizer entries are named `state.<param name>.<state key>`; a file of
-    the JAX package (optax leaves `opt.{i}`) is refused."""
+    `load()` resumes weights and trainer state and reads the optimizer
+    file; the trainer then builds its optimizer over the resumed tensors
+    and `attach`es it, which restores the optimizer state. Optimizer
+    entries are named `state.<param name>.<state key>`; a file of the JAX
+    package (optax leaves `opt.{i}`) is refused.
+
+    `backend="safetensors"` writes every save to `step_N/` and to the run
+    root, and resumes from the root. `backend="orbax"` saves
+    asynchronously, as JAX's orbax backend does: `save()` copies the
+    tensors into pinned host buffers on a side stream (the next step's
+    optimizer update waits for the copies, `fence`) and a background
+    thread waits for the copies and writes them once, to a
+    temporary directory renamed to `step_N/orbax`, so a step directory is
+    committed whole or not at all. Resume takes the newest committed step,
+    its trainer state from the same directory. One save is in flight at a
+    time; `wait()` blocks until it has committed."""
 
     def __init__(self, model: CSM, state: TrainerState, history: History,
                  checkpoint_dir: Path, only_save_trainable_params: bool = False,
-                 trainable_filter: Optional[Callable[[str], bool]] = None):
+                 trainable_filter: Optional[Callable[[str], bool]] = None,
+                 backend: str = "safetensors"):
+        if backend not in ("safetensors", "orbax"):
+            raise ValueError(f"unknown checkpoint backend {backend!r}")
         self.model = model
         self.state = state
         self.history = history
         self.dir = Path(checkpoint_dir)
         self.only_save_trainable_params = only_save_trainable_params
         self.trainable_filter = trainable_filter
+        self.backend = backend
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.named: List[Tuple[str, torch.Tensor]] = []
         self._pending_opt: Optional[Dict[str, torch.Tensor]] = None
+        self._writer: Optional[threading.Thread] = None
+        self._write_error: Optional[BaseException] = None
+        self._host: Dict[str, torch.Tensor] = {}  # reused snapshot buffers
+        self._copy_stream: Optional[torch.cuda.Stream] = None
+        self._copied: Optional[torch.cuda.Event] = None
         os.makedirs(self.dir, exist_ok=True)
 
     def attach(self, optimizer: torch.optim.Optimizer,
@@ -201,10 +225,16 @@ class CheckpointManager:
                               else val.to(device=t.device, dtype=t.dtype))
             self.optimizer.state[t] = state
 
+    def _trainer_state(self) -> dict:
+        return {"trainer_state": asdict(self.state),
+                "history": self.history.state}
+
     def save(self):
+        if self.backend == "orbax":
+            self._save_async()
+            return
         suffix = f"step_{self.state.step}"
-        trainer_state = {"trainer_state": asdict(self.state),
-                         "history": self.history.state}
+        trainer_state = self._trainer_state()
         weights = self._weights_flat()
         opt = self._opt_flat()
         for root in (self.dir / suffix, self.dir):
@@ -217,27 +247,145 @@ class CheckpointManager:
                 json.dump(trainer_state, f, indent=2)
         print(f"Saved checkpoint (step {self.state.step})")
 
-    def load(self):
-        weights_path = self.dir / "latest.safetensors"
-        state_path = self.dir / "trainer_state.json"
-        opt_path = self.dir / "optimizer_state.safetensors"
-        if weights_path.exists():
-            self.model.load_weights(str(weights_path), strict=False)
-            print(f"Loaded latest run weights from {weights_path}")
-        if opt_path.exists():
-            flat = safetensors_io.load_file(str(opt_path))
-            jax_keys = [k for k in flat if _JAX_OPT_KEY.match(k)]
-            if jax_keys:
-                raise ValueError(
-                    f"{opt_path} holds optax leaves ({jax_keys[0]}, ...) "
-                    f"written by the JAX package; the port cannot resume that "
-                    f"optimizer state. Remove the file to resume the weights "
-                    f"alone, or continue with the JAX trainer.")
-            self._pending_opt = flat  # applied by attach()
-            print(f"Loaded optimizer state from {opt_path}")
-        if not state_path.exists():
-            print("Trainer state not found. Starting fresh training.")
+    def _snapshot(self, flat: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+        """Host copies of `flat`, into buffers kept across saves. Copies of
+        CUDA tensors run on a side stream, behind the work that made them
+        (`self._copied` marks their end): the next step's forward and
+        backward overlap them, its optimizer update waits for them
+        (`fence`), and the writer reads only after them."""
+        out = {}
+        cuda = [t for t in flat.values() if t.is_cuda]
+        stream = None
+        if cuda:
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(device=cuda[0].device)
+            stream = self._copy_stream
+            stream.wait_stream(torch.cuda.current_stream(cuda[0].device))
+        with torch.cuda.stream(stream) if stream is not None \
+                else contextlib.nullcontext():
+            for name, t in flat.items():
+                buf = self._host.get(name)
+                if buf is None or buf.shape != t.shape \
+                        or buf.dtype != t.dtype:
+                    buf = torch.empty(t.shape, dtype=t.dtype,
+                                      pin_memory=t.is_cuda)
+                    self._host[name] = buf
+                buf.copy_(t, non_blocking=t.is_cuda)
+                out[name] = buf
+            if stream is not None:
+                self._copied = torch.cuda.Event()
+                self._copied.record(stream)
+        return out
+
+    def fence(self) -> None:
+        """Make the current stream wait for the last snapshot's copies: the
+        trainer calls it before an optimizer update changes the tensors in
+        place."""
+        if self._copied is not None:
+            torch.cuda.current_stream(self._copy_stream.device).wait_event(
+                self._copied)
+            self._copied = None
+
+    def _save_async(self):
+        self.wait()  # one save in flight at a time
+        step_root = self.dir / f"step_{self.state.step}"
+        os.makedirs(step_root, exist_ok=True)
+        # the step's json first: a crash before the tensors commit leaves a
+        # json-only step directory, which resume skips; the run root's json
+        # shows progress only
+        trainer_state = self._trainer_state()
+        for root in (step_root, self.dir):
+            with open(root / "trainer_state.json", "w") as f:
+                json.dump(trainer_state, f, indent=2)
+        if (step_root / "orbax").exists():
+            # a same-step save (the end of an epoch right after a periodic
+            # save) would write the same tensors
+            print(f"Checkpoint step {self.state.step} already committed; "
+                  f"refreshed trainer state only")
             return
+        weights = self._snapshot(self._weights_flat())
+        opt = self._snapshot(self._opt_flat())
+        copied = self._copied  # the later one: one stream, in order
+
+        def write():
+            try:
+                if copied is not None:
+                    copied.synchronize()
+                tmp = step_root / f".orbax-tmp-{os.getpid()}"
+                os.makedirs(tmp, exist_ok=True)
+                safetensors_io.save_file(weights,
+                                         str(tmp / "latest.safetensors"))
+                if opt:
+                    safetensors_io.save_file(
+                        opt, str(tmp / "optimizer_state.safetensors"))
+                os.rename(tmp, step_root / "orbax")
+            except BaseException as exc:  # re-raised by wait()
+                self._write_error = exc
+
+        self._writer = threading.Thread(target=write, daemon=True,
+                                        name="checkpoint-writer")
+        self._writer.start()
+        print(f"Saved checkpoint (step {self.state.step}, orbax async)")
+
+    def wait(self):
+        """Block until the in-flight asynchronous save has committed; raise
+        its error if it failed."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._write_error is not None:
+            exc, self._write_error = self._write_error, None
+            raise RuntimeError("asynchronous checkpoint save failed") from exc
+
+    def _committed_steps(self) -> List[Path]:
+        """step_N directories whose async save committed, newest first."""
+        out = []
+        for d in self.dir.glob("step_*"):
+            if (d / "orbax").exists() and (d / "trainer_state.json").exists():
+                try:
+                    out.append((int(d.name.split("_", 1)[1]), d))
+                except ValueError:
+                    continue
+        return [d for _, d in sorted(out, reverse=True)]
+
+    def _check_backend_mismatch(self):
+        """A run directory written by the other backend fails loudly. One
+        of the async backend shows committed step_*/orbax directories, or
+        (a run that crashed before its first commit) step directories with
+        a trainer_state.json and no latest.safetensors, which the
+        safetensors backend always writes there."""
+        has_async = bool(list(self.dir.glob("step_*/orbax"))) or any(
+            (d / "trainer_state.json").exists()
+            and not (d / "latest.safetensors").exists()
+            for d in self.dir.glob("step_*"))
+        has_st = (self.dir / "latest.safetensors").exists()
+        if self.backend == "safetensors" and has_async and not has_st:
+            raise ValueError(
+                f"{self.dir} holds an orbax checkpoint but the trainer was "
+                f"built with checkpoint_backend='safetensors'; pass "
+                f"checkpoint_backend='orbax' to resume it.")
+        if self.backend == "orbax" and has_st and not has_async:
+            raise ValueError(
+                f"{self.dir} holds a safetensors checkpoint but the trainer "
+                f"was built with checkpoint_backend='orbax'; pass "
+                f"checkpoint_backend='safetensors' to resume it.")
+
+    def _read_opt(self, opt_path: Path) -> None:
+        flat = safetensors_io.load_file(str(opt_path))
+        jax_keys = [k for k in flat if _JAX_OPT_KEY.match(k)]
+        if jax_keys:
+            raise ValueError(
+                f"{opt_path} holds optax leaves ({jax_keys[0]}, ...) "
+                f"written by the JAX package; the port cannot resume that "
+                f"optimizer state. Remove the file to resume the weights "
+                f"alone, or continue with the JAX trainer.")
+        self._pending_opt = flat  # applied by attach()
+        print(f"Loaded optimizer state from {opt_path}")
+
+    def _apply_trainer_state(self, state_path: Path) -> bool:
+        if not state_path.exists():
+            return False
         with open(state_path) as f:
             trainer_state = json.load(f)
         ts = trainer_state["trainer_state"]
@@ -246,6 +394,42 @@ class CheckpointManager:
         self.state.learning_rate = ts["learning_rate"]
         self.history.state = trainer_state["history"]
         print(f"Loaded trainer state (step {self.state.step})")
+        return True
+
+    def _load_async(self) -> bool:
+        for step_dir in self._committed_steps():
+            data = step_dir / "orbax"
+            try:
+                self.model.load_weights(str(data / "latest.safetensors"),
+                                        strict=False)
+            except (OSError, ValueError, KeyError) as exc:
+                print(f"[WARN] could not resume from {step_dir}: {exc}; "
+                      f"trying an older checkpoint")
+                continue
+            print(f"Loaded latest run weights from {data}")
+            if (data / "optimizer_state.safetensors").exists():
+                self._read_opt(data / "optimizer_state.safetensors")
+            # the step counter of the same committed step: the run root's
+            # json may be a step ahead of the newest commit
+            self._apply_trainer_state(step_dir / "trainer_state.json")
+            return True
+        return False
+
+    def load(self):
+        self._check_backend_mismatch()
+        if self.backend == "orbax":
+            if not self._load_async():
+                print("Trainer state not found. Starting fresh training.")
+            return
+        weights_path = self.dir / "latest.safetensors"
+        opt_path = self.dir / "optimizer_state.safetensors"
+        if weights_path.exists():
+            self.model.load_weights(str(weights_path), strict=False)
+            print(f"Loaded latest run weights from {weights_path}")
+        if opt_path.exists():
+            self._read_opt(opt_path)
+        if not self._apply_trainer_state(self.dir / "trainer_state.json"):
+            print("Trainer state not found. Starting fresh training.")
 
 
 # ---------------------------------------------------------------------------
@@ -270,7 +454,8 @@ class CSMTrainer:
         self.history = History()
         self.checkpointer = CheckpointManager(
             self.model, self.state, self.history, args.output_dir,
-            args.only_save_trainable_params, args.trainable_filter)
+            args.only_save_trainable_params, args.trainable_filter,
+            backend=args.checkpoint_backend)
         self.checkpointer.load()
         self.trainable = self._mark_trainable()
         self.optimizer = args.optimizer([t for _, t in self.trainable])
@@ -283,11 +468,16 @@ class CSMTrainer:
         those `trainable_filter` selects) and clear it on the rest."""
         flt = self.args.trainable_filter
         named = []
+        # the frozen floating leaves: their gradients enter the clipping
+        # norm (train_step), as in JAX
+        self.frozen: List[torch.Tensor] = []
         for name, t in tree_to_flat(self.model.params).items():
             train = t.is_floating_point() and (flt is None or flt(name))
             t.requires_grad_(train)
             if train:
                 named.append((name, t))
+            elif t.is_floating_point():
+                self.frozen.append(t)
         if not named:
             raise ValueError("no parameter is trainable")
         return named
@@ -312,20 +502,37 @@ class CSMTrainer:
 
     def train_step(self, batch: Dict[str, np.ndarray]) -> float:
         """One step: loss, gradients of the trainable leaves, clipping,
-        optimizer update. Returns the loss."""
-        loss = self._loss_fn(self.model.params, self._prepare_batch(batch),
-                             self._generator)
+        optimizer update. Returns the loss.
+
+        The clipping norm is JAX's `optax.global_norm` over the gradients
+        of every floating parameter: with `max_norm > 0` the frozen leaves
+        take gradients for the norm only (never the optimizer), freed once
+        it is taken."""
         tensors = [t for _, t in self.trainable]
-        grads = torch.autograd.grad(loss, tensors, allow_unused=True)
+        frozen = self.frozen if self.args.max_norm > 0 else []
+        for t in frozen:
+            t.requires_grad_(True)
+        try:
+            loss = self._loss_fn(self.model.params,
+                                 self._prepare_batch(batch), self._generator)
+            grads = torch.autograd.grad(loss, tensors + frozen,
+                                        allow_unused=True)
+        finally:
+            for t in frozen:
+                t.requires_grad_(False)
+        frozen_grads = [g for g in grads[len(tensors):] if g is not None]
         grads = [torch.zeros_like(t) if g is None else g
                  for t, g in zip(tensors, grads)]
         if self.args.max_norm > 0:
-            gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+            gnorm = torch.sqrt(sum(g.float().square().sum()
+                                   for g in grads + frozen_grads))
+            del frozen_grads
             scale = torch.clamp(self.args.max_norm / (gnorm + 1e-6), max=1.0)
             for g in grads:
                 g.mul_(scale.to(g.dtype))
         for t, g in zip(tensors, grads):
             t.grad = g
+        self.checkpointer.fence()  # an async save's copies read them first
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         return float(loss.detach())
@@ -393,6 +600,7 @@ class CSMTrainer:
             self.state.epoch = epoch + 1
             print(f"Completed Epoch {epoch + 1}. Saving checkpoint.")
             self.checkpointer.save()
+        self.checkpointer.wait()  # commit an in-flight async save
         return self.history
 
 

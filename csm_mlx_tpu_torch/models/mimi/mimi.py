@@ -10,7 +10,8 @@ waveform.
 Encode pads the waveform to whole frames of a bucket (`FRAME_BUCKETS`), as
 the JAX package does, and keeps the first F frames; every stage is causal,
 so they do not depend on the padding. Decode takes the F frames as they
-are.
+are, unless the decoder is int8 (`models/mimi/quant.py`): its activation
+scales span the whole chunk, so it pads to the bucket as JAX does.
 
 Streaming: `mimi_encode_step_fn` encodes the next frame of a stream over a
 `MimiEncodeState`, `mimi_decode_step_fn` decodes the next F frames over a
@@ -30,6 +31,7 @@ import torch.nn.functional as F
 
 from csm_mlx_tpu_torch.device import resolve_device
 from csm_mlx_tpu_torch.models.mimi.config import MimiConfig
+from csm_mlx_tpu_torch.models.mimi.quant import mimi_decoder_is_quantized
 from csm_mlx_tpu_torch.models.mimi.conv import (
     ConvState, ConvTrState, causal_conv1d_streaming, causal_conv_transpose1d,
     causal_conv_transpose1d_streaming, make_conv_state, make_convtr_state)
@@ -234,7 +236,14 @@ class Mimi:
     def decode(self, codes: torch.Tensor) -> torch.Tensor:
         """(B, K, F) int codes -> (B, 1, F * frame_size) waveform."""
         codes = torch.as_tensor(codes, device=self.device).long()
-        return mimi_decode_fn(self.params, self.cfg, codes)
+        f = codes.shape[-1]
+        if mimi_decoder_is_quantized(self.params):
+            # an int8 conv's activation scale spans the whole chunk, so the
+            # zero frames that the JAX package pads every decode with (to
+            # its bucket) enter it: pad as it does
+            codes = F.pad(codes, (0, _bucket(f) - f))
+        return mimi_decode_fn(self.params, self.cfg,
+                              codes)[:, :, :f * self.frame_size]
 
     # -- streaming ------------------------------------------------------
     def init_decode_state(self, batch: int = 1,

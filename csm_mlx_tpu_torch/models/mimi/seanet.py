@@ -3,7 +3,8 @@
 Init conv (k=7); then per stage residual blocks and a strided downsample
 over the reversed ratios (encoder), or a causal transposed upsample and
 residual blocks over the ratios (decoder); ELU activations, final conv
-(k=3); all convs causal. Parameters: {"init": conv, "stages":
+(k=3); all convs causal (a decoder conv may be int8, `models/mimi/quant.py`:
+its codes set its shape). Parameters: {"init": conv, "stages":
 [{"residual": [{"conv1", "conv2"}], "down" | "up"}], "final": conv}.
 `seanet_encode` / `seanet_decode` run a whole sequence;
 `seanet_encode_streaming` / `seanet_decode_streaming` a chunk, over the
@@ -22,7 +23,7 @@ import torch.nn.functional as F
 from csm_mlx_tpu_torch.device import resolve_device
 from csm_mlx_tpu_torch.models.mimi.config import MimiConfig
 from csm_mlx_tpu_torch.models.mimi.conv import (
-    causal_conv1d_streaming, causal_conv_transpose1d,
+    _weight, causal_conv1d_streaming, causal_conv_transpose1d,
     causal_conv_transpose1d_streaming, conv1d, make_conv_state,
     make_convtr_state)
 
@@ -52,7 +53,7 @@ def _causal_conv_batch(p: Params, x: torch.Tensor, stride: int,
     """Causal conv of a whole sequence: eff_k - stride samples padded on
     the left (zeros, or with pad_mode="replicate" copies of the first
     sample), and HF's extra right padding."""
-    k = p["weight"].shape[-1]
+    k = _weight(p).shape[-1]
     eff_k = (k - 1) * dilation + 1
     left = eff_k - stride
     right = _extra_right_pad(x.shape[-1], k, stride, dilation)
@@ -99,12 +100,12 @@ def seanet_decoder_init_state(params: Params, cfg: MimiConfig, batch: int,
     states: List[Any] = []
 
     def conv_state(p, dilation=1):
-        _, c_in, k = p["weight"].shape
+        _, c_in, k = _weight(p).shape
         states.append(make_conv_state(c_in, k, 1, dilation, batch, dtype,
                                       device))
 
     def convtr_state(p, stride):
-        _, c_out, k = p["weight"].shape
+        _, c_out, k = _weight(p).shape
         states.append(make_convtr_state(c_out, k, stride, batch, dtype,
                                         device))
 
@@ -149,7 +150,7 @@ def seanet_encoder_init_state(params: Params, cfg: MimiConfig, batch: int,
     states: List[Any] = []
 
     def conv_state(p, stride=1, dilation=1):
-        _, c_in, k = p["weight"].shape
+        _, c_in, k = _weight(p).shape
         states.append(make_conv_state(c_in, k, stride, dilation, batch, dtype,
                                       device))
 

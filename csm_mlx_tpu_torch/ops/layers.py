@@ -72,10 +72,14 @@ def _maybe_dropout(x: torch.Tensor, rate) -> torch.Tensor:
     _DROPOUT_CTX["count"] += 1
     gen = torch.Generator(device=x.device)
     gen.manual_seed((seed + 1_000_003 * _DROPOUT_CTX["count"]) % (2 ** 63))
-    keep = 1.0 - float(rate)
+    # scaled by the rate leaf itself where it is one, so that it takes a
+    # gradient as in JAX (the trainer's clipping norm counts it)
+    tensor = torch.is_tensor(rate)
+    keep = 1.0 - float(rate.detach() if tensor else rate)
     mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                   device=x.device))
+    scale = (1.0 - rate.float()).to(x.dtype) if tensor else keep
+    return torch.where(mask, x / scale, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
 
 
 def _lora_scale(params: Params):

@@ -35,31 +35,32 @@ if sys.byteorder != "little":
 
 def save_file(tensors: Dict[str, torch.Tensor], path: str,
               metadata: Optional[Dict[str, str]] = None) -> None:
-    """Write `tensors` (name -> tensor of a type in DTYPES) to `path`."""
+    """Write `tensors` (name -> tensor of a type in DTYPES) to `path`. Each
+    tensor's bytes go to the file from its own (host) memory, one tensor
+    at a time: no copy of the whole file is held, and the writes run
+    without the interpreter lock."""
     header: Dict[str, object] = {}
     if metadata:
         header["__metadata__"] = dict(metadata)
-    blobs = []
     offset = 0
     for name in sorted(tensors):
         t = tensors[name]
         if t.dtype not in _CODES:
             raise ValueError(f"{name}: dtype {t.dtype} is not one of "
                              f"{sorted(_CODES.values(), key=str)}")
-        t = t.detach().to("cpu").contiguous()
-        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes() \
-            if t.numel() else b""
+        size = t.numel() * t.element_size()
         header[name] = {"dtype": _CODES[t.dtype], "shape": list(t.shape),
-                        "data_offsets": [offset, offset + len(raw)]}
-        blobs.append(raw)
-        offset += len(raw)
+                        "data_offsets": [offset, offset + size]}
+        offset += size
     head = json.dumps(header, separators=(",", ":")).encode()
     head += b" " * (-len(head) % 8)
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(head)))
         f.write(head)
-        for raw in blobs:
-            f.write(raw)
+        for name in sorted(tensors):
+            t = tensors[name].detach().to("cpu").contiguous()
+            if t.numel():
+                f.write(memoryview(t.reshape(-1).view(torch.uint8).numpy()))
 
 
 def load_file(path: str, device: torch.device | str = "cpu"

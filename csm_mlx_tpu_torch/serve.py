@@ -356,8 +356,9 @@ class ContinuousTTSServer:
     consumption), so `aggregate_rtf` counts concurrency in; the
     scheduler's own counters are `self.engine.stats` (and `/stats`).
     `n_slots` defaults to 64, kernel 3's rows a launch; `transfer` to
-    "int16", lossless for the PCM16 endpoints. `quantize_codec` and
-    `mesh` raise (not ported).
+    "int16", lossless for the PCM16 endpoints. `quantize_codec` decodes
+    through an int8 copy of the codec's decoder; `mesh` raises (not
+    ported).
     """
 
     def __init__(

@@ -2,8 +2,8 @@
 (`csm_mlx_tpu_torch/continuous.py`) on the tiny config, fp32, T = 0, on
 the CPU (every step block eager).
 
-The cases of `tests/test_continuous.py`, but for the mesh, tiered-KV and
-`quantize_codec` ones. Each request's frames must equal the port's solo
+The cases of `tests/test_continuous.py`, but for the mesh and tiered-KV
+ones. Each request's frames must equal the port's solo
 `generate_tokens` run exactly (a row admitted mid-flight, after slot reuse
 or after a rebase is spliced in through its virtual left pad); the
 mid-flight, slot-reuse and rebase cases also hold the port engine's
@@ -311,11 +311,41 @@ def test_capacity_slack_must_cover_step_block(model):
 
 
 def test_not_ported_options_raise(model):
-    """mesh= and quantize_codec=True name the ROADMAP items they wait for."""
+    """mesh= names the ROADMAP item it waits for."""
     with pytest.raises(NotImplementedError, match="item 12"):
         _engine(model, mesh=object())
-    with pytest.raises(NotImplementedError, match="waits for a measurement"):
-        _engine(model, quantize_codec=True)
+
+
+def test_quantized_codec_engine_close_to_f32(model, fresh_codec):
+    """quantize_codec=True (JAX's case): the same greedy tokens, audio that
+    differs from the fp32-codec engine's by int8 decode noise alone, and
+    the process-wide codec left exact fp32 (its encode and other decodes
+    read it): the engine quantizes a private copy of its decoder, which
+    shares the encoder's tensors."""
+    p, m = _prompt(model.args, 5, seed=6)
+    eng_q = _engine(model, n_slots=1, codec=True, quantize_codec=True)
+    rq = eng_q.submit_prompt(p, m, max_frames=3)
+    eng_q.run_until_idle()
+    aq, toks_q = rq.audio(), rq.wait(0)
+
+    eng_f = _engine(model, n_slots=1, codec=True)
+    rf = eng_f.submit_prompt(p, m, max_frames=3)
+    eng_f.run_until_idle()
+    af = rf.audio()
+
+    np.testing.assert_array_equal(toks_q, rf.wait(0))
+    assert aq.shape == af.shape
+    rel = float(np.sqrt(np.mean((aq - af) ** 2))
+                / (np.sqrt(np.mean(af ** 2)) + 1e-12))
+    assert 0 < rel < 0.15, rel
+
+    mimi = ttok.get_audio_tokenizer(model.args.n_audio_codebooks,
+                                    device="cpu")
+    assert eng_f._mimi is mimi and eng_q._mimi is not mimi
+    assert "weight_q" not in mimi.params["decoder"]["init"]
+    assert "weight_q" in eng_q._mimi.params["decoder"]["init"]
+    assert eng_q._mimi.params["encoder"]["init"]["weight"] is \
+        mimi.params["encoder"]["init"]["weight"]
 
 
 @pytest.mark.slow

@@ -1226,3 +1226,204 @@ def test_engine_with_kernel_4_equals_the_engine_without(cuda_device,
     for (frames, audio), (wframes, waudio) in zip(got, want):
         np.testing.assert_array_equal(frames, wframes)
         np.testing.assert_array_equal(audio, waudio)
+
+
+# --- the int8 codec, the voice chat, async checkpoints ----------------------
+
+
+def _real_ratio_codec(device):
+    """A narrow codec over the real SEANet ratios (1,920-sample frames) and
+    a 64-wide transformer, so its linears take kernel 1 (IN % 16 == 0)."""
+    from csm_mlx_tpu_torch.models.mimi import Mimi, MimiConfig
+
+    cfg = MimiConfig(hidden_size=64, num_filters=8, codebook_size=32,
+                     codebook_dim=8, num_quantizers=8, upsample_groups=64,
+                     num_hidden_layers=2, intermediate_size=128,
+                     num_attention_heads=2, num_key_value_heads=2,
+                     head_dim=32, sliding_window=16)
+    return Mimi(cfg, generator=torch.Generator(device=device).manual_seed(5),
+                device=device)
+
+
+@pytest.mark.parametrize("rows", [1, 4])
+def test_int8_codec_convs_and_linears_match_plain(cuda_device, rows):
+    """Every int8 SEANet conv of the decoder (one `torch._int_mm`, operands
+    padded to its shape rules) gives the int32 sums of its plain version
+    on the CPU bit for bit, at the lengths of a 2-frame chunk; kernel 1 on
+    the codec transformer's linears matches its plain version; the int8
+    decode on the card is the CPU's up to the rounding of fp32 noise by
+    the activation quantization."""
+    from csm_mlx_tpu_torch.models.mimi import Mimi
+    from csm_mlx_tpu_torch.models.mimi import conv as mconv
+    from csm_mlx_tpu_torch.models.mimi.quant import quantize_mimi_decoder
+
+    mimi = _real_ratio_codec(cuda_device)
+    quantize_mimi_decoder(mimi)
+    dec, cfg = mimi.params["decoder"], mimi.cfg
+    gen = torch.Generator(device=cuda_device).manual_seed(rows)
+    t = 4
+    convs = [(dec["init"], 1, t + 6, False)]
+    for stage, ratio in zip(dec["stages"], cfg.upsampling_ratios):
+        convs.append((stage["up"], 1, t, True))
+        t *= ratio
+        for j, block in enumerate(stage["residual"]):
+            d = cfg.dilation_growth_rate ** j
+            convs += [(block["conv1"], d, t + 2 * d, False),
+                      (block["conv2"], 1, t, False)]
+    convs.append((dec["final"], 1, t + 2, False))
+    before = (mconv.int8_conv1d_sums.launches,
+              mconv.int8_conv_transpose1d_sums.launches)
+    for p, dil, length, transposed in convs:
+        wq = p["weight_q"]
+        xq = torch.randint(-127, 128, (rows, wq.shape[0 if transposed else 1],
+                                       length), generator=gen,
+                           device=cuda_device).to(torch.int8)
+        if transposed:
+            got = mconv.int8_conv_transpose1d_sums(xq, wq, 1)
+            want = mconv.int8_conv_transpose1d_sums_plain(xq.cpu(),
+                                                          wq.cpu(), 1)
+        else:
+            got = mconv.int8_conv1d_sums(xq, wq, 1, dil)
+            want = mconv.int8_conv1d_sums_plain(xq.cpu(), wq.cpu(), 1, dil)
+        assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+    n_tr = len(cfg.upsampling_ratios)
+    assert (mconv.int8_conv1d_sums.launches - before[0],
+            mconv.int8_conv_transpose1d_sums.launches - before[1]) == (
+        len(convs) - n_tr, n_tr)
+    layer = mimi.params["decoder_transformer"]["layers"][0]
+    for q in (layer["self_attn"]["q_proj"], layer["mlp"]["fc1"],
+              layer["mlp"]["fc2"]):
+        x = torch.randn((2 * rows, q["weight_q"].shape[1]), generator=gen,
+                        device=cuda_device)
+        got = quant.w8a8_matvec(x, q["weight_q"], q["scales"], q["biases"])
+        want = quant.w8a8_matvec_plain(x, q["weight_q"], q["scales"],
+                                       q["biases"])
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item())
+    codes = torch.randint(0, 32, (rows, 8, 4), generator=gen,
+                          device=cuda_device)
+    card = mimi.decode(codes).cpu()
+    cpu = Mimi(cfg, params=_to_device(mimi.params, "cpu"), device="cpu")
+    want = cpu.decode(codes.cpu())
+    rel = ((card - want).pow(2).mean().sqrt()
+           / want.pow(2).mean().sqrt()).item()
+    assert rel < 0.05, rel
+
+
+def test_engine_with_the_int8_codec_captured_equals_eager(cuda_device):
+    """`quantize_codec=True`: the engine's blocks, their int8 Mimi step in
+    the graph, replayed against the same blocks run eagerly: equal frames
+    and equal chunks; the int8 convs ran."""
+    from csm_mlx_tpu_torch.models.mimi import conv as mconv
+
+    model = resident_model("tiny", cuda_device)
+    mimi = _real_ratio_codec(cuda_device)
+    requests = _engine_requests(model, 5, seed=7)
+    before = mconv.int8_conv1d_sums.launches
+    got, eng = _run_engine(model, requests, mimi=mimi, quantize_codec=True)
+    assert mconv.int8_conv1d_sums.launches > before
+    want, _ = _run_engine(model, requests, mimi=mimi, quantize_codec=True,
+                          eager=True)
+    assert "weight_q" in eng._mimi.params["decoder"]["init"]
+    assert "weight_q" not in mimi.params["decoder"]["init"]
+    for (frames, audio), (wframes, waudio) in zip(got, want):
+        np.testing.assert_array_equal(frames, wframes)
+        np.testing.assert_array_equal(audio, waudio)
+
+
+def test_voice_chat_turn_on_card(cuda_device, monkeypatch):
+    """One reply of three sentences through the voice chat's TTS worker on
+    a small W8A8 model with kernel-3 tables, the app's sampler (T 0.6,
+    top-k 50, min-p 0.05), `build_tts_stream_fn` on the card (its frames
+    captured on the worker thread): every chunk a codec frame on the CPU,
+    one context segment a sentence, kernel 3 once a frame, no TTS failure
+    logged."""
+    import asyncio
+    import logging
+    from concurrent.futures import ThreadPoolExecutor
+
+    from csm_mlx_tpu_torch import tokenizers
+    from csm_mlx_tpu_torch.apps import voice_chat as vc
+    from csm_mlx_tpu_torch.ops.sampling import SamplerConfig
+
+    _build.library()  # the build must not fall inside TTS_TIMEOUT_S
+    model = resident_model("tiny", cuda_device)
+    mimi = _tiny_codec(cuda_device)
+    prompt, mask = _prompt(model.args, 9, 9)
+    monkeypatch.setattr(tokenizers, "tokenize_text_segment",
+                        lambda *a: (prompt, mask))
+    tts = vc.build_tts_stream_fn(
+        model, sampler=SamplerConfig(temperature=0.6, top_k=50, min_p=0.05),
+        max_audio_length_ms=800, mimi=mimi)
+    logged = []
+    handler = logging.Handler(level=logging.WARNING)
+    handler.emit = lambda record: logged.append(record.getMessage())
+    vc.logger.addHandler(handler)
+    audio_io = vc.NullAudioIO()
+    state = vc.ConversationState()
+    before = resident.resident_decode_frame.launches
+
+    async def scenario():
+        with ThreadPoolExecutor(2) as ex:
+            task = asyncio.create_task(vc.tts_worker(state, tts, audio_io, ex))
+            for s in ("One sentence.", "Another one.", "The last one."):
+                await state.llm_out_q.put(s)
+            await state.llm_out_q.put(vc.LLM_RESPONSE_END)
+            for _ in range(600):
+                if len(state.context_segments) == 3 and \
+                        not state.tts_speaking:
+                    break
+                await asyncio.sleep(0.05)
+            state.shutdown.set()
+            await task
+
+    try:
+        asyncio.run(scenario())
+    finally:
+        vc.logger.removeHandler(handler)
+    # (the worker's latency warning counts from an LLM call never made)
+    assert not [m for m in logged if "TTS" in m], logged
+    assert len(state.context_segments) == 3
+    assert all(c.shape == (mimi.frame_size,) for c in audio_io.played)
+    assert resident.resident_decode_frame.launches - before == len(
+        audio_io.played) == 30
+
+
+def test_async_save_snapshot_is_not_changed_by_the_next_step(cuda_device,
+                                                             tmp_path):
+    """checkpoint_backend="orbax" on the card: a save returns while its
+    write is in flight, the next step updates the weights in place at once,
+    and the committed file still holds the weights of the saved step."""
+    from csm_mlx_tpu_torch import safetensors_io
+    from csm_mlx_tpu_torch.finetune import trainer as ft
+    from csm_mlx_tpu_torch.loaders import tree_to_flat
+
+    port_config.BACKBONE_CONFIGURATION["train_small"] = port_config.LlamaConfig(
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        head_dim=64, intermediate_size=512, hidden_size=256)
+    port_config.DECODER_CONFIGURATION["train_small"] = port_config.LlamaConfig(
+        num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1,
+        head_dim=64, intermediate_size=256, hidden_size=128)
+    args = ModelArgs("train_small", "train_small", 128, 64, 8)
+    rng = np.random.RandomState(0)
+    batch = {"tokens": rng.randint(0, 64, size=(2, 40, 9)).astype(np.int32),
+             "masks": np.ones((2, 40, 9), dtype=np.int32),
+             "loss_masks": np.ones((2, 40, 9), dtype=np.int32)}
+    model = CSM(args, dtype=torch.float32, device=cuda_device,
+                generator=torch.Generator(device=cuda_device).manual_seed(1))
+    tr = ft.CSMTrainer(ft.TrainArgs(
+        model=model, optimizer=ft.build_optimizer("adamw", 1e-2),
+        output_dir=tmp_path, ckpt_freq=0, checkpoint_backend="orbax"))
+    tr.train_step(batch)
+    tr.state.step = 1
+    saved = {k: v.detach().cpu().clone()
+             for k, v in tree_to_flat(model.params).items()}
+    tr.checkpointer.save()
+    tr.train_step(batch)  # in place, while the write may be in flight
+    tr.checkpointer.wait()
+    on_disk = safetensors_io.load_file(
+        str(tmp_path / "step_1" / "orbax" / "latest.safetensors"))
+    now = tree_to_flat(model.params)
+    assert on_disk.keys() == saved.keys()
+    assert all(torch.equal(on_disk[k], v) for k, v in saved.items())
+    assert any(not torch.equal(now[k].cpu(), v) for k, v in saved.items())

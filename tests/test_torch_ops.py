@@ -137,8 +137,9 @@ PORT_MODULES = [
     "csm_mlx_tpu_torch.models.mimi.seanet",
     "csm_mlx_tpu_torch.models.mimi.transformer",
     "csm_mlx_tpu_torch.models.mimi.weights", "csm_mlx_tpu_torch.apps",
-    "csm_mlx_tpu_torch.apps.voice_chat", "csm_mlx_tpu_torch.utils",
-    "csm_mlx_tpu_torch.utils.audio",
+    "csm_mlx_tpu_torch.apps.voice_chat", "csm_mlx_tpu_torch.apps.stt",
+    "csm_mlx_tpu_torch.utils", "csm_mlx_tpu_torch.utils.audio",
+    "csm_mlx_tpu_torch.utils.profiling", "csm_mlx_tpu_torch.models.mimi.quant",
     "csm_mlx_tpu_torch.ops.flash_train", "csm_mlx_tpu_torch.loaders",
     "csm_mlx_tpu_torch.safetensors_io", "csm_mlx_tpu_torch.segment",
     "csm_mlx_tpu_torch.finetune", "csm_mlx_tpu_torch.finetune.dataset",

@@ -626,7 +626,7 @@ def test_serve_cli_flags_and_defaults_equal_jax():
 
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "data=2"], "item 12"),
-    (["--continuous", "--quantize-codec"], "waits for a measurement"),
+    (["--quantize-codec"], "requires --continuous"),
     (["--weight", "org/repo"], "not a local path"),
     (["--weight", "/nonexistent/weights.safetensors"], "not a local path"),
 ])
@@ -687,3 +687,28 @@ def test_serve_cli_makes_the_server_its_flags_ask_for(offline_tokenizers,
     assert isinstance(cont, ContinuousTTSServer)
     assert cont.engine.n_slots == 2 and cont.watermark_key == 6
     assert cont.engine.transfer == "int16" and cont.engine.max_frames == 5
+
+
+def test_serve_cli_quantize_codec_reaches_the_engine(offline_tokenizers,
+                                                     model):
+    """`serve --continuous --quantize-codec`: the engine decodes through an
+    int8 copy of the codec's decoder; the codec singleton stays fp32."""
+    import dataclasses
+
+    from conftest import TINY_BACKBONE
+    from csm_mlx_tpu_torch import bridge
+    from csm_mlx_tpu_torch.cli.application import build_parser
+    from csm_mlx_tpu_torch.cli.serve import make_server
+    from csm_mlx_tpu_torch.models.csm import CSM
+    from csm_mlx_tpu_torch.models.mimi.quant import mimi_decoder_is_quantized
+
+    bridge.register_llama_configs(backbone={"tiny_wide": dataclasses.replace(
+        TINY_BACKBONE, max_position_embeddings=1024)})
+    wide = CSM(dataclasses.replace(model.args, backbone_name="tiny_wide"),
+               params=model.params, dtype=model.dtype)
+    server = make_server(build_parser().parse_args(
+        ["serve", "--max-audio-length", "400", "--continuous", "--slots",
+         "2", "--quantize-codec"]), wide)
+    assert mimi_decoder_is_quantized(server.engine._mimi.params)
+    shared = ttok.get_audio_tokenizer(model.n_audio_codebooks, device="cpu")
+    assert not mimi_decoder_is_quantized(shared.params)

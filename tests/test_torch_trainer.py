@@ -1,8 +1,10 @@
 """The port's trainers against the JAX package's on the tiny config, fp32:
 parameters after each SFT step (adam, adamw, sgd; clipping active), LoRA
-steps (clipping off), the DPO and KTO losses, and checkpoints (save,
-resume, the exact-epoch boundary, the shuffle order, files read by the
-other package)."""
+steps (clipping off, and one step that clips), the DPO and KTO losses, and
+checkpoints (save, resume, the exact-epoch boundary, the shuffle order,
+files read by the other package, the asynchronous backend)."""
+
+import json
 
 import jax
 import jax.numpy as jnp
@@ -333,3 +335,125 @@ def test_trainer_drops_derived_params_and_refuses_jax_optimizer_state(
 
     saved = safetensors_io.load_file(str(tmp_path / "port" / "latest.safetensors"))
     assert saved and all(lora.trainable_filter(k) for k in saved)
+
+
+def test_lora_step_clips_by_every_leaf_like_jax(tmp_path):
+    """One LoRA step (rank 4) whose max_norm clips: JAX takes the clipping
+    norm over every parameter's gradient, frozen ones included, so the
+    adapters after the step equal JAX's only when the port does too; the
+    base weights do not move."""
+    cfg = {"rank": 4, "scale": 2.0, "dropout": 0.0, "keys": ["attn"]}
+    jm = jax_model(13)
+    jax_lora.linear_to_lora_layers(jm, cfg)
+    pm = torch_model_from_jax(jm)
+    base = {k: v.clone() for k, v in tree_to_flat(pm.params).items()
+            if not lora.trainable_filter(k)}
+    jt = jax_trainer.CSMTrainer(jax_trainer.TrainArgs(
+        model=jm, optimizer=OPTIMIZERS["sgd"][0](),
+        output_dir=tmp_path / "jax", ckpt_freq=0, max_norm=0.05,
+        trainable_filter=jax_lora.trainable_filter))
+    pt = trainer.CSMTrainer(trainer.TrainArgs(
+        model=pm, optimizer=OPTIMIZERS["sgd"][1](),
+        output_dir=tmp_path / "port", ckpt_freq=0, max_norm=0.05,
+        trainable_filter=lora.trainable_filter))
+    batch = make_batch(jm.args, seed=70)
+    np.testing.assert_allclose(pt.train_step(batch), jt.train_step(batch),
+                               rtol=1e-5)
+    assert_params_close(pm.params, jm.params)
+    for k, v in tree_to_flat(pm.params).items():
+        if k in base:
+            assert torch.equal(v, base[k]), k
+            assert not v.requires_grad, k
+
+
+def _async_run(tmp_path, name, seed, backend="orbax", epochs=1):
+    pm = torch_model_from_jax(jax_model(seed))
+    pt = trainer.CSMTrainer(trainer.TrainArgs(
+        model=pm, optimizer=OPTIMIZERS["adam"][1](),
+        output_dir=tmp_path / name, ckpt_freq=1, learning_rate=LR,
+        checkpoint_backend=backend))
+    pt.train(PortItems(pm.args), batch_size=2, epochs=epochs)
+    return pm, pt
+
+
+def test_async_checkpoints_commit_each_step_and_resume(tmp_path):
+    """checkpoint_backend="orbax": train() saves each step from a
+    background thread into step_N/orbax (committed by a rename) and has
+    committed the last save when it returns; the weights are those of the
+    synchronous backend's run; a new trainer resumes the newest committed
+    step's weights, optimizer state and trainer state bit-equal."""
+    pm, pt = _async_run(tmp_path, "async", 14)
+    sync_pm, _ = _async_run(tmp_path, "sync", 14, backend="safetensors")
+    out = tmp_path / "async"
+    for step in (1, 2):
+        data = out / f"step_{step}" / "orbax"
+        assert (data / "latest.safetensors").exists()
+        assert (data / "optimizer_state.safetensors").exists()
+        assert not list((out / f"step_{step}").glob(".orbax-tmp-*"))
+    assert not (out / "latest.safetensors").exists()
+    assert (out / "trainer_state.json").exists()
+    for k, v in tree_to_flat(pm.params).items():
+        assert torch.equal(tree_to_flat(sync_pm.params)[k], v), k
+
+    pm2 = torch_model_from_jax(jax_model(15))
+    pt2 = trainer.CSMTrainer(trainer.TrainArgs(
+        model=pm2, optimizer=OPTIMIZERS["adam"][1](), output_dir=out,
+        checkpoint_backend="orbax"))
+    assert (pt2.state.step, pt2.state.epoch) == (2, 1)
+    assert pt2.history.state == pt.history.state
+    for k, v in tree_to_flat(pm.params).items():
+        assert torch.equal(tree_to_flat(pm2.params)[k], v), k
+    for (n, t), (n2, t2) in zip(pt.trainable, pt2.trainable):
+        for key, val in pt.optimizer.state[t].items():
+            assert torch.equal(pt2.optimizer.state[t2][key], val), (n, key)
+
+
+def test_async_resume_skips_a_step_that_never_committed(tmp_path):
+    """A step directory with its trainer state but no committed tensors (a
+    crash inside the write: a json and a temporary directory only) is
+    skipped: resume takes the newest committed step, its own trainer
+    state, though the run root's json is a step ahead."""
+    pm, pt = _async_run(tmp_path, "crash", 16)
+    out = tmp_path / "crash"
+    ahead = {"trainer_state": {"step": 3, "epoch": 1, "learning_rate": LR},
+             "history": []}
+    os_dir = out / "step_3"
+    (os_dir / ".orbax-tmp-1").mkdir(parents=True)
+    for root in (os_dir, out):
+        (root / "trainer_state.json").write_text(json.dumps(ahead))
+    (out / "step_x").mkdir()
+    pm2 = torch_model_from_jax(jax_model(17))
+    pt2 = trainer.CSMTrainer(trainer.TrainArgs(
+        model=pm2, optimizer=OPTIMIZERS["adam"][1](), output_dir=out,
+        checkpoint_backend="orbax"))
+    assert pt2.state.step == 2
+    for k, v in tree_to_flat(pm.params).items():
+        assert torch.equal(tree_to_flat(pm2.params)[k], v), k
+
+
+@pytest.mark.parametrize("written,resumed,match", [
+    ("orbax", "safetensors", "holds an orbax checkpoint"),
+    ("safetensors", "orbax", "holds a safetensors checkpoint"),
+])
+def test_checkpoint_backend_mismatch_is_refused_as_jax_refuses_it(
+        tmp_path, written, resumed, match):
+    """A run directory of one backend is refused by a trainer of the other,
+    with the JAX trainer's message (its own trainer refuses the same
+    directory the same way); an unknown backend raises."""
+    _async_run(tmp_path, "run", 18, backend=written)
+    out = tmp_path / "run"
+    with pytest.raises(ValueError, match=match) as port_err:
+        trainer.CSMTrainer(trainer.TrainArgs(
+            model=torch_model_from_jax(jax_model(19)),
+            optimizer=OPTIMIZERS["adam"][1](), output_dir=out,
+            checkpoint_backend=resumed))
+    with pytest.raises(ValueError, match=match) as jax_err:
+        jax_trainer.CSMTrainer(jax_trainer.TrainArgs(
+            model=jax_model(19), optimizer=optax.adam(LR), output_dir=out,
+            checkpoint_backend=resumed))
+    assert str(port_err.value) == str(jax_err.value)
+    with pytest.raises(ValueError, match="unknown checkpoint backend"):
+        trainer.CSMTrainer(trainer.TrainArgs(
+            model=torch_model_from_jax(jax_model(19)),
+            optimizer=OPTIMIZERS["adam"][1](), output_dir=tmp_path / "x",
+            checkpoint_backend="zarr"))
