@@ -141,7 +141,20 @@ the kernels' launch counts per step; full SFT with
 first with a save in flight, then a synchronous one) and its resume
 (gate: weights and optimizer state bit-equal); and one training step
 through the kernels against the masked sdpa on a 2-layer full-width
-backbone. Any
+backbone.
+
+Then parallel fine-tuning (`csm_mlx_tpu_torch/parallel/`, the trainers'
+`mesh`), CSM-1B bf16 full SFT at (B=2, S=576): (a) one NCCL rank in this
+process, replicated and FSDP steps bit-equal to the mesh-less trainer's,
+with their ms, peaks, stored bytes and kernels 6 and 7 launches; a probe
+of gloo's point-to-point sends on CUDA tensors (two processes), and, as
+gloo cannot carry them, ring attention at (1, 32, 2048, 64) fp32 and bf16
+(forward and backward against the plain causal attention) and the
+16-layer backbone pipeline (against `llama_forward`) on the NCCL rank;
+(b) two ranks spawned on the one card over gloo, loading the kernels
+built here: replicated and FSDP steps against the one-process steps, the
+bytes each rank stores for parameters and AdamW state, and gloo's
+all-reduce and all-gather times. Any
 failure raises; the last line of standard output is then missing.
 
 Prints the card's name and power limit, one line per check and phase, the
@@ -168,6 +181,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from csm_mlx_tpu_torch import config as port_config  # noqa: E402
+from csm_mlx_tpu_torch import parallel  # noqa: E402
 from csm_mlx_tpu_torch import generation  # noqa: E402
 from csm_mlx_tpu_torch.finetune import lora  # noqa: E402
 from csm_mlx_tpu_torch.finetune import trainer as ft  # noqa: E402
@@ -180,6 +194,7 @@ from csm_mlx_tpu_torch.models.csm import CSM, ModelArgs, csm_1b  # noqa: E402
 from csm_mlx_tpu_torch.models.csm import embed_audio  # noqa: E402
 from csm_mlx_tpu_torch.models.mimi import Mimi, mimi_202407  # noqa: E402
 from csm_mlx_tpu_torch.models.mimi import mimi as mimi_module  # noqa: E402
+from csm_mlx_tpu_torch.models.llama import llama_forward  # noqa: E402
 from csm_mlx_tpu_torch.models.mimi.rvq import codebook_embed  # noqa: E402
 from csm_mlx_tpu_torch.ops import _build  # noqa: E402
 from csm_mlx_tpu_torch.ops import attention, quant  # noqa: E402
@@ -380,6 +395,39 @@ FLASH_TRAIN_KERNELS = ("flash_fwd_tc_kernel", "flash_delta_tc_kernel",
 FLASH_TRAIN_ROUTE = {torch.float32: "CUDA cores, fp32",
                      torch.bfloat16: "tensor cores, mma.sync bf16"}
 TRAIN_B, TRAIN_S = 2, 576  # the 64-bucket of 575 frames
+# run_parallel: steps a mode, at a learning rate whose AdamW updates (about
+# lr an element a step) span several bf16 ulps of the weight matrices
+# (|w| ~ 0.02: ulp 1.2e-4); (b)'s gates against the one-process steps (two
+# ranks run bf16 GEMMs of one row and sum the gradients in another order):
+# losses within PAR_LOSS_RTOL, and each weight matrix's update (after -
+# before) within PAR_UPDATE_TOL of the reference update, in norm. A control
+# that trains on its own row only (no gradient reduce) must fail that gate.
+PAR_STEPS = 2
+PAR_LR = 1e-3
+PAR_LOSS_RTOL = 1e-3
+PAR_UPDATE_TOL = 0.2
+PAR_TIMEOUT_S = 480  # (b)'s two ranks, start-up included
+RING_SHAPE = (1, 32, 2048, 8, 64)  # B, heads, S, kv heads, D
+RING_TOL = {torch.float32: (2e-5, 5e-4),  # forward, gradients
+            torch.bfloat16: (2e-2, 2e-2)}
+PIPE_B, PIPE_MICRO, PIPE_TOL = 4, 4, 2e-2
+# One gloo batch_isend_irecv of a CUDA tensor between two processes on
+# cuda:0 (argv: rank, FileStore path)
+P2P_PROBE = """
+import datetime, sys, torch, torch.distributed as dist
+rank = int(sys.argv[1])
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", store=dist.FileStore(sys.argv[2], 2),
+                        rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=30))
+x = torch.full((4,), float(rank), device="cuda:0")
+y = torch.empty_like(x)
+for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, 1 - rank),
+                                 dist.P2POp(dist.irecv, y, 1 - rank)]):
+    w.wait()
+torch.cuda.synchronize()
+print("received", y.tolist())
+"""
 # H100 SXM, NVIDIA's data sheet: HBM bytes/s and dense peak ops/s by type
 # The voice chat (run_voice_chat): the app's TTS sampler defaults, and
 # sentences of VOICE_SENTENCE_MS (35 frames) so that six context segments
@@ -2804,6 +2852,402 @@ def check_training_vs_plain(dev) -> None:
                              "disagrees with the masked sdpa")
 
 
+# --- parallel fine-tuning: meshes, DP and FSDP, ring attention, pipeline ----
+
+
+def par_trainer(args, dev, out_dir: str, mesh=None,
+                sharding: str = "replicated"):
+    """A full-SFT trainer (remat, AdamW PAR_LR / 1e-4, clipping at 1) on a
+    fresh CSM-1B bf16 of the phase's seed: every rank and every mode
+    starts from the same parameters. Its `held` is the memory allocated
+    before it was made, which its peak leaves out."""
+    held = torch.cuda.memory_allocated(dev)
+    model = random_csm(args, torch.bfloat16, dev, SEED + 90)
+    return ft.CSMTrainer(ft.TrainArgs(
+        model=model, optimizer=ft.build_optimizer("adamw", PAR_LR, 1e-4),
+        output_dir=out_dir, ckpt_freq=0, gradient_checkpointing=True,
+        learning_rate=PAR_LR, mesh=mesh, param_sharding=sharding)), held
+
+
+def par_steps(tr, held: int, batch) -> dict:
+    """PAR_STEPS steps: losses, ms a step, kernels 6 and 7 launches a step,
+    the peak above `held` (the trainer's model, optimizer state and step;
+    not what was allocated before the trainer was made), and the bytes the
+    rank stores for the parameters and the AdamW state (its shards under
+    FSDP)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = flash_counts()
+    losses, ms = timed_steps(tr, batch, PAR_STEPS)
+    launches = [(a - b) / PAR_STEPS for a, b in zip(flash_counts(), before)]
+    stored = sum(t.nbytes for t in tree_to_flat(tr.model.params).values()) \
+        + sum(v.nbytes for st in tr.optimizer.state.values()
+              for v in st.values() if torch.is_tensor(v))
+    return dict(losses=losses, ms=ms, launches=launches,
+                peak=(torch.cuda.max_memory_allocated() - held) / 2 ** 30,
+                stored=stored / 2 ** 30)
+
+
+def update_errors(params, ref, init) -> tuple:
+    """How far the update params - init is from the reference update
+    ref - init, as ||got - want|| / ||want||: over every leaf together,
+    and the worst weight matrix (ndim >= 2) with its name. 1-D leaves (the
+    norms, ~1.0: ulp 7.8e-3) barely move at PAR_LR; they count in the
+    whole only."""
+    got, want, before = (tree_to_flat(t) for t in (params, ref, init))
+    num = den = worst = 0.0
+    worst_name = ""
+    for name, w0 in before.items():
+        d_want = want[name].detach().float() - w0.float()
+        diff = float((got[name].detach().float()
+                      - want[name].detach().float()).norm()) ** 2
+        size = float(d_want.norm()) ** 2
+        num, den = num + diff, den + size
+        if w0.dim() >= 2 and (diff / max(size, 1e-30)) ** 0.5 > worst:
+            worst, worst_name = (diff / max(size, 1e-30)) ** 0.5, name
+    return (num / den) ** 0.5, worst, worst_name
+
+
+def ring_check(mesh, dev, dtype) -> dict:
+    """ring_sdpa on this rank's blocks of a (1, 32, 2048, 64) causal
+    attention (8 kv heads) against the plain causal attention (fp32 sdpa
+    on the same inputs), forward and backward of sum(o ** 2): each largest
+    error over the largest magnitude, and ms of the ring's forward and
+    backward."""
+    b, h, s, hkv, d = RING_SHAPE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 95)
+    q, k, v = (torch.randn(b, heads, s, d, generator=gen, device=dev)
+               .to(dtype) for heads in (h, hkv, hkv))
+    scale = d ** -0.5
+    blocks = [parallel.shard_sequence(t, mesh).detach().requires_grad_(True)
+              for t in (q, k, v)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o = parallel.ring_sdpa(*blocks, scale, mesh)
+    (o.float() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    full = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    ref = attention.sdpa(*full, scale, attention.causal_mask_bias(
+        s, s, device=dev)[None, None])
+    (ref ** 2).sum().backward()
+
+    def rel(got, want):
+        want = parallel.shard_sequence(want.detach(), mesh)
+        return ((got.float() - want).abs().max()
+                / want.abs().max()).item()
+
+    return dict(fwd=rel(o, ref), grads=[rel(g.grad, w.grad) for g, w in
+                                        zip(blocks, full)], ms=ms)
+
+
+def pipeline_check(mesh, dev, model) -> dict:
+    """pipeline_forward over the CSM-1B backbone's 16 layers (bf16, the
+    mesh's stages, PIPE_MICRO microbatches of PIPE_B rows of S - 1 = 575)
+    against llama_forward: the largest error over the largest magnitude,
+    and the pipeline's ms."""
+    cfg = model.args.backbone_config
+    s = TRAIN_S - 1
+    n_stages = parallel.mesh.axis_sizes(mesh)["pipe"]
+    stacked = parallel.shard_pipeline_params(parallel.stack_pipeline_params(
+        model.params["backbone"]["layers"], n_stages), mesh)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 96)
+    x = torch.randn(PIPE_B, s, cfg.hidden_size, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    cos, sin = rope_cache_for(cfg, s, dev)
+    pos = torch.arange(s, device=dev)[None]
+    bias = attention.causal_mask_bias(s, s, device=dev)[None, None]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = parallel.pipeline_forward(
+            stacked, cfg, x, cos, sin, pos, bias, mesh, PIPE_MICRO,
+            norm=model.params["backbone"]["norm"])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        want, _ = llama_forward(model.params["backbone"], cfg, x, cos, sin,
+                                pos, bias, None)
+    err = ((got.float() - want.float()).abs().max()
+           / want.float().abs().max()).item()
+    return dict(err=err, ms=ms, stages=n_stages,
+                layers=cfg.num_hidden_layers)
+
+
+def gloo_p2p_probe(workdir: str) -> dict:
+    """Two processes on cuda:0 over gloo try one `batch_isend_irecv` of a
+    CUDA tensor (the ring's and the pipeline's collective; `send`/`recv`
+    take the same path): their exit codes and gloo's error lines."""
+    store = f"{workdir}/p2p-store"
+    procs = [subprocess.Popen([sys.executable, "-c", P2P_PROBE, str(r),
+                               store], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, cwd=ROOT)
+             for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=90))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            outs.append(p.communicate())
+    errors = sorted({line.strip() for _, err in outs
+                     for line in err.splitlines()
+                     if "gloo" in line or "Connection closed" in line})
+    return dict(ok=all(p.returncode == 0 and "received" in out
+                       for p, (out, _) in zip(procs, outs)),
+                codes=[p.returncode for p in procs], errors=errors)
+
+
+def parallel_rank(rank: int, n: int, store: str, payload: dict,
+                  results) -> None:
+    """One of (b)'s ranks: cuda:0, a gloo group, the kernels the parent
+    built; the mesh-less steps as the reference, a control (the mesh-less
+    trainer on this rank's row only: the steps without the gradient
+    reduce), then PAR_STEPS replicated and FSDP steps on the rank's row of
+    the batch; each run's `update_errors` against the reference. Reports
+    to `results`; a failure reports its traceback."""
+    import traceback
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    try:
+        dev = torch.device(payload["device"])
+        torch.cuda.set_device(dev)
+        lib_before = os.path.exists(payload["lib"])
+        lib = str(_build.build())
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(store, n), rank=rank, world_size=n,
+            timeout=timedelta(minutes=10))
+        mesh = parallel.create_mesh()
+        out = dict(rank=rank, lib_reused=lib_before and lib == payload["lib"])
+        x = torch.ones(64 << 20, dtype=torch.bfloat16, device=dev)
+        rows = torch.empty(2 * x.numel(), dtype=x.dtype, device=dev)
+        for name, fn in (("all_reduce", lambda: dist.all_reduce(x)),
+                         ("all_gather", lambda: dist.all_gather_into_tensor(
+                             rows, x))):
+            fn()  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out[f"{name}_ms"] = 1e3 * (time.perf_counter() - t0)
+        del x, rows
+        args = csm_1b()
+        batch = payload["batch"]
+        ref, _ = par_trainer(args, dev, f"{payload['dir']}/b-ref{rank}")
+        init = map_params(lambda t: t.clone(), ref.model.params)
+        out["ref_losses"] = [ref.train_step(batch)
+                             for _ in range(PAR_STEPS)]
+        ref_params = ref.model.params
+        del ref
+        torch.cuda.empty_cache()
+        own_row = {k: v[rank:rank + 1] for k, v in batch.items()}
+        ctl, _ = par_trainer(args, dev, f"{payload['dir']}/b-ctl{rank}")
+        for _ in range(PAR_STEPS):
+            ctl.train_step(own_row)
+        out["control"] = update_errors(ctl.model.params, ref_params, init)
+        del ctl
+        torch.cuda.empty_cache()
+        for mode in ("replicated", "fsdp"):
+            tr, held = par_trainer(
+                args, dev, f"{payload['dir']}/b-{mode}{rank}", mesh, mode)
+            out[mode] = par_steps(tr, held, batch)
+            out[mode]["errors"] = update_errors(tr.full_params(), ref_params,
+                                                init)
+            del tr
+            torch.cuda.empty_cache()
+        dist.destroy_process_group()
+        results.put(out)
+    except BaseException:  # the parent fails the phase with it
+        results.put(dict(rank=rank, error=traceback.format_exc()))
+
+
+def run_parallel(dev, workdir: str) -> dict:
+    """The parallel fine-tuning path, CSM-1B bf16 full SFT, B=2, S=576,
+    remat, at full width and depth.
+
+    (a) One rank on NCCL in this process (`create_mesh()` over a one-rank
+    group the script makes): PAR_STEPS replicated and PAR_STEPS FSDP
+    steps, each from the same parameters; losses and updated parameters
+    must be bit-equal to the mesh-less trainer's (every collective a
+    one-rank copy). Then the paths that send point to point, which gloo
+    cannot carry for CUDA tensors (`gloo_p2p_probe`, printed), on the NCCL
+    rank: ring attention at (1, 32, 2048, 64) fp32 and bf16, forward and backward,
+    against the plain causal attention, and the 16-layer pipeline against
+    `llama_forward`.
+    (b) Two ranks spawned on the one card over gloo (NCCL refuses two
+    ranks on one GPU): each loads the kernels built here, runs the
+    mesh-less reference, then the replicated and the FSDP steps on its
+    row; losses within PAR_LOSS_RTOL and every weight matrix's update
+    within PAR_UPDATE_TOL of the reference's (bf16 GEMMs of one row, the
+    gradient sum in another order), while a control without the gradient
+    reduce (each rank's own row) must fall outside it; and the parameter
+    and AdamW bytes each rank stores."""
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp
+
+    args = csm_1b()
+    batch = train_batch(args, TRAIN_B, TRAIN_S, SEED + 91)
+    info = card_info()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    mesh = parallel.create_mesh()
+    ref, held = par_trainer(args, dev, f"{workdir}/a-ref")
+    ref_run = par_steps(ref, held, batch)
+    ref_model = ref.model
+    del ref
+    torch.cuda.empty_cache()
+    reset_counts()
+    runs = {}
+    for mode in ("replicated", "fsdp"):
+        tr, held = par_trainer(args, dev, f"{workdir}/a-{mode}", mesh, mode)
+        runs[mode] = par_steps(tr, held, batch)
+        full = tr.full_params()
+        runs[mode]["bit_equal"] = (
+            runs[mode]["losses"] == ref_run["losses"]
+            and all(torch.equal(a, b) for a, b in zip(
+                tree_to_flat(full).values(),
+                tree_to_flat(ref_model.params).values())))
+        del tr, full
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    launches = (counts["flash_train_fwd"], counts["flash_train_bwd"])
+    for label, r in [("mesh-less", ref_run)] + list(runs.items()):
+        log(f"parallel (a) one NCCL rank, {label}, CSM-1B bf16 full SFT "
+            f"B={TRAIN_B} S={TRAIN_S} remat ({info}): losses "
+            + ", ".join(repr(x) for x in r["losses"]) + "; ms a step "
+            + ", ".join(f"{x:.1f}" for x in r["ms"]) + f"; peak "
+            f"{r['peak']:.2f} GiB above what was held before; parameters + "
+            f"AdamW stored "
+            f"{r['stored']:.2f} GiB; kernel 6 {r['launches'][0]:.0f}, "
+            f"kernel 7 {r['launches'][1]:.0f} launches a step"
+            + (f"; losses and parameters bit-equal to the mesh-less "
+               f"trainer {r['bit_equal']}" if "bit_equal" in r else ""))
+    if not all(r["bit_equal"] for r in runs.values()):
+        raise AssertionError("a one-rank mesh step is not bit-equal to the "
+                             "mesh-less trainer's")
+    if launches != (2 * PAR_STEPS * 2 * args.backbone_config
+                    .num_hidden_layers, 2 * PAR_STEPS * args.backbone_config
+                    .num_hidden_layers):
+        raise AssertionError(f"kernels 6 and 7 launches {launches} in the "
+                             f"mesh steps")
+
+    p2p = gloo_p2p_probe(workdir)
+    log(f"gloo point-to-point on CUDA tensors (batch_isend_irecv, two "
+        f"processes on cuda:0): {'passes' if p2p['ok'] else 'fails'}, exit "
+        f"codes {p2p['codes']}; gloo's error: "
+        + (" | ".join(p2p["errors"]) or "none"))
+    # the ring and the pipeline send point to point: one NCCL rank
+    one = {f"ring {dtype}": ring_check(parallel.create_mesh({"seq": 1}),
+                                       dev, dtype)
+           for dtype in (torch.float32, torch.bfloat16)}
+    one["pipeline"] = pipeline_check(parallel.create_mesh({"pipe": 1}), dev,
+                                     ref_model)
+    del ref_model
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+    ctx = tmp.get_context("spawn")
+    results = ctx.Queue()
+    payload = dict(batch=batch, lib=str(_build.build()), dir=workdir,
+                   device=str(dev))
+    procs = [ctx.Process(target=parallel_rank,
+                         args=(r, 2, f"{workdir}/b-store", payload, results))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    ranks = {}
+    deadline = time.monotonic() + PAR_TIMEOUT_S
+    try:
+        while len(ranks) < 2 and time.monotonic() < deadline:
+            try:
+                r = results.get(timeout=5)
+            except __import__("queue").Empty:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+                continue
+            ranks[r["rank"]] = r
+            if "error" in r:
+                break
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    bad = [r["error"] for r in ranks.values() if "error" in r]
+    if bad or len(ranks) < 2:
+        raise AssertionError("parallel (b) failed: "
+                             f"{[p.exitcode for p in procs]}\n" + "\n".join(bad))
+    for r in (ranks[0], ranks[1]):
+        if r["ref_losses"] != ref_run["losses"]:
+            raise AssertionError(f"rank {r['rank']}'s mesh-less reference "
+                                 f"differs from this process's")
+        whole, worst, name = r["control"]
+        r["control_fails"] = whole > PAR_UPDATE_TOL and worst > PAR_UPDATE_TOL
+        log(f"parallel (b) rank {r['rank']}, control: the mesh-less trainer "
+            f"on its own row only (no gradient reduce), AdamW {PAR_LR:g}: "
+            f"update error {whole:.3e} over every leaf, worst matrix "
+            f"{worst:.3e} ({name}) of the reference update (tol "
+            f"{PAR_UPDATE_TOL:g}); fails the gate {r['control_fails']}")
+        for mode in ("replicated", "fsdp"):
+            m = r[mode]
+            loss_rel = max(abs(a - b) / abs(b) for a, b in
+                           zip(m["losses"], ref_run["losses"]))
+            whole, worst, name = m["errors"]
+            m["ok"] = (loss_rel <= PAR_LOSS_RTOL and whole <= PAR_UPDATE_TOL
+                       and worst <= PAR_UPDATE_TOL)
+            log(f"parallel (b) rank {r['rank']} of 2 on cuda:0 over gloo, "
+                f"{mode} ({info}): losses "
+                + ", ".join(repr(x) for x in m["losses"])
+                + f" (rel err {loss_rel:.2e}, tol {PAR_LOSS_RTOL:g}); "
+                f"parameters, AdamW {PAR_LR:g}: update error {whole:.3e} "
+                f"over every leaf, worst matrix {worst:.3e} ({name}) of the "
+                f"reference update (tol {PAR_UPDATE_TOL:g}); ms a step "
+                + ", ".join(f"{x:.1f}" for x in m["ms"]) + f"; stored "
+                f"parameters + AdamW {m['stored']:.2f} GiB; peak "
+                f"{m['peak']:.2f} GiB above the reference it holds; kernel 6 {m['launches'][0]:.0f}, "
+                f"kernel 7 {m['launches'][1]:.0f} launches a step")
+        log(f"parallel (b) rank {r['rank']}: the parent's kernels reused "
+            f"{r['lib_reused']}; gloo on CUDA, 128 MiB bf16: all_reduce "
+            f"{r['all_reduce_ms']:.1f} ms, all_gather_into_tensor "
+            f"{r['all_gather_ms']:.1f} ms")
+    share = [ranks[r]["fsdp"]["stored"] / ranks[r]["replicated"]["stored"]
+             for r in (0, 1)]
+    log(f"parallel (b): FSDP stores {share[0]:.1%} and {share[1]:.1%} of "
+        f"the replicated parameter and AdamW bytes on ranks 0 and 1")
+    for label, c in one.items():
+        if label.startswith("ring"):
+            dtype = torch.float32 if "float32" in label else torch.bfloat16
+            f_tol, g_tol = RING_TOL[dtype]
+            c["ok"] = c["fwd"] <= f_tol and max(c["grads"]) <= g_tol
+            log(f"{label}, (B, H, S, D) {RING_SHAPE[:3] + RING_SHAPE[4:]}, "
+                f"{RING_SHAPE[3]} kv heads, on one NCCL rank: forward {c['fwd']:.2e} (tol {f_tol:g}), dq dk dv "
+                + ", ".join(f"{x:.2e}" for x in c["grads"])
+                + f" (tol {g_tol:g}) of the plain causal attention's "
+                f"largest magnitude; forward + backward {c['ms']:.1f} ms")
+        else:
+            c["ok"] = c["err"] <= PIPE_TOL
+            log(f"pipeline_forward, CSM-1B backbone {c['layers']} layers bf16, "
+                f"{c['stages']} stage(s), {PIPE_MICRO} microbatches of "
+                f"{PIPE_B // PIPE_MICRO} x {TRAIN_S - 1}, on one NCCL rank: "
+                f"{c['err']:.2e} of llama_forward's largest magnitude (tol "
+                f"{PIPE_TOL:g}); {c['ms']:.1f} ms")
+    if not all(r["control_fails"] for r in ranks.values()):
+        raise AssertionError("the update gate passes a run without the "
+                             "gradient reduce: it cannot tell a wrong one")
+    if not all(r[m]["ok"] for r in ranks.values()
+               for m in ("replicated", "fsdp")) \
+            or not all(c["ok"] for c in one.values()) \
+            or not all(0.45 <= s <= 0.55 for s in share):
+        raise AssertionError("parallel (b), the ring or the pipeline "
+                             "disagrees, or FSDP does not halve the stored "
+                             "bytes")
+    return dict(launches=launches)
+
+
 # --- serving: the continuous engine, the servers, HTTP, the watermark -------
 
 
@@ -4750,6 +5194,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
         training = timed(run_training, dev, workdir)
     timed(check_training_vs_plain, dev)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        par = timed(run_parallel, dev, workdir)
 
     launches = main_path["counts"]
     k3 = frame[1]  # the main path's shape: one row
@@ -4804,11 +5250,13 @@ def main() -> None:
         dict(name="flash_train_fwd", route="cuda",
              source="csm_mlx_tpu_torch/csrc/flash_train.cu",
              replaces="csm_mlx_tpu/ops/flash_train.py:88",
-             launches=training["launches"][0], **flash_tr["fwd"]),
+             launches=training["launches"][0],
+             parallel_launches=par["launches"][0], **flash_tr["fwd"]),
         dict(name="flash_train_bwd", route="cuda",
              source="csm_mlx_tpu_torch/csrc/flash_train.cu",
              replaces="csm_mlx_tpu/ops/flash_train.py:126",
-             launches=training["launches"][1], **flash_tr["bwd"]),
+             launches=training["launches"][1],
+             parallel_launches=par["launches"][1], **flash_tr["bwd"]),
     ]
     log(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     log(card_info())  # again beside the results: the build log is long

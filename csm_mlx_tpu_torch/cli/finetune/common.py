@@ -9,8 +9,10 @@ defaults.
   two commands' `TrainArgs` fields come from `common_train_args`.
 - Weights come from `--pretrained-path` only: without it the command exits
   naming the flag (nothing is downloaded).
-- `--data-parallel` and `--fsdp` exit: parallelism is not ported (ROADMAP
-  queue 1, item 12).
+- `--data-parallel` and `--fsdp` train over every rank of a `torchrun`
+  launch (`make_mesh_if_requested`: one process a GPU, NCCL); `--fsdp`
+  also shards the parameters and AdamW state. Rank 0 writes the
+  checkpoints and the final weights.
 - The dataset's audio is encoded by the codec singleton on the model's
   device (`CSM_TPU_MIMI_WEIGHTS`).
 """
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 from pathlib import Path
+from typing import Optional
 
 from csm_mlx_tpu_torch.cli.config import MODEL
 
@@ -62,11 +65,10 @@ def add_common_train_flags(p: argparse.ArgumentParser) -> None:
                    help="Fraction of frame positions for the decoder loss "
                         "(Sesame compute amortization; 1.0 = full)")
     p.add_argument("--data-parallel", action="store_true", default=False,
-                   help="Shard the batch over all local devices (not "
-                        "ported: exits)")
+                   help="Shard the batch over all local devices")
     p.add_argument("--fsdp", action="store_true", default=False,
                    help="Also shard parameter + optimizer-state storage "
-                        "over the devices (not ported: exits)")
+                        "over the devices (ZeRO-3; implies --data-parallel)")
 
 
 def add_mode_parsers(p: argparse.ArgumentParser, kind: str, add_flags,
@@ -87,14 +89,16 @@ def add_mode_parsers(p: argparse.ArgumentParser, kind: str, add_flags,
 
 def run_mode(args: argparse.Namespace, train) -> None:
     """Load the model (and, for KTO, its frozen reference, a second load)
-    and `train(args, model, reference)`."""
-    refuse_parallel(args)
+    and `train(args, model, reference, mesh)`. With a parallel flag the
+    mesh comes first: its process group selects this rank's GPU, where the
+    weights load."""
+    mesh = make_mesh_if_requested(args)
     model = load_model(args)
     reference = None
     if args.mode == "kto":
         print("Building frozen reference model...")
         reference = load_model(args)
-    train(args, model, reference)
+    train(args, model, reference, mesh)
 
 
 def mode_trainer(args: argparse.Namespace, fields: dict, reference=None):
@@ -109,13 +113,23 @@ def mode_trainer(args: argparse.Namespace, fields: dict, reference=None):
     return getattr(trainer, trainer_cls)(getattr(trainer, args_cls)(**fields))
 
 
-def refuse_parallel(args: argparse.Namespace) -> None:
-    """Exit before loading anything when a parallel flag is set."""
-    for flag in ("data_parallel", "fsdp"):
-        if getattr(args, flag, False):
-            raise SystemExit(
-                f"finetune: --{flag.replace('_', '-')}: parallelism is not "
-                f"ported yet (ROADMAP queue 1, item 12)")
+def make_mesh_if_requested(args: argparse.Namespace,
+                           devices: Optional[str] = None):
+    """A "data" mesh over every rank when --data-parallel or --fsdp is set,
+    else None (JAX's). On the card (`devices` None) this initialises the
+    process group from `torchrun`'s environment (NCCL, this rank's GPU: a
+    run without `torchrun` is one rank); `devices="cpu"` makes it a mesh
+    of CPU ranks over gloo (`parallel.create_mesh`)."""
+    if not (getattr(args, "data_parallel", False)
+            or getattr(args, "fsdp", False)):
+        return None
+    from csm_mlx_tpu_torch.parallel import create_mesh
+
+    return create_mesh(devices=devices)
+
+
+def param_sharding_mode(args: argparse.Namespace) -> str:
+    return "fsdp" if getattr(args, "fsdp", False) else "replicated"
 
 
 def load_model(args: argparse.Namespace):
@@ -136,11 +150,13 @@ def load_model(args: argparse.Namespace):
                                        device=resolve_device()))
 
 
-def common_train_args(args: argparse.Namespace, model, trainable_filter
-                      ) -> dict:
+def common_train_args(args: argparse.Namespace, model, trainable_filter,
+                      mesh=None) -> dict:
     """The `TrainArgs` fields the flags set, over `model`: the optimizer
     of `--optimizer`, `--lr` and `--wd` (`finetune.trainer.build_optimizer`)
-    and the given trainable-path filter."""
+    and the given trainable-path filter; the run's mesh
+    (`make_mesh_if_requested`, None for one process) and the parameter
+    sharding of the parallel flags."""
     from csm_mlx_tpu_torch.finetune.trainer import build_optimizer
 
     return dict(
@@ -155,6 +171,8 @@ def common_train_args(args: argparse.Namespace, model, trainable_filter
         log_freq=args.log_freq,
         learning_rate=args.learning_rate,
         decoder_loss_fraction=args.decoder_loss_fraction,
+        mesh=mesh,
+        param_sharding=param_sharding_mode(args),
         trainable_filter=trainable_filter,
     )
 

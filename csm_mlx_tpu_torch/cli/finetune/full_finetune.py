@@ -2,7 +2,7 @@
 `csm_mlx_tpu/cli/finetune/full_finetune.py`), with the JAX CLI's flags and
 defaults. `run` loads the model (and KTO's frozen reference, a second
 load); `train` trains a model in hand and saves
-`final_model.safetensors`."""
+`final_model.safetensors` (rank 0, under --data-parallel / --fsdp)."""
 
 from __future__ import annotations
 
@@ -49,18 +49,22 @@ def run(args: argparse.Namespace) -> None:
     run_mode(args, train)
 
 
-def train(args: argparse.Namespace, model, reference=None) -> None:
+def train(args: argparse.Namespace, model, reference=None,
+          mesh=None) -> None:
     """`args.mode` on `model`; `reference`: KTO's frozen model the policy
-    is scored against."""
+    is scored against; `mesh`: the run's (`make_mesh_if_requested`)."""
     os.makedirs(args.output_dir, exist_ok=True)
     trainer = mode_trainer(
-        args, common_train_args(args, model, _freeze_filter(args)),
+        args, common_train_args(args, model, _freeze_filter(args), mesh),
         reference)
     dataset = load_dataset(args, model)
     print(f"Starting training for {args.epochs} epochs, batch size "
           f"{args.batch_size}")
     trainer.train(dataset=dataset, batch_size=args.batch_size,
                   epochs=args.epochs)
+    model.params = trainer.full_params()  # FSDP: every rank gathers
+    if not trainer.is_writer:
+        return
     print("\nTraining complete!")
     final = args.output_dir / "final_model.safetensors"
     print(f"Saving final model weights to {final}...")

@@ -2,9 +2,9 @@
 `csm_mlx_tpu/cli/finetune/lora_finetune.py`), with the JAX CLI's flags and
 defaults: LoRA (or DoRA) layers on the targets, `adapter_config.json` and,
 after training, `adapters.safetensors` in `--output-dir`, which
-`load_adapters` reads back. `run` loads the model (and KTO's frozen
-reference, a second load, before the adapters); `train` trains a model
-in hand."""
+`load_adapters` reads back (rank 0 writes them, under --data-parallel /
+--fsdp). `run` loads the model (and KTO's frozen reference, a second
+load, before the adapters); `train` trains a model in hand."""
 
 from __future__ import annotations
 
@@ -62,36 +62,45 @@ def _apply_lora(args, model):
     }
     linear_to_lora_layers(model, config=lora_config, use_dora=args.use_dora)
 
+    if args.train_embeddings:
+        def flt(path: str) -> bool:
+            return trainable_filter(path) or path in (
+                "text_embeddings.weight", "audio_embeddings.weight")
+        return flt, lora_config
+    return trainable_filter, lora_config
+
+
+def _write_adapter_config(args, lora_config: dict) -> None:
     os.makedirs(args.output_dir, exist_ok=True)
     with open(os.path.join(args.output_dir, "adapter_config.json"), "w") as f:
         json.dump({"lora_parameters": lora_config,
                    "fine_tune_type": "dora" if args.use_dora else "lora"},
                   f, indent=2)
 
-    if args.train_embeddings:
-        def flt(path: str) -> bool:
-            return trainable_filter(path) or path in (
-                "text_embeddings.weight", "audio_embeddings.weight")
-        return flt
-    return trainable_filter
-
 
 def run(args: argparse.Namespace) -> None:
     run_mode(args, train)
 
 
-def train(args: argparse.Namespace, model, reference=None) -> None:
+def train(args: argparse.Namespace, model, reference=None,
+          mesh=None) -> None:
     """`args.mode` on `model` with adapters on its targets; `reference`:
-    KTO's frozen model from before the adapters. Only the adapters are
-    checkpointed and saved."""
+    KTO's frozen model from before the adapters; `mesh`: the run's
+    (`make_mesh_if_requested`). Only the adapters are checkpointed and
+    saved."""
     from csm_mlx_tpu_torch.finetune.lora import save_adapter_weights
 
-    flt = _apply_lora(args, model)
+    flt, lora_config = _apply_lora(args, model)
     trainer = mode_trainer(
-        args, dict(common_train_args(args, model, flt),
+        args, dict(common_train_args(args, model, flt, mesh),
                    only_save_trainable_params=True), reference)
+    if trainer.is_writer:
+        _write_adapter_config(args, lora_config)
     trainer.train(dataset=load_dataset(args, model),
                   batch_size=args.batch_size, epochs=args.epochs)
+    model.params = trainer.full_params()  # FSDP: every rank gathers
+    if not trainer.is_writer:
+        return
     print("\nTraining complete!")
     final = args.output_dir / "adapters.safetensors"
     print(f"Saving final adapter weights to {final}...")

@@ -13,7 +13,15 @@ Per batch of (B, S, 33) frame tokens with input masks and loss masks:
 `decoder_loss_fraction` < 1 trains the decoder on a random subset of frame
 rows, drawn from `generator`. `per_sample=True` returns (B,) losses for
 DPO/KTO; `cause_mismatch=True` rolls the targets by one frame (the KTO KL
-proxy). The backbone takes the flash-attention kernels
+proxy).
+
+`data_group` makes the batch one rank's rows of a global batch split over
+the ranks of a process group in order, equally (the trainers' "data"
+axis): each masked mean then divides this rank's sum by the global count
+(an all-reduce), so that the losses of the ranks add up to the global
+batch's, and their gradients, summed, to its gradient; the decoder's rows
+are drawn over the global rows, from the same generator state on every
+rank. The backbone takes the flash-attention kernels
 (`ops.flash_train`) when S - 1 >= `flash_min_len` (0 disables them): the
 JAX package reads that threshold from CSM_TPU_FLASH_TRAIN, the port takes
 it as an argument, with the same default.
@@ -24,6 +32,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from csm_mlx_tpu_torch.models.csm import ModelArgs, embed_tokens
 from csm_mlx_tpu_torch.models.llama import llama_forward
@@ -42,12 +51,16 @@ def _cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return logz - picked
 
 
-def _masked_mean(values: torch.Tensor, mask: torch.Tensor,
-                 dim=None) -> torch.Tensor:
+def _masked_mean(values: torch.Tensor, mask: torch.Tensor, dim=None,
+                 group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """Safe masked mean; with `group`, over the group's ranks' values
+    together (this rank's sum over the global count)."""
     m = mask.float()
-    if dim is None:
-        return (values * m).sum() / torch.clamp(m.sum(), min=1e-9)
-    return (values * m).sum(dim=dim) / torch.clamp(m.sum(dim=dim), min=1e-9)
+    num = (values * m).sum() if dim is None else (values * m).sum(dim=dim)
+    den = m.sum() if dim is None else m.sum(dim=dim)
+    if group is not None:
+        dist.all_reduce(den, group=group)
+    return num / torch.clamp(den, min=1e-9)
 
 
 def compute_loss(
@@ -62,13 +75,17 @@ def compute_loss(
     remat: bool = False,
     generator: Optional[torch.Generator] = None,
     flash_min_len: int = FLASH_MIN_LEN,
+    data_group: Optional[dist.ProcessGroup] = None,
 ) -> torch.Tensor:
     """The loss of one batch: a scalar, or (B,) with `per_sample`.
 
     batch: "tokens", "masks", "loss_masks", each (B, S, 33) integer tensors
     on the params' device, and optionally a per-batch
-    "first_codebook_weight_multiplier".
+    "first_codebook_weight_multiplier". `data_group`: this rank's share of
+    a global batch's loss (module docstring); per-sample losses are per
+    row and take no group.
     """
+    group = None if per_sample else data_group
     tokens = batch["tokens"].long()
     masks = batch["masks"]
     loss_masks = batch["loss_masks"]
@@ -109,7 +126,7 @@ def compute_loss(
     if per_sample:
         c0_loss = _masked_mean(c0_ce, valid[:, :, 0], dim=-1) * fcw
     else:
-        c0_loss = _masked_mean(c0_ce, valid[:, :, 0]) * fcw
+        c0_loss = _masked_mean(c0_ce, valid[:, :, 0], group=group) * fcw
     total = c0_loss / n_cb
 
     # ---- teacher-forced decoder over frame rows ------------------------
@@ -123,7 +140,6 @@ def compute_loss(
     row_targets = target_tokens.reshape(n_rows, n_cb)
 
     if decoder_loss_fraction < 1.0:
-        k = max(int(n_rows * decoder_loss_fraction), 1)
         if generator is None:
             # a fixed subsample would never train the other rows
             raise ValueError(
@@ -134,8 +150,15 @@ def compute_loss(
             raise ValueError(
                 "decoder_loss_fraction < 1.0 is incompatible with per-sample "
                 "losses (DPO/KTO)")
-        perm = torch.randperm(n_rows, generator=generator,
-                              device=generator.device)[:k].to(device)
+        n_ranks, rank = (1, 0) if group is None else \
+            (dist.get_world_size(group), dist.get_rank(group))
+        k = max(int(n_rows * n_ranks * decoder_loss_fraction), 1)
+        perm = torch.randperm(n_rows * n_ranks, generator=generator,
+                              device=generator.device)[:k]
+        if group is not None:  # the drawn rows that are this rank's
+            perm = perm[(perm >= rank * n_rows)
+                        & (perm < (rank + 1) * n_rows)] - rank * n_rows
+        perm = perm.to(device)
         dec_in, row_valid, row_targets = (dec_in[perm], row_valid[perm],
                                           row_targets[perm])
 
@@ -160,5 +183,5 @@ def compute_loss(
         per_cb = _masked_mean(ci_ce.reshape(n_cb - 1, b, s - 1),
                               vmask.reshape(n_cb - 1, b, s - 1), dim=-1)
         return total + per_cb.sum(dim=0) / n_cb  # (B,)
-    per_cb = _masked_mean(ci_ce, vmask, dim=-1)  # (K-1,)
+    per_cb = _masked_mean(ci_ce, vmask, dim=-1, group=group)  # (K-1,)
     return total + per_cb.sum() / n_cb

@@ -21,8 +21,18 @@
   newest committed step.
 - `gradient_checkpointing` recomputes every layer in the backward pass
   (`torch.utils.checkpoint`).
-
-Not ported: the mesh / FSDP options (ROADMAP queue 1, item 12).
+- `mesh` (a `parallel.create_mesh` DeviceMesh; JAX's `TrainArgs.mesh`)
+  trains data-parallel, one process per rank: every rank gets the same
+  global batch, pads a ragged one by cycling rows as JAX does, and runs
+  its own rows (`_DataAxis`). Each masked mean of the loss, and DPO's and
+  KTO's batch means, divide by the global count, so the ranks' gradients
+  sum to the global batch's; they are all-reduced by sum
+  (`param_sharding="replicated"`), or, with "fsdp", reduce-scattered to
+  the shards in which parameters and optimizer state are stored
+  (`parallel.mesh.fsdp_leaf_spec`), gathered whole for each step. The
+  clipping norm is global. Checkpoints hold the whole tensors, written by
+  rank 0 alone, so a run resumes at any world size; logs come from rank
+  0. Only the "data" axis may exceed 1.
 """
 
 from __future__ import annotations
@@ -34,10 +44,11 @@ import re
 import threading
 from dataclasses import asdict, dataclass
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from csm_mlx_tpu_torch import safetensors_io
@@ -50,6 +61,10 @@ from csm_mlx_tpu_torch.finetune.loss import FLASH_MIN_LEN, compute_loss
 from csm_mlx_tpu_torch.loaders import params_to_reference_flat, tree_to_flat
 from csm_mlx_tpu_torch.models.csm import CSM
 from csm_mlx_tpu_torch.ops.layers import lora_dropout_rng
+from csm_mlx_tpu_torch.parallel.mesh import (P, all_gather_leaf, axis_sizes,
+                                             fsdp_leaf_spec,
+                                             is_main_rank, local_shard,
+                                             map_tree, reduce_scatter_leaf)
 
 OptimizerFactory = Callable[[List[torch.Tensor]], torch.optim.Optimizer]
 
@@ -87,6 +102,11 @@ class TrainArgs:
     only_save_trainable_params: bool = False
     decoder_loss_fraction: float = 1.0
     learning_rate: Optional[float] = None  # for state reporting only
+    mesh: Optional[Any] = None  # parallel.create_mesh: data parallelism
+    # "replicated": parameters and optimizer state whole on every rank,
+    # gradients all-reduced; "fsdp": both stored as this rank's shard
+    # (ZeRO-3), gathered for a step, gradients reduce-scattered
+    param_sharding: str = "replicated"
     trainable_filter: Optional[Callable[[str], bool]] = None  # LoRA
     flash_min_len: int = FLASH_MIN_LEN  # see finetune.loss
     checkpoint_backend: str = "safetensors"  # or "orbax" (async saves)
@@ -137,6 +157,112 @@ class History:
 
 
 # ---------------------------------------------------------------------------
+# The data axis
+# ---------------------------------------------------------------------------
+
+
+class _DataAxis:
+    """A trainer's share of the mesh's "data" axis: this rank's rows of the
+    global batch, the sums across ranks, and under FSDP the shards (specs
+    by flat parameter name, `fsdp_leaf_spec` of the whole tensor)."""
+
+    def __init__(self, mesh, param_sharding: str):
+        if param_sharding not in ("replicated", "fsdp"):
+            raise ValueError(f"param_sharding must be 'replicated' or "
+                             f"'fsdp', not {param_sharding!r}")
+        sizes = axis_sizes(mesh)
+        others = {a: n for a, n in sizes.items() if a != "data" and n > 1}
+        if "data" not in sizes or others:
+            raise ValueError(
+                f"the trainers shard the batch over a mesh's 'data' axis "
+                f"only (JAX's trainer replicates parameters over the "
+                f"others); got {sizes}")
+        self.mesh = mesh
+        self.group = mesh.get_group("data")
+        self.n = sizes["data"]
+        self.rank = mesh.get_local_rank("data")
+        self.fsdp = param_sharding == "fsdp"
+        self.specs: Dict[str, P] = {}
+
+    def rows(self, batch: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        """This rank's rows of the global batch. A batch that the axis
+        does not divide (an epoch's ragged last one) is padded by cycling
+        its rows, as JAX pads it: <= n - 1 samples count twice."""
+        batch = {k: np.asarray(v) for k, v in batch.items()}
+        b = next(iter(batch.values())).shape[0]
+        if b % self.n:
+            idx = np.resize(np.arange(b), b + self.n - b % self.n)
+            batch = {k: v[idx] for k, v in batch.items()}
+            b = len(idx)
+        step = b // self.n
+        return {k: v[self.rank * step:(self.rank + 1) * step]
+                for k, v in batch.items()}
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """t summed over the ranks, in place."""
+        dist.all_reduce(t, group=self.group)
+        return t
+
+    def spec(self, name: str) -> P:
+        return self.specs.get(name, P())
+
+    def shard(self, params: Any) -> Any:
+        """Under FSDP this rank's shards of a params tree (specs recorded
+        by name); else the tree itself."""
+        if not self.fsdp:
+            return params
+
+        def one(name, x):
+            if not torch.is_tensor(x):
+                return x
+            self.specs[name] = fsdp_leaf_spec(x, self.mesh)
+            return local_shard(x, self.specs[name], self.mesh)
+
+        return map_tree(one, params)
+
+    def gather(self, params: Any) -> Any:
+        """The whole tensors of a tree of this rank's shards, as new tensors
+        (a collective under FSDP); else the tree itself."""
+        if not self.fsdp:
+            return params
+        return map_tree(lambda name, x: all_gather_leaf(
+            x.detach(), self.spec(name), self.mesh)
+            if torch.is_tensor(x) else x, params)
+
+    def whole(self, name: str, local: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of one shard of parameter `name`, or of its
+        optimizer state (the shard's shape)."""
+        return all_gather_leaf(local, self.spec(name), self.mesh)
+
+    def local(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of a whole tensor of parameter `name`."""
+        return local_shard(whole, self.spec(name), self.mesh)
+
+    def reduce_grads(self, names: List[str], grads: List[torch.Tensor]
+                     ) -> List[torch.Tensor]:
+        """The sum over the ranks of each gradient: whole (replicated), or
+        this rank's shard of it (FSDP)."""
+        if not self.fsdp:
+            return [self.sum(g.contiguous()) for g in grads]
+        return [reduce_scatter_leaf(g, self.spec(n), self.mesh)
+                for n, g in zip(names, grads)]
+
+    def square_sums(self, names: List[str], sq: List[torch.Tensor]
+                    ) -> List[torch.Tensor]:
+        """Per-leaf sums of squared gradients made global: a shard's sum
+        is added over the ranks (one all-reduce), a whole leaf's is
+        already the global one."""
+        idx = [i for i, n in enumerate(names)
+               if self.fsdp and self.spec(n) != P()]
+        if idx:
+            vec = self.sum(torch.stack([sq[i] for i in idx]))
+            sq = list(sq)
+            for j, i in enumerate(idx):
+                sq[i] = vec[j]
+        return sq
+
+
+# ---------------------------------------------------------------------------
 # Checkpointing
 # ---------------------------------------------------------------------------
 
@@ -161,12 +287,18 @@ class CheckpointManager:
     temporary directory renamed to `step_N/orbax`, so a step directory is
     committed whole or not at all. Resume takes the newest committed step,
     its trainer state from the same directory. One save is in flight at a
-    time; `wait()` blocks until it has committed."""
+    time; `wait()` blocks until it has committed.
+
+    With `parallel` (a trainer's data axis) every rank resumes from the
+    files; a save gathers FSDP shards into whole tensors (every rank takes
+    part) and rank 0 alone writes and logs. Resume shards the whole
+    optimizer state again (`attach`)."""
 
     def __init__(self, model: CSM, state: TrainerState, history: History,
                  checkpoint_dir: Path, only_save_trainable_params: bool = False,
                  trainable_filter: Optional[Callable[[str], bool]] = None,
-                 backend: str = "safetensors"):
+                 backend: str = "safetensors",
+                 parallel: Optional[_DataAxis] = None):
         if backend not in ("safetensors", "orbax"):
             raise ValueError(f"unknown checkpoint backend {backend!r}")
         self.model = model
@@ -176,6 +308,8 @@ class CheckpointManager:
         self.only_save_trainable_params = only_save_trainable_params
         self.trainable_filter = trainable_filter
         self.backend = backend
+        self.parallel = parallel
+        self.writer = parallel is None or is_main_rank()
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.named: List[Tuple[str, torch.Tensor]] = []
         self._pending_opt: Optional[Dict[str, torch.Tensor]] = None
@@ -195,11 +329,22 @@ class CheckpointManager:
             self._restore_opt(self._pending_opt)
             self._pending_opt = None
 
+    def _log(self, msg: str) -> None:
+        if self.writer:
+            print(msg)
+
+    def _whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of a parameter's (or its state's) shard."""
+        t = t.detach()
+        if self.parallel is None or t.ndim == 0:
+            return t
+        return self.parallel.whole(name, t)
+
     def _weights_flat(self) -> Dict[str, torch.Tensor]:
         flat = params_to_reference_flat(self.model.params)
         if self.only_save_trainable_params and self.trainable_filter:
             flat = {k: v for k, v in flat.items() if self.trainable_filter(k)}
-        return {k: v.detach() for k, v in flat.items()}
+        return {k: self._whole(k, v) for k, v in flat.items()}
 
     def _opt_flat(self) -> Dict[str, torch.Tensor]:
         flat = {}
@@ -208,7 +353,7 @@ class CheckpointManager:
         for name, t in self.named:
             for key, val in self.optimizer.state.get(t, {}).items():
                 if isinstance(val, torch.Tensor):
-                    flat[f"state.{name}.{key}"] = val.detach()
+                    flat[f"state.{name}.{key}"] = self._whole(name, val)
         return flat
 
     def _restore_opt(self, flat: Dict[str, torch.Tensor]) -> None:
@@ -221,8 +366,13 @@ class CheckpointManager:
             state = {}
             for key, val in entries.items():
                 # torch keeps the step count as an fp32 tensor on the CPU
-                state[key] = (val.float().cpu() if key == "step"
-                              else val.to(device=t.device, dtype=t.dtype))
+                if key == "step":
+                    state[key] = val.float().cpu()
+                    continue
+                val = val.to(device=t.device, dtype=t.dtype)
+                if self.parallel is not None and val.ndim:
+                    val = self.parallel.local(name, val)
+                state[key] = val
             self.optimizer.state[t] = state
 
     def _trainer_state(self) -> dict:
@@ -237,6 +387,8 @@ class CheckpointManager:
         trainer_state = self._trainer_state()
         weights = self._weights_flat()
         opt = self._opt_flat()
+        if not self.writer:
+            return
         for root in (self.dir / suffix, self.dir):
             os.makedirs(root, exist_ok=True)
             safetensors_io.save_file(weights, str(root / "latest.safetensors"))
@@ -245,7 +397,7 @@ class CheckpointManager:
                     opt, str(root / "optimizer_state.safetensors"))
             with open(root / "trainer_state.json", "w") as f:
                 json.dump(trainer_state, f, indent=2)
-        print(f"Saved checkpoint (step {self.state.step})")
+        self._log(f"Saved checkpoint (step {self.state.step})")
 
     def _snapshot(self, flat: Dict[str, torch.Tensor]
                   ) -> Dict[str, torch.Tensor]:
@@ -289,6 +441,10 @@ class CheckpointManager:
 
     def _save_async(self):
         self.wait()  # one save in flight at a time
+        # every rank takes part in the gathers of FSDP shards
+        weights, opt = self._weights_flat(), self._opt_flat()
+        if not self.writer:
+            return
         step_root = self.dir / f"step_{self.state.step}"
         os.makedirs(step_root, exist_ok=True)
         # the step's json first: a crash before the tensors commit leaves a
@@ -301,11 +457,11 @@ class CheckpointManager:
         if (step_root / "orbax").exists():
             # a same-step save (the end of an epoch right after a periodic
             # save) would write the same tensors
-            print(f"Checkpoint step {self.state.step} already committed; "
-                  f"refreshed trainer state only")
+            self._log(f"Checkpoint step {self.state.step} already "
+                      f"committed; refreshed trainer state only")
             return
-        weights = self._snapshot(self._weights_flat())
-        opt = self._snapshot(self._opt_flat())
+        weights = self._snapshot(weights)
+        opt = self._snapshot(opt)
         copied = self._copied  # the later one: one stream, in order
 
         def write():
@@ -326,7 +482,7 @@ class CheckpointManager:
         self._writer = threading.Thread(target=write, daemon=True,
                                         name="checkpoint-writer")
         self._writer.start()
-        print(f"Saved checkpoint (step {self.state.step}, orbax async)")
+        self._log(f"Saved checkpoint (step {self.state.step}, orbax async)")
 
     def wait(self):
         """Block until the in-flight asynchronous save has committed; raise
@@ -381,7 +537,7 @@ class CheckpointManager:
                 f"optimizer state. Remove the file to resume the weights "
                 f"alone, or continue with the JAX trainer.")
         self._pending_opt = flat  # applied by attach()
-        print(f"Loaded optimizer state from {opt_path}")
+        self._log(f"Loaded optimizer state from {opt_path}")
 
     def _apply_trainer_state(self, state_path: Path) -> bool:
         if not state_path.exists():
@@ -393,7 +549,7 @@ class CheckpointManager:
         self.state.epoch = ts["epoch"]
         self.state.learning_rate = ts["learning_rate"]
         self.history.state = trainer_state["history"]
-        print(f"Loaded trainer state (step {self.state.step})")
+        self._log(f"Loaded trainer state (step {self.state.step})")
         return True
 
     def _load_async(self) -> bool:
@@ -403,10 +559,10 @@ class CheckpointManager:
                 self.model.load_weights(str(data / "latest.safetensors"),
                                         strict=False)
             except (OSError, ValueError, KeyError) as exc:
-                print(f"[WARN] could not resume from {step_dir}: {exc}; "
-                      f"trying an older checkpoint")
+                self._log(f"[WARN] could not resume from {step_dir}: {exc}; "
+                          f"trying an older checkpoint")
                 continue
-            print(f"Loaded latest run weights from {data}")
+            self._log(f"Loaded latest run weights from {data}")
             if (data / "optimizer_state.safetensors").exists():
                 self._read_opt(data / "optimizer_state.safetensors")
             # the step counter of the same committed step: the run root's
@@ -419,17 +575,17 @@ class CheckpointManager:
         self._check_backend_mismatch()
         if self.backend == "orbax":
             if not self._load_async():
-                print("Trainer state not found. Starting fresh training.")
+                self._log("Trainer state not found. Starting fresh training.")
             return
         weights_path = self.dir / "latest.safetensors"
         opt_path = self.dir / "optimizer_state.safetensors"
         if weights_path.exists():
             self.model.load_weights(str(weights_path), strict=False)
-            print(f"Loaded latest run weights from {weights_path}")
+            self._log(f"Loaded latest run weights from {weights_path}")
         if opt_path.exists():
             self._read_opt(opt_path)
         if not self._apply_trainer_state(self.dir / "trainer_state.json"):
-            print("Trainer state not found. Starting fresh training.")
+            self._log("Trainer state not found. Starting fresh training.")
 
 
 # ---------------------------------------------------------------------------
@@ -452,15 +608,23 @@ class CSMTrainer:
             del self.model.params[k]
         self.state = TrainerState(learning_rate=float(args.learning_rate or 0.0))
         self.history = History()
+        # every rank must hold the same parameters (the same checkpoint or
+        # seed): each builds its own copy
+        self.parallel = (_DataAxis(args.mesh, args.param_sharding)
+                         if args.mesh is not None else None)
         self.checkpointer = CheckpointManager(
             self.model, self.state, self.history, args.output_dir,
             args.only_save_trainable_params, args.trainable_filter,
-            backend=args.checkpoint_backend)
+            backend=args.checkpoint_backend, parallel=self.parallel)
+        self.is_writer = self.checkpointer.writer
         self.checkpointer.load()
+        if self.parallel is not None:
+            self.model.params = self.parallel.shard(self.model.params)
         self.trainable = self._mark_trainable()
         self.optimizer = args.optimizer([t for _, t in self.trainable])
         self.checkpointer.attach(self.optimizer, self.trainable)
-        self._generator = torch.Generator()  # dropout seeds, decoder rows
+        # dropout seeds and decoder rows: the same state on every rank
+        self._generator = torch.Generator()
         self._generator.manual_seed(0)
 
     def _mark_trainable(self) -> List[Tuple[str, torch.Tensor]]:
@@ -470,22 +634,37 @@ class CSMTrainer:
         named = []
         # the frozen floating leaves: their gradients enter the clipping
         # norm (train_step), as in JAX
-        self.frozen: List[torch.Tensor] = []
+        self.frozen: List[Tuple[str, torch.Tensor]] = []
         for name, t in tree_to_flat(self.model.params).items():
             train = t.is_floating_point() and (flt is None or flt(name))
             t.requires_grad_(train)
             if train:
                 named.append((name, t))
             elif t.is_floating_point():
-                self.frozen.append(t)
+                self.frozen.append((name, t))
         if not named:
             raise ValueError("no parameter is trainable")
         return named
 
     # -- loss (overridden by DPO/KTO) -----------------------------------
+    def _dropout_rng(self, generator):
+        """LoRA dropout is live only inside this scope; each rank of a mesh
+        draws its own rows' masks."""
+        return lora_dropout_rng(generator, stream=self.parallel.rank
+                                if self.parallel is not None else 0)
+
+    def _data_group(self):
+        return self.parallel.group if self.parallel is not None else None
+
+    def _batch_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over the global batch of per-row values (this rank's
+        share, under a mesh: its sum over the global row count)."""
+        if self.parallel is None:
+            return x.mean()
+        return x.sum() / (x.shape[0] * self.parallel.n)
+
     def _loss_fn(self, params, batch, generator):
-        # LoRA dropout is live only inside this scope
-        with lora_dropout_rng(generator):
+        with self._dropout_rng(generator):
             return compute_loss(
                 params, self.model.args, batch,
                 first_codebook_weight_multiplier=
@@ -494,11 +673,24 @@ class CSMTrainer:
                 remat=self.args.gradient_checkpointing,
                 generator=generator,
                 flash_min_len=self.args.flash_min_len,
+                data_group=self._data_group(),
             )
 
     def _prepare_batch(self, batch) -> Dict[str, torch.Tensor]:
+        """The step's batch on the model's device: under a mesh, this
+        rank's rows of the global batch."""
+        if self.parallel is not None:
+            batch = self.parallel.rows(batch)
         return {k: torch.as_tensor(np.asarray(v)).to(self.model.device)
                 for k, v in batch.items()}
+
+    def full_params(self) -> Dict[str, Any]:
+        """The model's whole parameters: under FSDP gathered from every
+        rank's shards (a collective: every rank calls it), else the
+        model's own."""
+        if self.parallel is None:
+            return self.model.params
+        return self.parallel.gather(self.model.params)
 
     def train_step(self, batch: Dict[str, np.ndarray]) -> float:
         """One step: loss, gradients of the trainable leaves, clipping,
@@ -507,35 +699,63 @@ class CSMTrainer:
         The clipping norm is JAX's `optax.global_norm` over the gradients
         of every floating parameter: with `max_norm > 0` the frozen leaves
         take gradients for the norm only (never the optimizer), freed once
-        it is taken."""
-        tensors = [t for _, t in self.trainable]
-        frozen = self.frozen if self.args.max_norm > 0 else []
-        for t in frozen:
+        it is taken.
+
+        Under a mesh the step takes this rank's rows of `batch` (the global
+        batch, the same on every rank); the gradients are summed over the
+        ranks (under FSDP into this rank's shards, after a step on the
+        gathered whole tensors) and the norm is the global one. Returns the
+        global batch's loss on every rank."""
+        dp = self.parallel
+        n_train = len(self.trainable)
+        named = self.trainable + (self.frozen if self.args.max_norm > 0
+                                  else [])
+        names = [n for n, _ in named]
+        batch = self._prepare_batch(batch)
+        if dp is not None and dp.fsdp:
+            params = dp.gather(self.model.params)
+            flat = tree_to_flat(params)
+            leaves = [flat[n].requires_grad_(True) for n in names]
+            del flat
+            toggled = []
+        else:
+            params = self.model.params
+            leaves = [t for _, t in named]
+            toggled = leaves[n_train:]
+        for t in toggled:
             t.requires_grad_(True)
         try:
-            loss = self._loss_fn(self.model.params,
-                                 self._prepare_batch(batch), self._generator)
-            grads = torch.autograd.grad(loss, tensors + frozen,
-                                        allow_unused=True)
+            loss = self._loss_fn(params, batch, self._generator)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         finally:
-            for t in frozen:
+            for t in toggled:
                 t.requires_grad_(False)
-        frozen_grads = [g for g in grads[len(tensors):] if g is not None]
         grads = [torch.zeros_like(t) if g is None else g
-                 for t, g in zip(tensors, grads)]
+                 for t, g in zip(leaves, grads)]
+        del params, leaves
+        if dp is not None:
+            grads = dp.reduce_grads(names, grads)
         if self.args.max_norm > 0:
-            gnorm = torch.sqrt(sum(g.float().square().sum()
-                                   for g in grads + frozen_grads))
-            del frozen_grads
+            sq = [g.float().square().sum() for g in grads]
+            if dp is not None:
+                sq = dp.square_sums(names, sq)
+            gnorm = torch.sqrt(sum(sq))
             scale = torch.clamp(self.args.max_norm / (gnorm + 1e-6), max=1.0)
-            for g in grads:
+            for g in grads[:n_train]:
                 g.mul_(scale.to(g.dtype))
-        for t, g in zip(tensors, grads):
+        for (_, t), g in zip(self.trainable, grads):
             t.grad = g
+        del grads  # the frozen leaves' gradients
         self.checkpointer.fence()  # an async save's copies read them first
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
-        return float(loss.detach())
+        loss = loss.detach()
+        if dp is not None:
+            loss = dp.sum(loss.clone())
+        return float(loss)
+
+    def _log(self, msg: str) -> None:
+        self.checkpointer._log(msg)
 
     # -- epoch loop -------------------------------------------------------
     def train(self, dataset, batch_size: int, epochs: int,
@@ -559,7 +779,8 @@ class CSMTrainer:
                 resume_batch_idx = min(start_step - completed,
                                        steps_per_epoch)
         if start_epoch > 0 or resume_batch_idx > 0:
-            print(f"Resuming from Epoch {start_epoch + 1}, Step {start_step + 1}")
+            self._log(f"Resuming from Epoch {start_epoch + 1}, Step "
+                      f"{start_step + 1}")
 
         for epoch in range(start_epoch, epochs):
             indices = np.arange(num_samples)
@@ -572,8 +793,8 @@ class CSMTrainer:
             start_idx = resume_batch_idx if epoch == start_epoch else 0
             remaining = batch_indices[start_idx:]
             if not remaining:
-                print(f"Epoch {epoch + 1} already fully completed in previous "
-                      f"run. Skipping.")
+                self._log(f"Epoch {epoch + 1} already fully completed in "
+                          f"previous run. Skipping.")
                 self.state.epoch = epoch + 1
                 continue
 
@@ -589,16 +810,16 @@ class CSMTrainer:
                         self.state.step % self.args.log_freq == 0:
                     self.history.log(self.state.step, epoch, loss,
                                      self.state.learning_rate)
-                    print(f"Epoch {epoch + 1}/{epochs} step {self.state.step}"
-                          f" loss {loss:.4f}")
+                    self._log(f"Epoch {epoch + 1}/{epochs} step "
+                              f"{self.state.step} loss {loss:.4f}")
                 if self.args.ckpt_freq > 0 and \
                         self.state.step % self.args.ckpt_freq == 0:
                     self.checkpointer.save()
 
-            print(f"Epoch {epoch + 1} average loss: "
+            self._log(f"Epoch {epoch + 1} average loss: "
                   f"{epoch_loss / n_batches:.4f}")
             self.state.epoch = epoch + 1
-            print(f"Completed Epoch {epoch + 1}. Saving checkpoint.")
+            self._log(f"Completed Epoch {epoch + 1}. Saving checkpoint.")
             self.checkpointer.save()
         self.checkpointer.wait()  # commit an in-flight async save
         return self.history
@@ -637,11 +858,11 @@ class DPOTrainer(CSMTrainer):
                       self.args.first_codebook_weight_multiplier,
                   flash_min_len=self.args.flash_min_len)
         args = self.model.args
-        with lora_dropout_rng(generator):
+        with self._dropout_rng(generator):
             chosen = compute_loss(params, args, part("chosen"), **kw)
             rejected = compute_loss(params, args, part("rejected"), **kw)
         margin = -(chosen - rejected) * self.beta
-        return torch.mean(-F.logsigmoid(margin))
+        return self._batch_mean(-F.logsigmoid(margin))
 
 
 # ---------------------------------------------------------------------------
@@ -667,6 +888,12 @@ class KTOTrainer(CSMTrainer):
         self.desirable_weight = args.desirable_weight
         self.undesirable_weight = args.undesirable_weight
         self.reference_model = args.reference_model
+        # the frozen reference takes the policy's placement (JAX
+        # trainer.py:726-736): under FSDP each rank stores its shards, and
+        # the loss gathers them. The caller's model is re-placed in place.
+        if self.parallel is not None:
+            self.reference_model.params = self.parallel.shard(
+                self.reference_model.params)
 
     def _loss_fn(self, params, batch, generator):
         args = self.model.args
@@ -675,13 +902,16 @@ class KTOTrainer(CSMTrainer):
                   first_codebook_weight_multiplier=
                       self.args.first_codebook_weight_multiplier,
                   flash_min_len=self.args.flash_min_len)
-        ref_params = self.reference_model.params
         with torch.no_grad():  # the frozen reference, deterministic
+            ref_params = (self.reference_model.params if self.parallel is None
+                          else self.parallel.gather(
+                              self.reference_model.params))
             kl_reference = compute_loss(ref_params, args, core,
                                         cause_mismatch=True, **kw)
             reference = compute_loss(ref_params, args, core, **kw)
+            del ref_params
         remat = self.args.gradient_checkpointing
-        with lora_dropout_rng(generator):
+        with self._dropout_rng(generator):
             # the KL proxy is a detached baseline: no gradient flows
             # through it, so it runs without one
             with torch.no_grad():
@@ -691,7 +921,10 @@ class KTOTrainer(CSMTrainer):
             policy = compute_loss(params, args, core, remat=remat, **kw)
 
         reward = policy - reference
-        kl = torch.clamp(torch.mean(kl_policy - kl_reference), min=0.0)
+        kl = self._batch_mean(kl_policy - kl_reference)
+        if self.parallel is not None:
+            kl = self.parallel.sum(kl)
+        kl = torch.clamp(kl, min=0.0)
         penalized_reward = reward - kl
 
         preferences = batch["preferences"]
@@ -703,4 +936,4 @@ class KTOTrainer(CSMTrainer):
             + self.undesirable_weight * undesirable
             * (1.0 - torch.sigmoid(-self.beta * penalized_reward))
         )
-        return losses.mean()
+        return self._batch_mean(losses)

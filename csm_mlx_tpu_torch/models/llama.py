@@ -153,6 +153,40 @@ def _attn_layer(
     return linear(p["o_proj"], out), cache
 
 
+def _layer(lp: Params, cfg: LlamaConfig, x: torch.Tensor, cos, sin,
+           positions, mask_bias, cache: Optional[KVCache], idx: int,
+           **attn) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    attn_out, cache = _attn_layer(
+        lp["self_attn"], cfg, rms_norm(lp["input_layernorm"], x,
+                                       cfg.rms_norm_eps),
+        cos, sin, positions, mask_bias, cache, idx, **attn)
+    x = x + attn_out
+    h = rms_norm(lp["post_attention_layernorm"], x, cfg.rms_norm_eps)
+    return x + swiglu_mlp(lp["mlp"], h), cache
+
+
+def llama_layer(lp: Params, cfg: LlamaConfig, x: torch.Tensor,
+                cos: torch.Tensor, sin: torch.Tensor, positions: torch.Tensor,
+                mask_bias: Optional[torch.Tensor] = None,
+                flash_train: bool = False,
+                remat: bool = False) -> torch.Tensor:
+    """One transformer layer of the training path (full sequence, no KV
+    cache), as `llama_forward` and `parallel.pipeline_forward` run it.
+    remat: the layer runs under `torch.utils.checkpoint` and is recomputed
+    in the backward pass with the LoRA dropout masks of its first run."""
+    if not remat:
+        return _layer(lp, cfg, x, cos, sin, positions, mask_bias, None, 0,
+                      flash_train=flash_train)[0]
+    snapshot = layers.dropout_snapshot()
+
+    def replayed(x):
+        with layers.dropout_replay(snapshot):
+            return _layer(lp, cfg, x, cos, sin, positions, mask_bias, None,
+                          0, flash_train=flash_train)[0]
+
+    return torch.utils.checkpoint.checkpoint(replayed, x, use_reentrant=False)
+
+
 def llama_forward(
     params: Params,
     cfg: LlamaConfig,
@@ -198,32 +232,16 @@ def llama_forward(
             "mask_bias must be None (the kernel applies causal masking "
             "itself; any other mask would be silently ignored)")
 
-    def one_layer(x, lp, idx, cache):
-        attn_out, cache = _attn_layer(
-            lp["self_attn"], cfg,
-            rms_norm(lp["input_layernorm"], x, cfg.rms_norm_eps),
-            cos, sin, positions, mask_bias, cache, idx,
-            flash_pad_len=flash_pad_len, flash_train=flash_train,
-            decode_pad_len=decode_pad_len,
-            flash_decode_min_b=flash_decode_min_b,
-        )
-        x = x + attn_out
-        h = rms_norm(lp["post_attention_layernorm"], x, cfg.rms_norm_eps)
-        return x + swiglu_mlp(lp["mlp"], h), cache
-
     x = embeds
     for idx, lp in enumerate(params["layers"]):
-        if remat and cache is None:
-            snapshot = layers.dropout_snapshot()
-
-            def replayed(x, lp=lp, idx=idx, snapshot=snapshot):
-                with layers.dropout_replay(snapshot):
-                    return one_layer(x, lp, idx, None)[0]
-
-            x = torch.utils.checkpoint.checkpoint(replayed, x,
-                                                  use_reentrant=False)
+        if cache is None:
+            x = llama_layer(lp, cfg, x, cos, sin, positions, mask_bias,
+                            flash_train=flash_train, remat=remat)
         else:
-            x, cache = one_layer(x, lp, idx, cache)
+            x, cache = _layer(lp, cfg, x, cos, sin, positions, mask_bias,
+                              cache, idx, flash_pad_len=flash_pad_len,
+                              decode_pad_len=decode_pad_len,
+                              flash_decode_min_b=flash_decode_min_b)
     if cache is not None:
         cache = cache.advance(embeds.shape[1])
     return rms_norm(params["norm"], x, cfg.rms_norm_eps), cache

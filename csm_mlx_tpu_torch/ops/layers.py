@@ -28,14 +28,17 @@ _DROPOUT_CTX: Dict[str, Optional[int]] = {"seed": None, "count": 0}
 
 
 @contextmanager
-def lora_dropout_rng(generator: Optional[torch.Generator]):
+def lora_dropout_rng(generator: Optional[torch.Generator], stream: int = 0):
     """Enable LoRA dropout for `linear` calls inside this scope, with masks
-    drawn from `generator` (None: dropout stays off)."""
+    drawn from `generator` (None: dropout stays off). `stream` is mixed
+    into the seed: the ranks of a data-parallel step advance one generator
+    alike and draw independent masks for their rows."""
     prev = dict(_DROPOUT_CTX)
     seed = None
     if generator is not None:
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
                                  device=generator.device).item())
+        seed = (seed ^ (stream * 0x9E3779B97F4A7C15)) % 2 ** 62
     _DROPOUT_CTX.update(seed=seed, count=0)
     try:
         yield

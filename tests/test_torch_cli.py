@@ -3,8 +3,10 @@
 `generate`'s and every `finetune` command's flags and defaults against
 JAX's `build_parser()`, their exits before any weight is loaded, `finetune
 convert` against JAX's on one folder, `generate.synthesize` on a tiny CPU
-model against a direct `generate` call, and one `finetune lora sft` /
-`finetune full sft` step on a tiny CPU model whose saved weights load back.
+model against a direct `generate` call, one `finetune lora sft` /
+`finetune full sft` step on a tiny CPU model whose saved weights load back,
+and `finetune full sft --data-parallel` / `finetune lora sft --fsdp` on two
+CPU ranks over gloo (`torch_dist_helpers.cli_world`) against one rank.
 
 The tiny model and codec are `tests/test_torch_context.py`'s (8 codebooks
 of 32 codes, the real ratios), with its fake text tokenizer."""
@@ -21,7 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import tiny_args
+import torch_dist_helpers as dh
+from conftest import TINY_BACKBONE, TINY_DECODER, tiny_args
 from test_torch_context import CODEC, N_CB, FakeTokenizer
 from torch_helpers import text_prompt, torch_model_from_jax
 from csm_mlx_tpu.models import csm as jcsm
@@ -139,10 +142,6 @@ def test_package_root_exports_jax_all():
     (["generate", "hi", "-o", "x.wav", "-ia", "a.wav"], None),
     (["finetune", "lora", "sft", "--data-path", "d.json", "-o", "out"],
      "--pretrained-path"),
-    (["finetune", "full", "kto", "--data-path", "d.json", "-o", "out",
-      "--data-parallel"], "item 12"),
-    (["finetune", "lora", "dpo", "--data-path", "d.json", "-o", "out",
-      "--fsdp"], "item 12"),
     (["finetune", "convert", "/nonexistent/dir", "out.json"],
      "is not a directory"),
 ])
@@ -339,3 +338,52 @@ def test_finetune_sft_one_step_saves_weights_that_reload(tiny, tmp_path,
             base["decoder"]["layers"][0]["mlp"]["down_proj"]["weight"])
     torch.testing.assert_close(_c0_logits(reloaded, prompt, mask), trained,
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kind,flag", [("full", "--data-parallel"),
+                                       ("lora", "--fsdp")])
+def test_finetune_parallel_flags_on_two_ranks_give_one_ranks_loss(
+        tiny, tmp_path, kind, flag):
+    """`finetune full sft --data-parallel` and `finetune lora sft --fsdp`
+    run one step of batch 2 on two CPU ranks (gloo), one row each: the
+    loss of a one-rank run of the same command without the flag (rtol
+    1e-5: the masked means' sums split over the ranks), and only rank 0
+    writes files (the checkpoint, the trainer state, the final weights or
+    adapters and their config)."""
+    src = _conversations(tmp_path / "in")
+    data = tmp_path / "data.json"
+    convert = build_parser().parse_args(["finetune", "convert", str(src),
+                                         str(data)])
+    convert.func(convert)
+    params = dh.numpy_tree(tiny.params)
+
+    def argv(out):
+        return (["finetune", kind, "sft", "--data-path", str(data), "-o",
+                 str(out), "--batch-size", "2", "--epochs", "1",
+                 "--log-freq", "1", "--ckpt-freq", "1", "--lr", "1e-3"]
+                + (["--lora-rank", "4"] if kind == "lora" else []))
+
+    one = tmp_path / "one"
+    module = lora_finetune if kind == "lora" else full_finetune
+    module.train(build_parser().parse_args(argv(one)), tiny)
+    want = [r["loss"] for r in json.loads(
+        (one / "trainer_state.json").read_text())["history"]]
+    a = tiny.args
+    two = tmp_path / "two"
+    ranks = dh.run_world(2, dh.cli_world, dict(
+        backbones={"tiny": bridge.llama_config_from(TINY_BACKBONE)},
+        decoders={"tiny": bridge.llama_config_from(TINY_DECODER)},
+        model_args=(a.backbone_name, a.decoder_name, a.n_text_vocab,
+                    a.n_audio_vocab, a.n_audio_codebooks),
+        params=params, codec=bridge.mimi_config_from(CODEC), codec_seed=63,
+        n_cb=N_CB, argv=argv(two) + [flag], out=str(two),
+        fsdp_min_bytes=1024), tmp_path)
+    got = [r["loss"] for r in ranks[0]["history"]]
+    assert len(want) == 1 and math.isfinite(want[0])
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert ranks[1]["written"] == []
+    final = "adapters.safetensors" if kind == "lora" else \
+        "final_model.safetensors"
+    assert {"latest.safetensors", "trainer_state.json", final} <= \
+        set(ranks[0]["written"])
+    assert (two / final).exists()

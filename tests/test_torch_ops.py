@@ -155,6 +155,9 @@ PORT_MODULES = [
     "csm_mlx_tpu_torch.cli.finetune.full_finetune",
     "csm_mlx_tpu_torch.cli.finetune.lora_finetune",
     "csm_mlx_tpu_torch.cli.finetune.utils",
+    "csm_mlx_tpu_torch.parallel", "csm_mlx_tpu_torch.parallel.mesh",
+    "csm_mlx_tpu_torch.parallel.pipeline",
+    "csm_mlx_tpu_torch.parallel.sequence",
 ]
 
 
