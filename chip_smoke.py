@@ -154,8 +154,20 @@ gloo cannot carry them, ring attention at (1, 32, 2048, 64) fp32 and bf16
 (b) two ranks spawned on the one card over gloo, loading the kernels
 built here: replicated and FSDP steps against the one-process steps, the
 bytes each rank stores for parameters and AdamW state, and gloo's
-all-reduce and all-gather times. Any
-failure raises; the last line of standard output is then missing.
+all-reduce and all-gather times.
+
+Last, sharded serving (`parallel.shard_model` + `mesh=`, CSM-1B at full
+width, the dispatched decoder): kernel 1's three in-sharded entries
+(quantized rows, int32 partials, fix-up) against their plain versions at
+the o_proj and down_proj shards of a model axis of 2, timed beside the
+fused kernel; (a) one NCCL rank on a {data: 1, model: 1} mesh, W8A8:
+`generate_tokens` from a 32- and a 300-row prompt, captured, and the
+engine at 16 slots with kernel 4, each equal to its mesh-less run, with
+the collectives each graph's capture recorded and the profiler's view of
+a replay; (b) two gloo ranks on the one card, eager: {model: 2} bf16 and
+W8A8 batches against a one-process run, kernel 1's partials summed
+against the solo int32 sums, and the engine on {data: 2}. Any failure
+raises; the last line of standard output is then missing.
 
 Prints the card's name and power limit, one line per check and phase, the
 kernels' line `{"kernels": [...]}` (times measured here, bounds computed
@@ -166,6 +178,7 @@ without one.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -202,7 +215,7 @@ from csm_mlx_tpu_torch.ops import flash_train  # noqa: E402
 from csm_mlx_tpu_torch.ops import launches as launch_registry  # noqa: E402
 from csm_mlx_tpu_torch.ops import resident_decoder as resident  # noqa: E402
 from csm_mlx_tpu_torch.ops.kv_cache import KVCache  # noqa: E402
-from csm_mlx_tpu_torch.ops.layers import linear  # noqa: E402
+from csm_mlx_tpu_torch.ops.layers import linear, rms_norm  # noqa: E402
 from csm_mlx_tpu_torch.ops.rope import rope_cache_for  # noqa: E402
 from csm_mlx_tpu_torch.ops.sampling import SamplerConfig  # noqa: E402
 
@@ -348,6 +361,8 @@ SERVE_SAMPLED_FRAMES = 40
 SERVE_HTTP_MS = 1600  # audio a request of the HTTP servers
 WATERMARK_KEY, WATERMARK_MS = 7, 3200
 PROFILE_FRAMES = 4  # frames a profiled frame-step run
+PROFILE_PAD_S = 0.1  # idle host time at each end of a profiler window
+PROFILE_MARK = "chip_smoke synchronized"  # `padded`'s host span
 # device kernels of a wrapper, by a part of their name: one per launch
 PROFILED_KERNELS = {
     "w8a8_matvec": ("w8a8_matvec_kernel", "w8a8_gemm_kernel"),
@@ -466,6 +481,24 @@ CODEC_AB_FRAMES = 24  # frames a request of the engine A/B (3 blocks)
 CODEC_CONV_ROWS = 4   # batch rows of the int8 convs' bit-equality check
 # The async checkpoints (run_training (f)): steps with a save each
 ASYNC_STEPS, SYNC_STEPS = 3, 1
+# Sharded serving (`run_mesh_serving`): (a) one NCCL rank, a
+# {data: 1, model: 1} mesh; (b) two gloo ranks on the one card
+MESH_FRAMES = 20          # frames of each (a) prompt
+MESH_LONG_ROWS = 300      # the (a) prompt that takes kernel 2
+MESH_SLOTS, MESH_K = 16, 8
+MESH_REQ_FRAMES = (8, 16, 24, 12)  # (a)'s 16 requests cycle over these
+MESH_GLOO_ROWS, MESH_GLOO_FRAMES = 4, 10
+MESH_GLOO_REQ_FRAMES = (8, 12, 16, 10)
+MESH_TIMEOUT_S = 300      # (b)'s two ranks, start-up included
+# (b)'s layouts (the heads or rows of a rank against the one-process
+# run's) change the order of fp32 sums: their noise in the teacher-forced
+# logits, over the logits' std, stays below this; the W8A8 int8 codes
+# amplify a last-bit change to whole code steps (PERF.md §6)
+FORCED_SPREAD_TOL = 0.1
+# kernel 1's in-sharded entries at a model axis of 2: (local IN, OUT)
+TP_IN_SHAPES = {"o_proj": (1024, 2048), "down_proj": (4096, 2048)}
+TP_IN_ROWS = (1, 64)
+TP_IN_TABLE_BYTES = 80 << 20  # codes cycled a timing, > the 50 MB L2
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "fp32": 67e12}
 
@@ -1392,13 +1425,56 @@ def captured_vs_eager(run, label: str, n_frames: int,
                 ms_eager=float(np.mean(eag["ms"])))
 
 
+@contextlib.contextmanager
+def padded(profiler):
+    """Enter `profiler` (a torch.profiler.profile or utils.profiling.trace)
+    with PROFILE_PAD_S of idle host time between its start and the body
+    and between the body and its stop. The card is synchronized before the
+    profiler starts and after the body, and a host span with no device
+    work, "chip_smoke synchronized", marks the moment the host saw the
+    card idle. The profiler keeps a device event only when its timestamps,
+    mapped onto the host's clock, fall inside its window, and that mapping
+    can read earlier or later than the host: an unpadded window has lost
+    its first or its last launches (PERF.md §6, `window_margins`). Yields
+    what the profiler yields."""
+    from torch.profiler import record_function
+
+    torch.cuda.synchronize()
+    with profiler as prof:
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        with record_function(PROFILE_MARK):
+            pass
+        time.sleep(PROFILE_PAD_S)
+
+
+def window_margins(events) -> tuple[float, float]:
+    """In a `padded` profiler's raw events (`kineto_results.events()`, host
+    and device), ms from the first host event's start to the first device
+    event's start, and from the last device event's end to the
+    "chip_smoke synchronized" mark. The card cannot start a launch before
+    the host issues it nor end one after the host saw it end, so a
+    negative margin is the shift of the device timestamps' mapping onto
+    the host's clock, which the pads cover."""
+    from torch.autograd import DeviceType
+
+    host = [e for e in events if e.device_type() == DeviceType.CPU]
+    dev = [e for e in events if e.device_type() == DeviceType.CUDA
+           and e.name() != PROFILE_MARK]
+    seen = next(e.start_ns() for e in host if e.name() == PROFILE_MARK)
+    return ((min(e.start_ns() for e in dev)
+             - min(e.start_ns() for e in host)) / 1e6,
+            (seen - max(e.start_ns() + e.duration_ns() for e in dev)) / 1e6)
+
+
 def profile_frames(model: CSM, label: str) -> dict:
     """Device events, device-busy ms and wall ms a frame of the frame step
     (`generation.FrameStep`) at B = 1 from the 32-row prompt, greedy,
     captured and eager: after the prefill, the first frame and two more
     (the captured step's warm-up frame and its capture), PROFILE_FRAMES
-    frames under the profiler, each followed by the host's EOS read as in
-    the frame loop. Gate: the device launches of kernels 1, 3 and 5 that
+    frames under the profiler (`padded`; the wall time is the frames' own),
+    each followed by the host's EOS read as in the frame loop. Gate: the device launches of kernels 1, 3 and 5 that
     the profiler saw (PROFILED_KERNELS) equal the wrappers' counts, which
     add a captured step's launches at each replay."""
     from torch.autograd import DeviceType
@@ -1417,38 +1493,47 @@ def profile_frames(model: CSM, label: str) -> dict:
         step()
         torch.cuda.synchronize()
         reset_counts()
-        t0 = time.perf_counter()
-        with profile(activities=acts) as prof:
+        with padded(profile(activities=acts)) as prof:
+            t0 = time.perf_counter()
             for _ in range(PROFILE_FRAMES):
                 step()
                 bool(step.frame.any())
             torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+            wall = time.perf_counter() - t0
         counts = read_counts()
         # the raw records: parsing them into the profiler's event tree
         # takes seconds at ~10,000 launches a frame
-        events = [e for e in prof.profiler.kineto_results.events()
-                  if e.device_type() == DeviceType.CUDA]
+        raw = list(prof.profiler.kineto_results.events())
+        events = [e for e in raw if e.device_type() == DeviceType.CUDA
+                  and e.name() != PROFILE_MARK]
         seen = {k: sum(any(n in e.name() for n in names) for e in events)
                 for k, names in PROFILED_KERNELS.items()}
+        margins = window_margins(raw)
         setting = "eager" if eager else "captured"
         if any(seen[k] != counts[k] for k in seen):
             raise AssertionError(
                 f"{label}, {setting}: the profiler saw {seen} kernel "
-                f"launches, the counters say {counts}")
+                f"launches, the counters say {counts}; margins (ms) from "
+                f"the host's first event to the first launch "
+                f"{margins[0]:.3f}, from the last launch's end to the "
+                f"host's synchronized mark {margins[1]:.3f}")
         busy = sum(e.duration_ns() for e in events) / 1e6
         out[setting] = dict(
             events=len(events) / PROFILE_FRAMES,
             busy_ms=busy / PROFILE_FRAMES,
             wall_ms=1e3 * wall / PROFILE_FRAMES,
-            k3=seen["resident_decode_frame"] / PROFILE_FRAMES)
+            k3=seen["resident_decode_frame"] / PROFILE_FRAMES,
+            margins=margins)
         del step
     log(f"{label}, a frame of {PROFILE_FRAMES} profiled frames: captured "
         + "; eager ".join(
             f"{r['events']:.0f} device events, {r['busy_ms']:.3f} ms device "
             f"busy of {r['wall_ms']:.2f} ms wall under the profiler "
             f"({r['busy_ms'] / r['wall_ms']:.1%}), {r['k3']:.2f} kernel-3 "
-            f"launches" for r in out.values())
+            f"launches, margins (ms) from the host's first event to the "
+            f"first launch {r['margins'][0]:.3f}, from the last launch's end "
+            f"to the host's synchronized mark {r['margins'][1]:.3f}"
+            for r in out.values())
         + "; kernel launches seen by the profiler equal the counters'")
     return out
 
@@ -1850,10 +1935,9 @@ def device_busy(fn) -> tuple[float, int]:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with padded(profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])) as prof:
         fn()
-        torch.cuda.synchronize()
     events = [e for e in prof.profiler.kineto_results.events()
               if e.device_type() == DeviceType.CUDA]
     return sum(e.duration_ns() for e in events) / 1e6, len(events)
@@ -2464,8 +2548,8 @@ def launch_split(fn, per_call: int, reps: int = 5) -> str:
     Events accumulate across the session (`acc_events`) and the card
     synchronizes after every call. (Late in this script the profiler has
     kept as few as none of 5 kernel-6 launches and 9 of 15 kernel-7 ones,
-    where a fresh process kept all: the CUDA-event time counts every
-    launch.)"""
+    where a fresh process kept all, padded or not: the CUDA-event time
+    counts every launch.)"""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2637,13 +2721,12 @@ def trace_step(trainer, batch, label: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with padded(profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])) as prof:
+        t0 = time.perf_counter()
         trainer.train_step(batch)
         torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -4998,7 +5081,7 @@ def run_trace(model: CSM, workdir: str) -> None:
     step = replay_step(model, PROFILE_FRAMES)
     torch.cuda.synchronize()
     logdir = os.path.join(workdir, "trace")
-    with trace(logdir):
+    with padded(trace(logdir)):
         with annotate("chip_smoke replayed frames"):
             for _ in range(PROFILE_FRAMES):
                 step()
@@ -5111,6 +5194,771 @@ def affine_generator(dev) -> torch.Generator:
     return gen
 
 
+def counting_collectives() -> dict:
+    """Wrap torch.distributed's all_reduce and all_gather_into_tensor (the
+    collectives `ops.tensor_parallel` and the engine call) to count the
+    calls made while a CUDA graph is being captured: what a captured graph
+    holds. Returns the live counts."""
+    import torch.distributed as dist
+
+    counts = {"all_reduce": 0, "all_gather_into_tensor": 0}
+    for name in counts:
+        real = getattr(dist, name)
+
+        def wrapped(*a, _real=real, _name=name, **k):
+            if torch.cuda.is_current_stream_capturing():
+                counts[_name] += 1
+            return _real(*a, **k)
+
+        setattr(dist, name, wrapped)
+    return counts
+
+
+def check_tp_in(dev, gen) -> dict:
+    """Kernel 1's in-sharded entries against their plain versions and
+    timed, at the backbone's o_proj and down_proj shards of a model axis
+    of 2 (local IN 1,024 and 4,096, OUT 2,048), at 1 and 64 rows: the
+    whole gathered row quantized (`w8a8_quant_rows`: codes bit-equal,
+    absmax / 127 within an fp32 ulp, the row sum within fp32 rounding of
+    another order), the
+    int32 partial of rank 1's columns (`w8a8_partial`, bit-equal; timed
+    cycling over code tables past L2, beside the fused kernel 1 on the
+    same shard and `torch._int_mm` on the same codes at 64 rows), and the
+    fix-up (`w8a8_fixup`, bit-equal in bf16 and fp32)."""
+    out = {}
+    for name, (in_l, out_d) in TP_IN_SHAPES.items():
+        n_tab = max(2, -(-TP_IN_TABLE_BYTES // (in_l * out_d)))
+        ws = [torch.randint(-127, 128, (out_d, in_l), generator=gen,
+                            device=dev, dtype=torch.int8)
+              for _ in range(n_tab)]
+        s = torch.rand((out_d, 1), generator=gen, device=dev) * 1e-2
+        z = torch.randn((out_d, 1), generator=gen, device=dev) * 1e-2
+        for rows in TP_IN_ROWS:
+            x = torch.randn((rows, 2 * in_l), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            qx, aux = quant.w8a8_quant_rows(x)
+            qp, auxp = quant.w8a8_quant_rows_plain(x)
+            p = quant.w8a8_partial(qx, in_l, ws[0])
+            pp = quant.w8a8_partial_plain(qx, in_l, ws[0])
+            fix = {dt: (quant.w8a8_fixup(p, aux, s, z, dt),
+                        quant.w8a8_fixup_plain(p, aux, s, z, dt))
+                   for dt in (torch.bfloat16, torch.float32)}
+            torch.cuda.synchronize()
+            sum_err = (aux[:, 1] - auxp[:, 1]).abs().max().item()
+            # absmax / 127: the kernel divides; the plain version's division
+            # by a Python scalar runs on CUDA as a product with the
+            # reciprocal, up to one fp32 ulp apart
+            scale_err = ((aux[:, 0] - auxp[:, 0]).abs()
+                         / auxp[:, 0]).max().item()
+            ok = dict(
+                quant_rows=torch.equal(qx, qp) and scale_err <= 2.0 ** -23
+                and sum_err <= 1e-5 * auxp[:, 1].abs().max().item() + 1e-4,
+                partial=torch.equal(p, pp),
+                fixup=all(torch.equal(a, b) for a, b in fix.values()))
+            it = iter(range(1 << 30))
+            x_l = x[:, in_l:].contiguous()
+            qx_l = qx[:, in_l:].contiguous()
+            ms = dict(
+                quant_rows=time_ms(lambda: quant.w8a8_quant_rows(x))[0],
+                partial=time_ms(lambda: quant.w8a8_partial(
+                    qx, in_l, ws[next(it) % n_tab]))[0],
+                fixup=time_ms(lambda: quant.w8a8_fixup(
+                    p, aux, s, z, torch.bfloat16))[0],
+                fused=time_ms(lambda: quant.w8a8_matvec(
+                    x_l, ws[next(it) % n_tab], s, z))[0])
+            plain = dict(
+                quant_rows=time_ms(lambda: quant.w8a8_quant_rows_plain(x))[0],
+                partial=time_ms(lambda: quant.w8a8_partial_plain(
+                    qx, in_l, ws[next(it) % n_tab]))[0],
+                fixup=time_ms(lambda: quant.w8a8_fixup_plain(
+                    p, aux, s, z, torch.bfloat16))[0])
+            lib = None
+            if rows > 16:  # torch._int_mm needs more than 16 rows
+                wts = [w.t() for w in ws]
+                lib = time_ms(lambda: torch._int_mm(
+                    qx_l, wts[next(it) % n_tab]))[0]
+            bounds = dict(
+                quant_rows=bound_ms(rows * 2 * in_l * 3 + rows * 8, 0,
+                                    "int8"),
+                partial=bound_ms(in_l * out_d + rows * in_l
+                                 + 4 * rows * out_d,
+                                 2 * rows * in_l * out_d, "int8"),
+                fixup=bound_ms(rows * out_d * 6 + rows * 8 + out_d * 8, 0,
+                               "int8"),
+                fused=bound_ms(in_l * out_d + 8 * out_d
+                               + rows * (in_l + out_d) * 2,
+                               2 * rows * in_l * out_d, "int8"))
+            case = f"{name} IN={in_l} (of {2 * in_l}) OUT={out_d} B={rows}"
+            for entry in ("quant_rows", "partial", "fixup"):
+                b_ms, b_by = bounds[entry]
+                log(f"w8a8_{entry} {case} ({card_info()}): "
+                    f"{'bit-equal to its plain version' if ok[entry] else 'MISMATCH'}"
+                    + (f" (codes; absmax / 127 within {scale_err:.2e} "
+                       f"relative, row sums within {sum_err:.2e})"
+                       if entry == "quant_rows" else "")
+                    + f"; kernel {1e3 * ms[entry]:.2f} us device, plain "
+                    f"{1e3 * plain[entry]:.2f} us; bound {1e3 * b_ms:.2f} "
+                    f"us ({b_by}) = {b_ms / ms[entry]:.1%} of the kernel"
+                    + (f"; torch._int_mm on the same codes "
+                       f"{1e3 * lib:.2f} us"
+                       if entry == "partial" and lib is not None else ""))
+                out.setdefault(entry, []).append(dict(
+                    case=case, ok=ok[entry], ms=ms[entry],
+                    plain_ms=plain[entry], bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib if entry == "partial" else None,
+                    max_abs_err=sum_err if entry == "quant_rows" else 0.0))
+            f_ms, f_by = bounds["fused"]
+            log(f"w8a8_matvec (fused, for comparison) {case} on the local "
+                f"shard: {1e3 * ms['fused']:.2f} us device; bound "
+                f"{1e3 * f_ms:.2f} us ({f_by}); the three in-sharded "
+                f"entries sum to "
+                f"{1e3 * (ms['quant_rows'] + ms['partial'] + ms['fixup']):.2f}"
+                f" us")
+            if not all(ok.values()):
+                raise AssertionError(f"kernel 1's in-sharded entries "
+                                     f"disagree at {case}: {ok}")
+        del ws
+    return out
+
+
+def mesh_copy(model: CSM) -> CSM:
+    """A CSM over a new dict tree of the same tensors, without kernel 3's
+    tables: `shard_model` replaces its leaves and leaves `model`'s."""
+    params = {k: v for k, v in model.params.items() if k != "_resident"}
+    return CSM(model.args, params=map_params(lambda t: t, params),
+               dtype=model.dtype)
+
+
+def mesh_engine_streams(model: CSM, mesh, reqs, **kw) -> tuple:
+    """The token streams of `reqs` ((prompt, mask, max_frames)) through a
+    greedy ContinuousEngine (K = MESH_K, no codec) on `mesh` (None:
+    mesh-less), the wall ms a block over the run (warm-ups and captures
+    included), and the device ms of a replayed block (CUDA events around
+    each replay; None when no block was replayed). Under a mesh rank 0
+    submits and drives, every other rank follows (and returns Nones)."""
+    import torch.distributed as dist
+
+    from csm_mlx_tpu_torch.continuous import ContinuousEngine
+
+    eng = ContinuousEngine(
+        model, n_slots=kw.pop("n_slots"), frames_per_step=MESH_K,
+        max_frames=max(r[2] for r in reqs), max_prompt_bucket=32,
+        # the blocks in flight past a row's last frame: the host learns of
+        # its end pipeline_depth blocks late
+        capacity_slack=4 * MESH_K, codec=False, mesh=mesh,
+        generator=torch.Generator(device=model.device).manual_seed(SEED + 7),
+        **kw)
+    replays = []  # CUDA events around each replayed block
+    run_block = eng._run_block
+
+    def timed_block() -> None:
+        if not isinstance(eng._graphs.get(eng._cap),
+                          torch.cuda.CUDAGraph):
+            return run_block()  # eager, or its bucket's warm-up or capture
+        replays.append((torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True)))
+        replays[-1][0].record()
+        run_block()
+        replays[-1][1].record()
+
+    eng._run_block = timed_block
+    t0 = time.perf_counter()
+    if mesh is not None and dist.get_rank() != 0:
+        eng.follow()
+        return None, None, None
+    handles = [eng.submit_prompt(p, m, max_frames=mf) for p, m, mf in reqs]
+    eng.run_until_idle()
+    eng.stop()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / max(eng.stats.steps, 1)
+    replay_ms = (float(np.mean([a.elapsed_time(b) for a, b in replays]))
+                 if replays else None)
+    return [h.wait(0) for h in handles], ms, replay_ms
+
+
+def frame_step_graph(model: CSM, ref: CSM, counts: dict) -> dict:
+    """The captured frame step of the sharded model at B = 1 from the
+    32-row prompt: the collectives its capture recorded (`counts`, from
+    `counting_collectives`); under the profiler, two replays' device
+    kernels whose names say NCCL, memcpy nodes, and kernel 1's launches
+    by entry; and ms a replayed frame of it and of the mesh-less `ref`'s
+    step, 5 replays each, alternated (mesh-less, mesh, mesh, mesh-less)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prompt, mask = synthetic_prompt(32, model.args.n_text_vocab, SEED)
+    tokens, masks, pad, bucket = generation._pad_prompt(prompt, mask)
+    def frame_step(m):
+        st = generation.FrameStep(m, 1, bucket + 32,
+                                  SamplerConfig(temperature=0.0), (), None)
+        st.first(st.prefill(tokens, masks, pad))
+        st()
+        return st
+
+    def replays_ms(st, n=5) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            st()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+
+    step = frame_step(model)
+    before = dict(counts)
+    step()  # the capture
+    held = {k: counts[k] - before[k] for k in counts}
+    torch.cuda.synchronize()
+    with padded(profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])) as prof:
+        for _ in range(2):
+            step()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    plain = frame_step(ref)
+    plain()  # its capture
+    ms = {"mesh-less": [], "mesh": []}
+    for label in ("mesh-less", "mesh", "mesh", "mesh-less"):
+        ms[label].append(replays_ms(plain if label == "mesh-less"
+                                    else step))
+    return dict(
+        ms=ms, captured=held,
+        nccl=sum("nccl" in n.lower() for n in names) / 2,
+        memcpy=sum("memcpy" in n.lower() for n in names) / 2,
+        quant_rows=sum("quant_rows_kernel" in n for n in names) / 2,
+        partial=sum("w8a8_matvec_kernel" in n and "true" in n
+                    or "w8a8_gemm_kernel" in n and "true" in n
+                    for n in names) / 2,
+        fixup=sum("w8a8_fixup_kernel" in n for n in names) / 2,
+        events=len(names) / 2)
+
+
+def mesh_c0_logits(model: CSM, prompt, mask) -> torch.Tensor:
+    """Codebook 0's logits after one backbone prefill of the prompt, under
+    the model's tensor parallelism where it has one."""
+    from csm_mlx_tpu_torch.models.csm import codebook0_logits
+    from csm_mlx_tpu_torch.ops import tensor_parallel
+
+    args, dev = model.args, model.device
+    bcfg = args.backbone_config
+    tokens, masks, pad, bucket = generation._pad_prompt(prompt, mask)
+    cos, sin = rope_cache_for(bcfg, bcfg.max_position_embeddings, dev)
+    with torch.no_grad(), tensor_parallel.scope(tensor_parallel.of(model)):
+        cache = KVCache.init(bcfg, 1, bucket, dtype=model.dtype, device=dev)
+        h, _ = generation._prefill(
+            model.params, args, torch.from_numpy(tokens).long().to(dev),
+            torch.from_numpy(masks).long().to(dev),
+            torch.from_numpy(pad).long().to(dev), cache, cos, sin)
+        return codebook0_logits(model.params, args, h).float()
+
+
+def layout_probe(dev) -> dict:
+    """Whether the card's results for a row or a head depend on the rest of
+    the batch: the masked attention (`ops.attention.sdpa`, bf16 inputs,
+    B=4, the backbone's 32 heads over 8 kv heads on a 64-slot cache and
+    the decoder's 8 over 2 of 128 on 33 slots) on half the heads and on
+    half the rows against the same heads and rows of the whole call, a
+    bf16 head matmul (2,048 -> 2,051), the fp32 audio head (1,024 ->
+    2,051), kernel 1 (2,048 -> 3,072), the 33-slot input sum and the RMS
+    norm on 2 of 4 rows, and a 32-row prefill's causal attention on half
+    the heads and half the rows: bit-equal or not."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 220)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    q, k, v = randn(4, 32, 1, 64), randn(4, 8, 64, 64), randn(4, 8, 64, 64)
+    whole = attention.sdpa(q, k, v, 0.125)
+    # the decoder's shape: 8 heads over 2 kv heads of 128, 33 slots
+    qd, kd, vd = (randn(4, 8, 1, 128), randn(4, 2, 33, 128),
+                  randn(4, 2, 33, 128))
+    whole_d = attention.sdpa(qd, kd, vd, 128 ** -0.5)
+    x, w = randn(4, 2048), randn(2051, 2048)
+    h, head = randn(4, 1024).float(), randn(1024, 2051).float()
+    codes = quant.quantize_weight_w8(randn(3072, 2048).float())
+    fused = quant.w8a8_matvec(x, **codes)
+    # a 32-row prefill's masked attention (causal over a 42-slot cache)
+    qp, kp, vp = randn(4, 32, 32, 64), randn(4, 8, 42, 64), randn(4, 8, 42,
+                                                                  64)
+    causal = attention.causal_mask_bias(32, 42, device=dev)[None, None]
+    whole_p = attention.sdpa(qp, kp, vp, 0.125, mask_bias=causal)
+    # a backbone step's row-wise reductions: the input's 33-slot sum and
+    # the RMS norm
+    slots, norm = randn(4, 1, 33, 2048), {"weight": randn(2048)}
+    sums = slots.sum(dim=-2)
+    normed = rms_norm(norm, x[:, None], 1e-5)
+    return dict(
+        prefill_heads=torch.equal(attention.sdpa(
+            qp[:, :16], kp[:, :4], vp[:, :4], 0.125, mask_bias=causal),
+            whole_p[:, :16]),
+        prefill_rows=torch.equal(attention.sdpa(
+            qp[:2], kp[:2], vp[:2], 0.125, mask_bias=causal), whole_p[:2]),
+        slot_sum_rows=torch.equal(slots[:2].sum(dim=-2), sums[:2]),
+        rms_norm_rows=torch.equal(rms_norm(norm, x[:2, None], 1e-5),
+                                  normed[:2]),
+        heads=torch.equal(attention.sdpa(q[:, :16], k[:, :4], v[:, :4],
+                                         0.125), whole[:, :16]),
+        rows=torch.equal(attention.sdpa(q[:2], k[:2], v[:2], 0.125),
+                         whole[:2]),
+        decoder_heads=torch.equal(attention.sdpa(
+            qd[:, :4], kd[:, :1], vd[:, :1], 128 ** -0.5), whole_d[:, :4]),
+        decoder_rows=torch.equal(attention.sdpa(
+            qd[:2], kd[:2], vd[:2], 128 ** -0.5), whole_d[:2]),
+        matmul_rows=torch.equal(torch.matmul(x[:2], w.t()),
+                                torch.matmul(x, w.t())[:2]),
+        fp32_head_rows=torch.equal(torch.matmul(h[:2], head),
+                                   torch.matmul(h, head)[:2]),
+        kernel1_rows=torch.equal(quant.w8a8_matvec(x[:2], **codes),
+                                 fused[:2]))
+
+
+def forced_logits(model: CSM, prompts, frames, n: int) -> tuple:
+    """Teacher-forced logits of n frames for prompts of one bucket, under
+    the model's tensor parallelism where it has one: each frame's backbone
+    step is fed `frames` (per row an (F, 32) array; a row past its end
+    repeats its last frame), and its decoder (dispatched) the frame's own
+    codes. Returns (c0 (n, B, V), decoder (n, 31, B, V)) fp32 and the
+    forced codes (n, B, 32)."""
+    from csm_mlx_tpu_torch.models.csm import codebook0_logits
+    from csm_mlx_tpu_torch.ops import tensor_parallel
+
+    args, params, dev = model.args, model.params, model.device
+    bcfg = args.backbone_config
+    padded = [generation._pad_prompt(p, m) for p, m in prompts]
+    if len({x[3] for x in padded}) != 1:
+        raise ValueError("forced_logits takes prompts of one bucket")
+    tokens, masks, pad = (
+        torch.from_numpy(np.concatenate([x[i] for x in padded])).long().to(dev)
+        for i in range(3))
+    cap = padded[0][3] + n
+    cos_b, sin_b = rope_cache_for(bcfg, max(cap, bcfg.max_position_embeddings),
+                                  dev)
+    cos_d, sin_d = rope_cache_for(args.decoder_config,
+                                  args.n_audio_codebooks + 1, dev)
+    want = torch.from_numpy(np.stack([
+        np.stack([f[min(i, len(f) - 1)] for f in frames])
+        for i in range(n)])).long().to(dev)
+    greedy = SamplerConfig(temperature=0.0)
+    c0s, decs = [], []
+    with torch.no_grad(), tensor_parallel.scope(tensor_parallel.of(model)):
+        cache = KVCache.init(bcfg, len(prompts), cap, dtype=model.dtype,
+                             device=dev)
+        h, _ = generation._prefill(params, args, tokens, masks, pad, cache,
+                                   cos_b, sin_b)
+        for i in range(n):
+            if i:
+                tk, mk = generation._frame_to_next_input(want[i - 1])
+                h, _ = generation._backbone_step(params, args, tk, mk, pad,
+                                                 cache, cos_b, sin_b)
+            c0s.append(codebook0_logits(params, args, h).float())
+            x01 = torch.stack([h, embed_audio(params, args, 0, want[i][:, 0])
+                               .to(h.dtype)], dim=1)
+            proj01 = linear(params["projection"], x01)
+            _, dec = generation.dispatched_decode(
+                params, args, proj01, greedy, None, cos_d, sin_d,
+                forced=want[i])
+            decs.append(dec)
+    return torch.stack(c0s), torch.stack(decs), want
+
+
+def layout_spreads(ref: tuple, got: tuple) -> dict:
+    """The noise between two layouts of the same forced computation: per
+    kind (c0, decoder), the std of got - ref over every logit, and that
+    spread over the std of ref's logits."""
+    out = {}
+    for kind, r, g in (("c0", ref[0], got[0]), ("decoder", ref[1], got[1])):
+        spread = (g - r).std().item()
+        out[kind] = (spread, spread / r.std().item())
+    return out
+
+
+def first_differences(gots, wants, ref: tuple, spreads: dict) -> list:
+    """Each row whose frames differ from the reference's: its first
+    differing (frame, codebook), the reference's forced logit of its own
+    pick less that of the row's pick there, and that margin's size in
+    spreads of its kind (`layout_spreads`). A first difference within 4
+    spreads (or one ulp) is a near tie of the layout's noise."""
+    out = []
+    for r, (got, want) in enumerate(zip(gots, wants)):
+        common = min(len(got), len(want))
+        diff = np.argwhere(got[:common] != want[:common])
+        if not len(diff):
+            if len(got) != len(want):
+                out.append((r, None, None, float("inf"), float("inf")))
+            continue
+        f, c = (int(v) for v in diff[0])
+        kind = "c0" if c == 0 else "decoder"
+        logits = ref[0][f, r] if c == 0 else ref[1][f, c - 1, r]
+        # the reference's own forced layout may prefer the row's pick
+        # (a negative margin): its size counts the same
+        margin = (logits[int(want[f, c])] - logits[int(got[f, c])]).item()
+        ulp = torch.finfo(torch.float32).eps * abs(logits.max().item())
+        out.append((r, f, c, margin, 0.0 if abs(margin) <= ulp else
+                    abs(margin) / max(spreads[kind][0], 1e-12)))
+    return out
+
+
+def mesh_serving_rank(rank: int, n: int, store: str, payload: dict,
+                      results) -> None:
+    """One of (b)'s ranks: cuda:0, a gloo group, the kernels the parent
+    built. {model: 2}: CSM-1B bf16 and W8A8 (dispatched), a one-process
+    `generate_tokens_batch` of MESH_GLOO_ROWS prompts as the reference,
+    then the same batch sharded and eager; bf16 also codebook 0's logits
+    after the prefill both ways; W8A8 also kernel 1's int32 partials of
+    this rank's columns of o_proj and down_proj, summed over the ranks,
+    against the solo int32 sums. {data: 2}: the W8A8 engine at 4 slots
+    with 4 requests, against a one-process engine. Reports to `results`;
+    a failure reports its traceback."""
+    import traceback
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    try:
+        dev = torch.device(payload["device"])
+        torch.cuda.set_device(dev)
+        _build.build()
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(store, n), rank=rank, world_size=n,
+            timeout=timedelta(minutes=10))
+        args = csm_1b()
+        out = dict(rank=rank)
+        prompts = [synthetic_prompt(32, args.n_text_vocab, SEED + 200 + i)
+                   for i in range(MESH_GLOO_ROWS)]
+        ps, ms = [p for p, _ in prompts], [m for _, m in prompts]
+        mesh_m = parallel.create_mesh({"model": n})
+        for kind in ("bf16", "w8a8"):
+            model = random_csm(args, torch.bfloat16, dev, SEED)
+            if kind == "w8a8":
+                quant.quantize_model(model, mode="w8a8")
+            model = mesh_copy(model)  # the dispatched decoder, as a mesh
+            want, want_n = generate_tokens_batch(
+                model, ps, ms, MESH_GLOO_FRAMES, temperature=0.0)
+            wants = [want[:want_n[r], r] for r in range(len(ps))]
+            ref_c0 = mesh_c0_logits(model, ps[0], ms[0])
+            ref = forced_logits(model, prompts, wants, MESH_GLOO_FRAMES)
+            if kind == "w8a8":
+                out["partials"] = mesh_partials(model, mesh_m, dev)
+            sharded = parallel.shard_model(mesh_copy(model), mesh_m)
+            del model
+            torch.cuda.empty_cache()
+            got_c0 = mesh_c0_logits(sharded, ps[0], ms[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, got_n = generate_tokens_batch(
+                sharded, ps, ms, MESH_GLOO_FRAMES, temperature=0.0,
+                mesh=mesh_m, _eager_step=True)
+            wall = time.perf_counter() - t0
+            # the sharded run's forced logits up to the last first
+            # difference (the same on both ranks: their frames are equal)
+            gots = [got[:got_n[r], r] for r in range(len(ps))]
+            n_f = 1 + max([int(np.argwhere(g[:len(w)] != w[:len(g)])[0][0])
+                           for g, w in zip(gots, wants)
+                           if not np.array_equal(g, w)
+                           and len(np.argwhere(g[:len(w)] != w[:len(g)]))]
+                          + [0])
+            spreads = layout_spreads(
+                (ref[0][:n_f], ref[1][:n_f]),
+                forced_logits(sharded, prompts, wants, n_f)[:2])
+            out[kind] = dict(
+                equal=bool(np.array_equal(got, want)
+                           and np.array_equal(got_n, want_n)),
+                agree=float((got == want).mean()), spreads=spreads,
+                forced_frames=n_f,
+                firsts=first_differences(gots, wants, ref, spreads),
+                c0_err=(got_c0 - ref_c0).abs().max().item()
+                / ref_c0.abs().max().item(),
+                ms_frame=1e3 * wall / MESH_GLOO_FRAMES,
+                local_rows=int(sharded.params["backbone"]["layers"][0][
+                    "mlp"]["down_proj"]["weight_q" if kind == "w8a8"
+                                         else "weight"].shape[1]))
+            del sharded
+            torch.cuda.empty_cache()
+        mesh_d = parallel.create_mesh({"data": n})
+        model = random_csm(args, torch.bfloat16, dev, SEED)
+        quant.quantize_model(model, mode="w8a8")
+        model = mesh_copy(model)
+        reqs = [(p, m, mf) for (p, m), mf in zip(prompts,
+                                                  MESH_GLOO_REQ_FRAMES)]
+        want = mesh_engine_streams(model, None, reqs, n_slots=4)[0]
+        sharded = parallel.shard_model(mesh_copy(model), mesh_d)
+        got, ms_block, _ = mesh_engine_streams(sharded, mesh_d, reqs,
+                                               n_slots=4, eager=True)
+        if got is not None:
+            # the layout's noise: the slots of a rank (2) against the
+            # one-process engine's 4, teacher-forced on its streams
+            n_f = max(len(w) for w in want)
+            ref = forced_logits(model, prompts, want, n_f)
+            halves = [forced_logits(model, prompts[lo:lo + 2],
+                                    want[lo:lo + 2], n_f) for lo in (0, 2)]
+            spreads = layout_spreads(ref[:2], (
+                torch.cat([h[0] for h in halves], dim=1),
+                torch.cat([h[1] for h in halves], dim=2)))
+            out["engine"] = dict(
+                equal=all(np.array_equal(a, b) for a, b in zip(got, want)),
+                spreads=spreads,
+                firsts=first_differences(got, want, ref, spreads),
+                ms_block=ms_block)
+        dist.destroy_process_group()
+        results.put(out)
+    except BaseException:  # the parent fails the phase with it
+        results.put(dict(rank=rank, error=traceback.format_exc()))
+
+
+def mesh_partials(model: CSM, mesh, dev) -> dict:
+    """This rank's int32 partials of its columns of the backbone's layer-0
+    o_proj and down_proj codes (`w8a8_partial`), summed over the model
+    axis, against the whole codes' int32 sums through the kernel and its
+    plain version: {name: bit-equal}."""
+    from csm_mlx_tpu_torch.ops import tensor_parallel
+
+    tp = tensor_parallel.TensorParallel(mesh.get_group("model"),
+                                        mesh.size(),
+                                        mesh.get_local_rank("model"))
+    layer = model.params["backbone"]["layers"][0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 210)
+    out = {}
+    for name, wq in (("o_proj", layer["self_attn"]["o_proj"]["weight_q"]),
+                     ("down_proj", layer["mlp"]["down_proj"]["weight_q"])):
+        x = torch.randn((MESH_GLOO_ROWS, wq.shape[1]), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        qx, _ = quant.w8a8_quant_rows(x)
+        step = wq.shape[1] // tp.size
+        lo = tp.rank * step
+        local = quant.w8a8_partial(qx, lo, wq[:, lo:lo + step].contiguous())
+        summed = tensor_parallel.all_reduce(local, tp)
+        whole = quant.w8a8_partial(qx, 0, wq)
+        plain = quant._int_dot(qx, wq).to(torch.int32)
+        out[name] = bool(torch.equal(summed, whole)
+                         and torch.equal(whole, plain))
+    return out
+
+
+def run_mesh_serving(dev, workdir: str) -> dict:
+    """Sharded serving at full CSM-1B width: `shard_model` + `mesh=`.
+
+    (a) One NCCL rank in this process, a {data: 1, model: 1} mesh, CSM-1B
+    W8A8 (kernel 3's tables dropped: the dispatched decoder). Under a mesh
+    the tensor-parallel code runs at a model axis of 1: o_proj and
+    down_proj through kernel 1's three in-sharded entries, the embeddings
+    and heads through their collectives, so the captured graphs hold NCCL
+    calls. `generate_tokens` of MESH_FRAMES frames from a 32-row and a
+    300-row prompt (kernel 2), captured, held to the mesh-less dispatched
+    run of the same weights: exact equality (every collective is over one
+    rank and the in-sharded entries give the fused kernel's bits). The
+    engine (MESH_SLOTS slots, K = MESH_K, `flash_decode_min_b=8`, 16
+    requests), captured, its streams held to the mesh-less engine's. The
+    collectives each graph's capture recorded, and the device kernels and
+    memcpy nodes of two frame-step replays (profiler). Kernel 1's
+    in-sharded entries against their plain versions, timed beside the
+    fused kernel (`check_tp_in`).
+    (b) Two gloo ranks spawned on the one card (NCCL refuses two ranks on
+    one GPU; gloo moves CUDA tensors through the host, so a graph cannot
+    hold it: eager), `mesh_serving_rank`: {model: 2} bf16 and W8A8
+    batches against a one-process run, the partials' check; {data: 2} the
+    engine at 4 slots. A rank's heads or rows are another layout than the
+    one-process run's, and the card's sums for a row or a head can change
+    with the layout (`layout_probe`): each run is held to the one-process
+    run by its first differences, every one a near tie (under 4 spreads
+    of the layout's noise, measured teacher-forced: `forced_logits`,
+    `layout_spreads`, `first_differences`), and that noise below
+    FORCED_SPREAD_TOL of the logits' std. Its ms are gloo-bound readings,
+    not speeds."""
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp
+
+    args = csm_1b()
+    info = card_info()
+    t_phase = time.perf_counter()
+    out = dict(kernels=check_tp_in(dev, torch.Generator(
+        device=dev).manual_seed(SEED + 100)))
+    t_a = time.perf_counter()
+    counts = counting_collectives()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    mesh = parallel.create_mesh({"data": 1, "model": 1})
+    model = build_csm_1b(dev)
+    ref = mesh_copy(model)
+    sharded = parallel.shard_model(mesh_copy(model), mesh)
+    del model
+    torch.cuda.empty_cache()
+    runs = {}
+    reset_counts()
+    for rows, seed in ((32, SEED), (MESH_LONG_ROWS, SEED + 1)):
+        prompt, mask = synthetic_prompt(rows, args.n_text_vocab, seed)
+        want = generate_tokens(ref, prompt, mask, MESH_FRAMES,
+                               temperature=0.0)
+        before = read_counts()
+        got = generate_tokens(sharded, prompt, mask, MESH_FRAMES,
+                              temperature=0.0, mesh=mesh)
+        after = read_counts()
+        runs[rows] = dict(equal=bool(np.array_equal(got[0], want[0])
+                                     and got[1] == want[1]), n=got[1],
+                          counts={k: after[k] - before[k] for k in after})
+    counts_gen = {k: sum(r["counts"][k] for r in runs.values())
+                  for k in runs[32]["counts"]}
+    graph = frame_step_graph(sharded, ref, counts)
+    reqs = [synthetic_prompt(32, args.n_text_vocab, SEED + 300 + i)
+            + (MESH_REQ_FRAMES[i % len(MESH_REQ_FRAMES)],)
+            for i in range(MESH_SLOTS)]
+    want, ms_ref, replay_ref = mesh_engine_streams(
+        ref, None, reqs, n_slots=MESH_SLOTS, flash_decode_min_b=8)
+    before = read_counts()
+    engine_held = dict(counts)
+    got, ms_mesh, replay_mesh = mesh_engine_streams(
+        sharded, mesh, reqs, n_slots=MESH_SLOTS, flash_decode_min_b=8)
+    after = read_counts()
+    engine_held = {k: counts[k] - engine_held[k] for k in counts}
+    engine_counts = {k: after[k] - before[k] for k in after}
+    engine_equal = all(np.array_equal(a, b) for a, b in zip(got, want))
+    dist.destroy_process_group()
+    del ref, sharded
+    torch.cuda.empty_cache()
+    for rows, r in runs.items():
+        c = r["counts"]
+        log(f"mesh (a) one NCCL rank, {{data: 1, model: 1}}, CSM-1B W8A8 "
+            f"dispatched, {rows}-row prompt, {r['n']} frames captured "
+            f"({info}): equal to the mesh-less run {r['equal']}; launches "
+            f"kernel 1 fused {c['w8a8_matvec']}, quant_rows "
+            f"{c['w8a8_quant_rows']}, partial {c['w8a8_partial']}, fixup "
+            f"{c['w8a8_fixup']}; kernel 2 {c['flash_prefill_sdpa']}; "
+            f"kernel 3 {c['resident_decode_frame']}")
+    log(f"mesh (a) the frame step's graph: its capture recorded "
+        f"{graph['captured']['all_reduce']} all_reduce and "
+        f"{graph['captured']['all_gather_into_tensor']} "
+        f"all_gather_into_tensor NCCL calls; a replay under the profiler: "
+        f"{graph['events']:.0f} device events, {graph['nccl']:.0f} NCCL "
+        f"kernels, {graph['memcpy']:.0f} memcpy nodes (a one-rank NCCL "
+        f"collective is a copy or nothing), kernel 1's quant_rows "
+        f"{graph['quant_rows']:.0f}, partial {graph['partial']:.0f}, fixup "
+        f"{graph['fixup']:.0f}; ms a replayed frame (5 replays, alternated) "
+        + "; ".join(f"{k} " + ", ".join(f"{x:.2f}" for x in v)
+                    for k, v in graph["ms"].items()))
+    log(f"mesh (a) engine, {MESH_SLOTS} slots, K={MESH_K}, "
+        f"flash_decode_min_b=8, {len(reqs)} requests: streams equal to the "
+        f"mesh-less engine's {engine_equal}; device ms a replayed block "
+        f"{replay_mesh:.2f} mesh, {replay_ref:.2f} mesh-less (wall ms a "
+        f"block over the run, warm-ups and captures included, "
+        f"{ms_mesh:.1f} and {ms_ref:.1f}); its captures "
+        f"recorded {engine_held['all_reduce']} all_reduce and "
+        f"{engine_held['all_gather_into_tensor']} all_gather_into_tensor "
+        f"NCCL calls; launches kernel 1 fused "
+        f"{engine_counts['w8a8_matvec']}, quant_rows "
+        f"{engine_counts['w8a8_quant_rows']}, partial "
+        f"{engine_counts['w8a8_partial']}, fixup "
+        f"{engine_counts['w8a8_fixup']}, kernel 4 "
+        f"{engine_counts['flash_decode_sdpa']}, kernel 2 "
+        f"{engine_counts['flash_prefill_sdpa']}")
+    probe = layout_probe(dev)
+    log(f"layout probe ({info}): bit-equal to the same heads / rows of the "
+        f"whole call: backbone attention on 16 of 32 heads "
+        f"{probe['heads']}, on 2 of 4 rows {probe['rows']}; decoder "
+        f"attention on 4 of 8 heads {probe['decoder_heads']}, on 2 of 4 rows "
+        f"{probe['decoder_rows']}; a bf16 2,048 -> 2,051 matmul on 2 of 4 "
+        f"rows {probe['matmul_rows']}; the fp32 audio head (1,024 -> 2,051) "
+        f"on 2 of 4 rows {probe['fp32_head_rows']}; kernel 1 (2,048 -> "
+        f"3,072) on 2 of 4 rows {probe['kernel1_rows']}; the 33-slot input "
+        f"sum on 2 of 4 rows {probe['slot_sum_rows']}; the RMS norm on 2 of "
+        f"4 rows {probe['rms_norm_rows']}; a 32-row prefill's causal "
+        f"attention on 16 of 32 heads {probe['prefill_heads']}, on 2 of 4 "
+        f"rows {probe['prefill_rows']}")
+    if not all(r["equal"] for r in runs.values()) or not engine_equal:
+        raise AssertionError("a one-rank mesh run differs from the "
+                             "mesh-less run")
+    if not (runs[MESH_LONG_ROWS]["counts"]["flash_prefill_sdpa"]
+            and engine_counts["flash_decode_sdpa"]
+            and all(counts_gen[f"w8a8_{e}"] for e in
+                    ("matvec", "quant_rows", "partial", "fixup"))
+            and graph["captured"]["all_reduce"]
+            and engine_held["all_reduce"]):
+        raise AssertionError("the mesh path skipped a kernel or a graph "
+                             "holds no collective")
+
+    t_b = time.perf_counter()
+    ctx = tmp.get_context("spawn")
+    results = ctx.Queue()
+    payload = dict(device=str(dev))
+    procs = [ctx.Process(target=mesh_serving_rank,
+                         args=(r, 2, f"{workdir}/mesh-store", payload,
+                               results)) for r in range(2)]
+    for p in procs:
+        p.start()
+    ranks = {}
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    try:
+        while len(ranks) < 2 and time.monotonic() < deadline:
+            try:
+                r = results.get(timeout=5)
+            except __import__("queue").Empty:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+                continue
+            ranks[r["rank"]] = r
+            if "error" in r:
+                break
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    log(f"mesh serving's parts: check_tp_in {t_a - t_phase:.1f} s, (a) "
+        f"{t_b - t_a:.1f} s, (b) {time.perf_counter() - t_b:.1f} s")
+    bad = [r["error"] for r in ranks.values() if "error" in r]
+    if bad or len(ranks) < 2:
+        raise AssertionError("mesh (b) failed: "
+                             f"{[p.exitcode for p in procs]}\n" + "\n".join(bad))
+    def held(m) -> bool:
+        """Every first difference a near tie of a layout noise that is
+        small against the logits."""
+        return (all(x[4] < 4 for x in m["firsts"])
+                and all(rel <= FORCED_SPREAD_TOL
+                        for _, rel in m["spreads"].values()))
+
+    def fmt(m) -> str:
+        return ("; layout noise teacher-forced (spread, of the logits' std) "
+                + ", ".join(f"{k} {sp:.3g} ({rel:.2%})"
+                            for k, (sp, rel) in m["spreads"].items())
+                + "; first differences (row, frame, codebook, margin, "
+                "spreads) " + (", ".join(
+                    f"({r}, {f}, {c}, {mg:.3g}, {sp:.2f})"
+                    for r, f, c, mg, sp in m["firsts"]) or "none"))
+
+    for r in (ranks[0], ranks[1]):
+        for kind in ("bf16", "w8a8"):
+            m = r[kind]
+            log(f"mesh (b) rank {r['rank']}, {{model: 2}} over gloo on "
+                f"cuda:0, CSM-1B {kind} dispatched, {MESH_GLOO_ROWS} rows x "
+                f"{MESH_GLOO_FRAMES} frames, eager: frames equal to the "
+                f"one-process run {m['equal']} ({m['agree']:.1%} of codes "
+                f"agree)" + fmt(m) + f"; codebook 0's logits after the "
+                f"prefill within {m['c0_err']:.2e} of their largest (tol "
+                f"{STEP_TOL[torch.bfloat16]:g}); down_proj holds "
+                f"{m['local_rows']} of 8192 input columns; "
+                f"{m['ms_frame']:.0f} ms a frame (a gloo-bound reading: "
+                f"each collective crosses the host)")
+        log(f"mesh (b) rank {r['rank']}: kernel 1's int32 partials of its "
+            f"columns, summed over the 2 ranks, equal the solo int32 sums "
+            f"{r['partials']}")
+    e = ranks[0]["engine"]
+    log(f"mesh (b) {{data: 2}} engine, 4 slots (2 a rank), 4 requests, "
+        f"W8A8 dispatched, eager: rank 0's streams equal the one-process "
+        f"engine's {e['equal']}" + fmt(e) + f"; {e['ms_block']:.0f} ms a "
+        f"block (a gloo-bound reading)")
+    ok = (all(held(r["w8a8"]) and held(r["bf16"])
+              and all(r["partials"].values())
+              and r["bf16"]["c0_err"] <= STEP_TOL[torch.bfloat16]
+              for r in ranks.values()) and held(e))
+    if not ok:
+        raise AssertionError("mesh (b): a sharded run leaves the "
+                             "one-process run at more than a near tie")
+    out.update(launches=counts_gen, graph=graph, engine=engine_counts,
+               gloo=ranks)
+    return out
+
+
 def timed(fn, *a):
     """fn(*a), its seconds logged after the phase's own lines."""
     t0 = time.perf_counter()
@@ -5196,6 +6044,8 @@ def main() -> None:
     timed(check_training_vs_plain, dev)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
         par = timed(run_parallel, dev, workdir)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        mesh_serving = timed(run_mesh_serving, dev, workdir)
 
     launches = main_path["counts"]
     k3 = frame[1]  # the main path's shape: one row
@@ -5258,6 +6108,24 @@ def main() -> None:
              launches=training["launches"][1],
              parallel_launches=par["launches"][1], **flash_tr["bwd"]),
     ]
+    for entry in ("quant_rows", "partial", "fixup"):
+        cases = mesh_serving["kernels"][entry]
+        head = cases[TP_IN_ROWS.index(1) + len(TP_IN_ROWS)]  # down_proj, B=1
+        kernels.insert(1 + ("quant_rows", "partial", "fixup").index(entry),
+                       dict(name=f"w8a8_{entry}", of="w8a8_matvec",
+                            route="cuda",
+                            source="csm_mlx_tpu_torch/csrc/w8a8_matvec.cu",
+                            replaces="csm_mlx_tpu/ops/quant.py:152",
+                            launches=mesh_serving["launches"][f"w8a8_{entry}"],
+                            engine_launches=mesh_serving["engine"][
+                                f"w8a8_{entry}"],
+                            case=head["case"],
+                            max_abs_err=max(c["max_abs_err"] for c in cases),
+                            ms=head["ms"], plain_ms=head["plain_ms"],
+                            bound_ms=head["bound_ms"],
+                            bound_by=head["bound_by"],
+                            library_ms=head["library_ms"],
+                            cases=cases))
     log(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     log(card_info())  # again beside the results: the build log is long
     print(json.dumps({"kernels": kernels}))

@@ -1,12 +1,22 @@
 """`serve` — the TTS HTTP server (port of `csm_mlx_tpu/cli/serve.py`),
 lockstep (`serve.TTSServer`) or, with `--continuous`, over the continuous
 engine (`serve.ContinuousTTSServer`). The flags and defaults are the JAX
-CLI's; `--mesh` exits naming the ROADMAP item it waits for. Weights and
-adapters are local paths."""
+CLI's. Weights and adapters are local paths.
+
+`--mesh data=2,model=4` serves across GPUs, one process a card under
+`torchrun --nproc-per-node N -m csm_mlx_tpu_torch serve --mesh ...`: each
+rank loads the model, `parallel.create_mesh` joins the NCCL group from
+torchrun's environment, `parallel.shard_model` keeps the rank's shards,
+and rank 0 binds the port while every other rank follows it
+(`TTSServer.follow`, `ContinuousTTSServer.follow`)."""
 
 from __future__ import annotations
 
 import argparse
+from datetime import timedelta
+
+# how long a follower rank waits for rank 0's next request
+FOLLOWER_TIMEOUT = timedelta(days=365)
 
 
 def add_parser(subparsers) -> None:
@@ -54,13 +64,36 @@ def add_parser(subparsers) -> None:
                    help="Continuous mode: concurrent generation slots "
                         "(default: kernel 3's rows a launch)")
     p.add_argument("--mesh", default=None, metavar="AXES",
-                   help="Multi-card serving, 'data=2,model=4' (not "
-                        "ported: exits)")
+                   help="Multi-card serving under torchrun: mesh axes as "
+                        "'data=2,model=4' (sizes multiply to the world "
+                        "size). Shards the model over 'model' and request "
+                        "rows / slots over 'data'; with --quantize the "
+                        "W8A8 linears run per shard (the whole-frame "
+                        "decoder kernel is dropped)")
     p.set_defaults(func=run)
 
 
-def make_server(args: argparse.Namespace, csm):
-    """The server the flags ask for, over a loaded model."""
+def parse_mesh_argument(spec: str) -> "dict[str, int]":
+    """'data=2,model=4' -> {"data": 2, "model": 4} (axis order preserved —
+    it defines the device layout; "model" innermost)."""
+    axes: dict = {}
+    for part in spec.split(","):
+        name, _, size = part.partition("=")
+        name = name.strip()
+        if not name or not size.strip().isdigit() or int(size) < 1:
+            raise ValueError(
+                f"bad mesh axis {part!r} in --mesh {spec!r}; expected "
+                f"NAME=SIZE pairs like 'data=2,model=4'")
+        if name in axes:
+            raise ValueError(
+                f"duplicate mesh axis {name!r} in --mesh {spec!r}")
+        axes[name] = int(size.strip())
+    return axes
+
+
+def make_server(args: argparse.Namespace, csm, mesh=None):
+    """The server the flags ask for, over a loaded (and, with `mesh`,
+    sharded) model."""
     from csm_mlx_tpu_torch.serve import ContinuousTTSServer, TTSServer
 
     if args.continuous:
@@ -69,25 +102,73 @@ def make_server(args: argparse.Namespace, csm):
             max_audio_length_ms=args.max_audio_length,
             temperature=args.temperature, watermark_key=args.watermark_key,
             max_pending=args.max_pending, transfer=args.transfer,
-            quantize_codec=args.quantize_codec)
+            quantize_codec=args.quantize_codec, mesh=mesh)
     return TTSServer(
         csm, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
         max_audio_length_ms=args.max_audio_length,
         temperature=args.temperature, watermark_key=args.watermark_key,
-        transfer=args.transfer, max_pending=args.max_pending)
+        transfer=args.transfer, max_pending=args.max_pending, mesh=mesh)
+
+
+def serve_model(args: argparse.Namespace, csm, devices=None,
+                until=None) -> None:
+    """Serve a loaded model as the flags ask: with `--mesh`, on a mesh
+    over the default process group's ranks (`devices` as in
+    `parallel.create_mesh`), the model sharded, rank 0 binding the port
+    and every other rank following it. `until`: an async function of the
+    bound port; the server stops when it returns (None: serve for ever)."""
+    import asyncio
+
+    from csm_mlx_tpu_torch.serve import serve_http
+
+    mesh = None
+    if args.mesh:
+        import torch.distributed as dist
+
+        from csm_mlx_tpu_torch.parallel import create_mesh, shard_model
+        from csm_mlx_tpu_torch.parallel.mesh import _init_group
+
+        if not dist.is_initialized():
+            # the followers wait in a broadcast for rank 0's next request,
+            # for as long as the server is idle
+            _init_group(devices == "cpu", timeout=FOLLOWER_TIMEOUT)
+        try:
+            mesh = create_mesh(parse_mesh_argument(args.mesh), devices)
+        except ValueError as e:
+            raise SystemExit(f"csm-torch serve: {e}")
+        shard_model(csm, mesh)
+    server = make_server(args, csm, mesh)
+    if mesh is not None and mesh.get_rank() != 0:
+        server.follow()
+        return
+
+    async def main():
+        http = await serve_http(server, host=args.host, port=args.port)
+        port = http.sockets[0].getsockname()[1]
+        print(f"Serving TTS on http://{args.host}:{port} "
+              f"(POST /tts, POST /tts-stream, GET /healthz, GET /stats)")
+        try:
+            async with http:
+                if until is None:
+                    await http.serve_forever()
+                else:
+                    await until(port)
+        finally:
+            await server.stop()  # under a mesh, the followers leave too
+
+    asyncio.run(main())
 
 
 def run(args: argparse.Namespace) -> None:
-    import asyncio
-
     from csm_mlx_tpu_torch.cli.config import MODEL
     from csm_mlx_tpu_torch.cli.generate import (parse_adapter_argument,
                                                 parse_weight_argument)
 
     if args.mesh:
-        raise SystemExit(
-            "serve: --mesh: parallelism is not ported yet (ROADMAP queue 1, "
-            "item 12)")
+        try:
+            parse_mesh_argument(args.mesh)
+        except ValueError as e:
+            raise SystemExit(f"csm-torch serve: {e}")
     if args.quantize_codec and not args.continuous:
         raise SystemExit(
             "csm-torch serve: --quantize-codec requires --continuous "
@@ -100,8 +181,14 @@ def run(args: argparse.Namespace) -> None:
     from csm_mlx_tpu_torch.loaders import load_csm_weights
     from csm_mlx_tpu_torch.models.csm import CSM
     from csm_mlx_tpu_torch.ops.quant import quantize_model
-    from csm_mlx_tpu_torch.serve import serve_http
 
+    if args.mesh:
+        import os
+
+        import torch
+
+        # each rank loads onto its own card (torchrun's LOCAL_RANK)
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
     print("Loading model...")
     csm = CSM(MODEL[args.model]["config"],
               params=load_csm_weights(weight, device=resolve_device()))
@@ -109,14 +196,4 @@ def run(args: argparse.Namespace) -> None:
         load_adapters(csm, adapter)
     if args.quantize:
         quantize_model(csm, mode="w8a8")
-    server = make_server(args, csm)
-
-    async def main():
-        http = await serve_http(server, host=args.host, port=args.port)
-        port = http.sockets[0].getsockname()[1]
-        print(f"Serving TTS on http://{args.host}:{port} "
-              f"(POST /tts, POST /tts-stream, GET /healthz, GET /stats)")
-        async with http:
-            await http.serve_forever()
-
-    asyncio.run(main())
+    serve_model(args, csm)

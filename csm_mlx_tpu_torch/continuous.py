@@ -38,6 +38,12 @@ card runs block k+1 while the host reads block k (`pipeline_depth`).
 
 On the CPU, or with `eager=True`, the same block runs eagerly.
 
+Across GPUs (`mesh=`, after `parallel.shard_model`): one engine a rank,
+the model tensor-parallel over "model", the slots sharded over "data"
+when they divide it; rank 0 takes the requests and broadcasts each
+iteration's admissions and cancellations, the others `follow()`, and
+each block gathers its frames and chunks over "data" inside the graph.
+
 Token parity with the one-shot path holds at temperature 0 on the CPU in
 fp32: a row admitted mid-flight gives the frames of `generate_tokens` run
 alone.
@@ -58,13 +64,13 @@ import numpy as np
 import torch
 
 from csm_mlx_tpu_torch.generation import (HISTORY_SIZE, _assemble_prompt,
-                                          _backbone_step, _decode_frame,
-                                          _draw_seeds, _frame_to_next_input,
-                                          _pad_prompt, _prefill,
-                                          _resolve_sampler,
+                                          _backbone_step, _data_rows,
+                                          _decode_frame, _draw_seeds,
+                                          _frame_to_next_input, _pad_prompt,
+                                          _prefill, _resolve_sampler,
                                           _use_resident_decoder)
 from csm_mlx_tpu_torch.models.csm import CSM
-from csm_mlx_tpu_torch.ops import launches
+from csm_mlx_tpu_torch.ops import launches, tensor_parallel
 from csm_mlx_tpu_torch.ops.attention import kv_bucket_for, kv_prefix_buckets
 from csm_mlx_tpu_torch.ops.kv_cache import KVCache
 from csm_mlx_tpu_torch.ops.rope import rope_cache_for
@@ -96,6 +102,10 @@ class ContinuousResult:
         self.finished = False  # no more token frames will be accepted
         self.finish_reason: Optional[str] = None  # eos | cap | cancel | error
         self.cancelled = False
+        # under a mesh: the cancellation as rank 0 broadcast it, which every
+        # rank's scheduler acts on in the same iteration
+        self._cancel_seen = False
+        self._rid: Optional[int] = None  # rank 0's id, under a mesh
         self._lat_recorded = False
         self._cb_lock = threading.Lock()
         self._on_chunk: Optional[Callable] = None
@@ -291,6 +301,22 @@ class ContinuousEngine:
     (`models/mimi/quant.py`: int8 SEANet convs, the codec transformer's
     linears on kernel 1). `eager` runs every block eagerly on the card, for
     comparing.
+
+    `mesh` (after `parallel.shard_model(model, mesh)`; one engine a rank,
+    each built with the same arguments): the model runs tensor-parallel
+    over "model", and the slots shard over "data" when `n_slots` divides
+    it (else they replicate): each rank holds its slots' cache, pads,
+    history and codec state. Rank 0 alone takes requests (`submit`,
+    `submit_prompt`) and drives the loop (`start` or `run_until_idle`,
+    then `stop`); every other rank runs `follow()`. Each drive iteration
+    rank 0 broadcasts its admissions and cancellations, every rank applies
+    those of its slots, and each block's frames, EOS flags and chunks are
+    all-gathered over "data" inside the block, so every rank's scheduler
+    stays in step and rank 0 delivers the chunks. A captured block holds
+    its NCCL collectives; a mesh over gloo raises unless `eager=True`.
+    Without a `generator`, rank 0's random seed is broadcast (offset by
+    the data coordinate when the slots shard): the ranks of a model group
+    must draw alike, and their frames are compared every block.
     """
 
     # admissions pad up to the next of these batch sizes (by repeating the
@@ -326,10 +352,13 @@ class ContinuousEngine:
         mimi=None,
         eager: bool = False,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ContinuousEngine(mesh=...): parallelism is not ported yet "
-                "(ROADMAP queue 1, item 12)")
+        if mesh is not None and "_resident" in model.params:
+            # the whole-frame decoder assumes the whole decoder on one device
+            raise ValueError(
+                "ContinuousEngine(mesh=...) runs the dispatched decoder; drop "
+                "the whole-frame decoder's resident tables "
+                "(model.params.pop('_resident'), as parallel.shard_model "
+                "does) or the mesh")
         if transfer not in ("float32", "int16"):
             raise ValueError(f"transfer must be 'float32' or 'int16', "
                              f"got {transfer!r}")
@@ -358,9 +387,31 @@ class ContinuousEngine:
         self._sampler = _resolve_sampler(temperature, sampler)
         self._processors = tuple(logits_processors or ())
         self._capture = device.type == "cuda" and not eager
+        self.mesh = mesh
+        self._tp = tensor_parallel.of(model)
+        # rows of the data axis: (first slot, local slots, group), or None
+        self._rows = _data_rows(mesh, n_slots)
+        self._row_lo, self._local = ((self._rows[0], self._rows[1])
+                                     if self._rows else (0, n_slots))
+        self._rank = 0
+        self._released = False  # rank 0 told the followers to stop
+        if mesh is not None:
+            import torch.distributed as dist
+
+            self._rank = dist.get_rank()
+            if self._capture:
+                tensor_parallel.check_capture(self._tp, mesh, "eager=True")
+        self._check_tp = self._tp is not None and self._tp.size > 1
         if generator is None:
+            seed = int(np.random.randint(0, 2 ** 31 - 1))
+            if mesh is not None:
+                from csm_mlx_tpu_torch.parallel.mesh import broadcast_object
+
+                seed = broadcast_object(seed)
+                if self._rows is not None:
+                    seed += mesh.get_local_rank("data")
             generator = torch.Generator(device=device)
-            generator.manual_seed(int(np.random.randint(0, 2 ** 31 - 1)))
+            generator.manual_seed(seed)
         if generator.device != device:
             raise ValueError(f"the engine draws on {device}; the generator "
                              f"is on {generator.device}")
@@ -398,37 +449,52 @@ class ContinuousEngine:
         # One cache buffer at the full capacity; each step block reads a
         # prefix view of it (the current bucket).
         self._kv_buckets = kv_prefix_buckets(self.capacity)
-        self._cache = KVCache.init(bcfg, n_slots, self.capacity,
-                                   dtype=model.dtype, device=device)
+        rows = self._local  # the slots this rank holds
+        with tensor_parallel.scope(self._tp):
+            self._cache = KVCache.init(bcfg, rows, self.capacity,
+                                       dtype=model.dtype, device=device)
         self._cache.index.fill_(self._bootstrap)
         self._cache.length = self._bootstrap
         self._cap = (kv_bucket_for(self._bootstrap + k, self._kv_buckets)
                      or self.capacity)
         self._views: Dict[int, KVCache] = {}
         n_cb = args.n_audio_codebooks
-        self._pad = torch.full((n_slots,), self._bootstrap - 1,
+        self._pad = torch.full((rows,), self._bootstrap - 1,
                                dtype=torch.long, device=device)
-        self._frame = torch.zeros((n_slots, n_cb), dtype=torch.long,
+        self._frame = torch.zeros((rows, n_cb), dtype=torch.long,
                                   device=device)
-        self._history = torch.full((n_slots, HISTORY_SIZE), -1,
+        self._history = torch.full((rows, HISTORY_SIZE), -1,
                                    dtype=torch.long, device=device)
         self._seeds = torch.zeros(
-            (_use_resident_decoder(model.params, self._sampler, n_slots),),
+            (_use_resident_decoder(model.params, self._sampler, rows),),
             dtype=torch.int32, device=device)
         self._frame_in = torch.zeros_like(self._frame)
-        self._frames = torch.zeros((k, n_slots, n_cb), dtype=torch.long,
+        self._frames = torch.zeros((k, rows, n_cb), dtype=torch.long,
                                    device=device)
-        self._eos = torch.zeros((k, n_slots), dtype=torch.bool, device=device)
+        self._eos = torch.zeros((k, rows), dtype=torch.bool, device=device)
         self._chunks = None
         self._dec_state = None
         if self._mimi is not None:
             # the ring takes one block's K frames (2K tokens) a step
             self._dec_state = self._mimi.init_decode_state(
-                n_slots, chunk_frames=k)
+                rows, chunk_frames=k)
             self._chunks = torch.zeros(
-                (k, n_slots, self._mimi.frame_size),
+                (k, rows, self._mimi.frame_size),
                 dtype=torch.int16 if transfer == "int16" else torch.float32,
                 device=device)
+        # a block's outputs over every slot (all-gathered over "data" when
+        # the slots shard), and under tensor parallelism whether the model
+        # group's ranks made different frames
+        self._outs: Tuple[torch.Tensor, ...] = (self._frames, self._eos) + (
+            (self._chunks,) if self._chunks is not None else ())
+        if self._rows is not None:
+            self._outs = tuple(torch.zeros((t.shape[0], n_slots)
+                                           + tuple(t.shape[2:]),
+                                           dtype=t.dtype, device=device)
+                               for t in self._outs)
+        if self._check_tp:
+            self._split = torch.zeros((), dtype=torch.bool, device=device)
+            self._outs += (self._split,)
         self._graphs: Dict[int, Any] = {}   # bucket -> "warm" | graph
         self._captured: Dict[int, dict] = {}  # bucket -> launches a replay
         self._pool = None
@@ -469,14 +535,22 @@ class ContinuousEngine:
         """Requests waiting for a slot (approximate)."""
         return self._queue.qsize()
 
+    def _refuse_follower(self) -> None:
+        if self._rank != 0:
+            raise RuntimeError(
+                f"rank {self._rank} of the mesh takes no requests: rank 0 "
+                f"submits, every other rank runs follow()")
+
     def submit(self, text: str, speaker: int = 0, context: Sequence = (),
                max_frames: Optional[int] = None) -> ContinuousResult:
+        self._refuse_follower()
         prompt, mask = _assemble_prompt(self.model, text, speaker, context,
                                         self._mimi)
         return self.submit_prompt(prompt, mask, max_frames=max_frames)
 
     def submit_prompt(self, prompt: np.ndarray, mask: np.ndarray,
                       max_frames: Optional[int] = None) -> ContinuousResult:
+        self._refuse_follower()
         if self._dead is not None:
             raise RuntimeError(
                 "continuous engine died; restart a new engine") \
@@ -492,6 +566,7 @@ class ContinuousEngine:
                 f"max_prompt_bucket={self.max_prompt_bucket}")
         res = ContinuousResult(mf, self.args.n_audio_codebooks)
         res.t_submit = time.perf_counter()
+        res._rid = id(res)
         self._queue.put((res, tokens, m, int(pad_arr[0]), bucket))
         self._wake.set()
         return res
@@ -552,7 +627,7 @@ class ContinuousEngine:
             audio, _ = mimi_decode_step_fn(
                 self._mimi.params, self._mimi.cfg,
                 owed.permute(1, 2, 0).contiguous(), self._dec_state)
-            k, b = self.frames_per_step, self.n_slots
+            k, b = self.frames_per_step, self._local
             chunks = audio.reshape(b, k, -1).transpose(0, 1)
             if self.transfer == "int16":
                 # PCM16 on the device: half the bytes to the host; values
@@ -561,6 +636,27 @@ class ContinuousEngine:
                           * 32767.0).to(torch.int16)
             self._chunks.copy_(chunks)
             mark()
+        self._gather_outputs()
+
+    def _gather_outputs(self) -> None:
+        """The block's frames, EOS flags and chunks over every slot
+        (all-gathered over "data" when the slots shard; chunks as int32,
+        EOS as uint8, types both backends carry), and the model group's
+        agreement on its frames."""
+        if self._rows is not None:
+            group = self._rows[2]
+            for out, t in zip(self._outs, (self._frames, self._eos,
+                                           self._chunks)):
+                if t is None:
+                    continue
+                wire = t.to(torch.uint8 if t.dtype == torch.bool else
+                            torch.int32 if t.dtype == torch.int16 else
+                            t.dtype)
+                got = tensor_parallel.gather_rows(wire.transpose(0, 1),
+                                                  group)
+                out.copy_(got.transpose(0, 1))
+        if self._check_tp:
+            self._split.copy_(tensor_parallel.diverged(self._frames))
 
     def _run_block(self) -> None:
         cache = self._view(self._cap)
@@ -630,6 +726,7 @@ class ContinuousEngine:
         and reset their codec rows; duplicate rows: the last write wins."""
         params, args, dev = self.model.params, self.args, self.device
         n, p = tokens.shape[0], tokens.shape[1]
+        # every rank prefills the whole group; each splices its own slots
         row_cache = KVCache.init(args.backbone_config, n, p,
                                  dtype=self.model.dtype, device=dev)
         pads_t = torch.from_numpy(pads).long().to(dev)
@@ -646,7 +743,9 @@ class ContinuousEngine:
                                     self._processors, self._cos_d,
                                     self._sin_d)
         for t in range(n):  # sequential: the last write wins
-            r = int(rows[t])
+            r = int(rows[t]) - self._row_lo
+            if not 0 <= r < self._local:
+                continue  # another data group's slot
             full.k[:, r, :, at:at + p].copy_(row_cache.k[:, t])
             full.v[:, r, :, at:at + p].copy_(row_cache.v[:, t])
             self._pad[r] = at + int(pads[t])
@@ -657,6 +756,15 @@ class ContinuousEngine:
                     reset_decode_row
 
                 reset_decode_row(self._dec_state, r)
+        if self._check_tp and bool(tensor_parallel.diverged(f_n)):
+            raise RuntimeError(
+                "the ranks of the model axis sampled different frames: give "
+                "every rank's engine a generator of the same seed")
+        if self._rows is not None:
+            # each row's first frame as its slot's data group drew it
+            got = tensor_parallel.gather_rows(f_n[None], self._rows[2])
+            owner = torch.from_numpy(rows // self._local).long().to(dev)
+            f_n = got[owner, torch.arange(n, device=dev)]
         return self._to_host((f_n, (f_n == 0).all(dim=1)), reuse=False)
 
     def _rebase(self, shift: int) -> None:
@@ -745,9 +853,7 @@ class ContinuousEngine:
                              or self.capacity)
         prov = [(s.prov_req, s.prov_seq) for s in self._slots]
         self._run_block()
-        outs = (self._frames, self._eos) + (
-            (self._chunks,) if self._chunks is not None else ())
-        flight = self._to_host(outs, reuse=True)
+        flight = self._to_host(self._outs, reuse=True)
         self._idx += k
         self._cache.length = self._idx
         self._step_no += 1
@@ -826,7 +932,11 @@ class ContinuousEngine:
         prov, step_no = payload
         host = flight.get()
         frames, eoses = host[0], host[1]
-        chunks = host[2] if len(host) > 2 else None
+        chunks = host[2] if self._chunks is not None else None
+        if self._check_tp and bool(host[-1]):
+            raise RuntimeError(
+                "the ranks of the model axis sampled different frames: give "
+                "every rank's engine a generator of the same seed")
         k = self.frames_per_step
         for i, (req, seq_in) in enumerate(prov):
             slot = self._slots[i]
@@ -861,7 +971,8 @@ class ContinuousEngine:
                 if req is not slot.req or req.finished:
                     self.stats.frames_wasted += 1
                     continue
-                if req.cancelled:
+                if (req._cancel_seen if self.mesh is not None
+                        else req.cancelled):
                     self._finish_request(i, n_chunks_pending=False,
                                          reason="cancel")
                     continue
@@ -901,13 +1012,13 @@ class ContinuousEngine:
 
     # -- drive loops -----------------------------------------------------
 
-    def _drive_once(self) -> bool:
-        """One scheduler iteration; False when fully idle."""
-        # admissions: free slots from the queue, grouped by prompt bucket
-        assigned: set = set()
-        groups: Dict[int, List[Tuple[int, Tuple]]] = {}
+    def _take(self) -> List[Tuple[int, Tuple]]:
+        """(slot, queue item) for the free slots, from the queue (the
+        cancelled and the impossible requests finished on the way)."""
+        assigned: List[Tuple[int, Tuple]] = []
+        taken: set = set()
         while True:
-            slot = self._free_slot(exclude=assigned)
+            slot = self._free_slot(exclude=taken)
             if slot is None or self._queue.empty():
                 break
             item = self._queue.get()
@@ -922,20 +1033,82 @@ class ContinuousEngine:
                     f"admission bucket {bucket} exceeds cache depth "
                     f"{self._idx} — engine invariant violated"))
                 continue
-            assigned.add(slot)
-            groups.setdefault(bucket, []).append((slot, item))
-        for group in groups.values():
-            top = self._ADMIT_SIZES[-1]
-            for s0 in range(0, len(group), top):
-                self._dispatch_admit(group[s0:s0 + top])
-        if not self._active() and not self._flushing():
-            self._drain()
-            return False
-        self._maybe_rebase()
-        self._dispatch_step()
-        while len(self._inflight) > self.pipeline_depth:
-            self._fetch_one()
-        return True
+            taken.add(slot)
+            assigned.append((slot, item))
+        return assigned
+
+    def _sync(self, assigned: Optional[List[Tuple[int, Tuple]]]
+              ) -> Optional[List[Tuple[int, Tuple]]]:
+        """Under a mesh: rank 0 broadcasts this iteration's admissions and
+        cancellations (None: stop), and every rank marks the cancellations
+        of its slots' requests; a follower gets the admissions with a
+        stand-in result for each request. Returns the admissions (None
+        when rank 0 stops)."""
+        from csm_mlx_tpu_torch.parallel.mesh import broadcast_object
+
+        cmd = None
+        if self._rank == 0 and assigned is not None:
+            cancel = [s.req._rid for s in self._slots
+                      if s.req is not None and s.req.cancelled]
+            cmd = ([(slot, item[0]._rid, item[0].max_frames) + item[1:]
+                    for slot, item in assigned], cancel)
+        cmd = broadcast_object(cmd)
+        if cmd is None:
+            self._released = True
+            return None
+        admits, cancel = cmd
+        for s in self._slots:
+            if s.req is not None and s.req._rid in cancel:
+                s.req._cancel_seen = True
+        if self._rank == 0:
+            return assigned
+        out = []
+        for slot, rid, mf, *rest in admits:
+            res = ContinuousResult(mf, self.args.n_audio_codebooks)
+            res._rid = rid
+            out.append((slot, (res, *rest)))
+        return out
+
+    def _drive_once(self) -> bool:
+        """One scheduler iteration; False when fully idle."""
+        assigned = self._take()
+        if self.mesh is not None:
+            self._sync(assigned)
+        return self._drive(assigned)
+
+    def _drive(self, assigned: List[Tuple[int, Tuple]]) -> bool:
+        """Admit `assigned` (grouped by prompt bucket), then one step block
+        and the fetches it makes due; False when fully idle."""
+        with tensor_parallel.scope(self._tp):
+            groups: Dict[int, List[Tuple[int, Tuple]]] = {}
+            for slot, item in assigned:
+                groups.setdefault(item[4], []).append((slot, item))
+            for group in groups.values():
+                top = self._ADMIT_SIZES[-1]
+                for s0 in range(0, len(group), top):
+                    self._dispatch_admit(group[s0:s0 + top])
+            if not self._active() and not self._flushing():
+                self._drain()
+                return False
+            self._maybe_rebase()
+            self._dispatch_step()
+            while len(self._inflight) > self.pipeline_depth:
+                self._fetch_one()
+            return True
+
+    def follow(self) -> None:
+        """Every rank of a mesh but 0: run the device programs of rank 0's
+        drive loop, in step with it (the same admissions, blocks, rebases
+        and collectives), until rank 0 stops its engine."""
+        if self.mesh is None or self._rank == 0:
+            raise RuntimeError("follow() is for the ranks of a mesh other "
+                               "than 0; rank 0 drives the engine")
+        while True:
+            assigned = self._sync(None)
+            if assigned is None:
+                break
+            self._drive(assigned)
+        self._drain()
 
     def _drain(self) -> None:
         while self._inflight:
@@ -958,11 +1131,15 @@ class ContinuousEngine:
         self._thread.start()
 
     def stop(self) -> None:
+        """Stop the owned thread; under a mesh, rank 0 also releases the
+        followers (`follow` returns)."""
         self._stop_evt.set()
         self._wake.set()
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.mesh is not None and self._rank == 0 and not self._released:
+            self._sync(None)
 
     def _loop(self) -> None:
         while not self._stop_evt.is_set():
@@ -977,6 +1154,8 @@ class ContinuousEngine:
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
         self._drain()
+        if self.mesh is not None:
+            self._sync(None)  # the followers stop too
         self._fail_all(RuntimeError("engine stopped"))
 
     def _fail_all(self, err: BaseException) -> None:

@@ -33,6 +33,18 @@
 // round half away from zero and change the codes at every .5). The fix-up
 // uses __fmul_rn / __fadd_rn so that the compiler does not contract it into
 // FMAs and it rounds like the plain PyTorch version.
+//
+// Tensor parallelism splits the product in two places (the JAX package's
+// `_quant_linear_tp`, tp="in": o_proj and down_proj with their input dim
+// sharded over the mesh's "model" axis). Three more entries serve it:
+// `csm_w8a8_quant_rows` quantizes the whole (gathered) activation row
+// alone, giving the codes and `aux` the fused call would compute;
+// `csm_w8a8_partial` contracts a column range of those codes (row stride
+// `ldx`) against the local int8 shard to RAW int32 sums, on the matvec
+// route up to 64 rows and the GEMM route above (the same kernels with the
+// fix-up left out); after the int32 all-reduce, `csm_w8a8_fixup` applies
+// the fix-up once, in the kernels' order. Integer sums are exact in any
+// order, so the three give the fused kernel's output bit for bit.
 
 #include <cstdint>
 
@@ -87,9 +99,12 @@ __device__ __forceinline__ int dot16(const int4& a, const int4& b, int acc) {
   return __dp4a(a.w, b.w, acc);
 }
 
-template <typename T, int RB>
+// kRaw: out is int32 and gets the raw sums P (no fix-up; aux, s, z unused).
+// qx rows are `ldx` bytes apart (in_dim for the fused call).
+template <typename T, int RB, bool kRaw>
 __global__ void __launch_bounds__(kWarps * 32)
-w8a8_matvec_kernel(const int8_t* __restrict__ qx, const float2* __restrict__ aux,
+w8a8_matvec_kernel(const int8_t* __restrict__ qx, int ldx,
+                   const float2* __restrict__ aux,
                    const int8_t* __restrict__ w, const float* __restrict__ s,
                    const float* __restrict__ z, T* __restrict__ out,
                    int rows, int in_dim, int out_dim) {
@@ -120,7 +135,7 @@ w8a8_matvec_kernel(const int8_t* __restrict__ qx, const float2* __restrict__ aux
     for (int r = 0; r < RB; ++r) {
       if (r0 + r < rows) {
         const int4 xv = __ldg(reinterpret_cast<const int4*>(
-                                  qx + (size_t)(r0 + r) * in_dim) + v);
+                                  qx + (size_t)(r0 + r) * ldx) + v);
 #pragma unroll
         for (int c = 0; c < kOC; ++c) acc[c][r] = dot16(wv[c], xv, acc[c][r]);
       }
@@ -140,28 +155,34 @@ w8a8_matvec_kernel(const int8_t* __restrict__ qx, const float2* __restrict__ aux
     for (int c = 0; c < kOC; ++c) {
       const int o = o0 + c;
       if (o >= out_dim) continue;
-      const float so = s[o], zo = z[o];
+      if constexpr (kRaw) {
 #pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        const int b = r0 + r;
-        if (b >= rows) continue;
-        const float2 a = aux[b];  // (absmax / 127, sum of the row)
-        const float y = __fadd_rn(__fmul_rn(__fmul_rn((float)acc[c][r], so), a.x),
-                                  __fmul_rn(zo, a.y));
-        out[(size_t)b * out_dim + o] = from_f32<T>(y);
+        for (int r = 0; r < RB; ++r)
+          if (r0 + r < rows) out[(size_t)(r0 + r) * out_dim + o] = acc[c][r];
+      } else {
+        const float so = s[o], zo = z[o];
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          const int b = r0 + r;
+          if (b >= rows) continue;
+          const float2 a = aux[b];  // (absmax / 127, sum of the row)
+          const float y = __fadd_rn(__fmul_rn(__fmul_rn((float)acc[c][r], so), a.x),
+                                    __fmul_rn(zo, a.y));
+          out[(size_t)b * out_dim + o] = from_f32<T>(y);
+        }
       }
     }
   }
 }
 
-template <typename T, int RB>
-void launch_matvec(const int8_t* qx, const float2* aux, const int8_t* w,
+template <typename T, int RB, bool kRaw>
+void launch_matvec(const int8_t* qx, int ldx, const float2* aux, const int8_t* w,
                    const float* s, const float* z, T* out, int rows, int in_dim,
                    int out_dim, cudaStream_t stream) {
   const int per_block = kWarps * kOC;
   dim3 grid((out_dim + per_block - 1) / per_block, (rows + RB - 1) / RB);
-  w8a8_matvec_kernel<T, RB><<<grid, kWarps * 32, 0, stream>>>(
-      qx, aux, w, s, z, out, rows, in_dim, out_dim);
+  w8a8_matvec_kernel<T, RB, kRaw><<<grid, kWarps * 32, 0, stream>>>(
+      qx, ldx, aux, w, s, z, out, rows, in_dim, out_dim);
 }
 
 constexpr int kGemmM = 128, kGemmN = 128, kGemmK = 64, kGemmStages = 3;
@@ -171,9 +192,11 @@ constexpr int kGemmTile = kGemmM * kGemmStride;
 constexpr int kGemmSmem = kGemmStages * 2 * kGemmTile;
 
 // out = fix-up(qx . w^T) for rows > 64: block tile 128 rows x 128 channels.
-template <typename T>
+// kRaw and ldx as in the matvec.
+template <typename T, bool kRaw>
 __global__ void __launch_bounds__(kGemmThreads)
-w8a8_gemm_kernel(const int8_t* __restrict__ qx, const float2* __restrict__ aux,
+w8a8_gemm_kernel(const int8_t* __restrict__ qx, int ldx,
+                 const float2* __restrict__ aux,
                  const int8_t* __restrict__ w, const float* __restrict__ s,
                  const float* __restrict__ z, T* __restrict__ out, int rows,
                  int in_dim, int out_dim) {
@@ -193,7 +216,7 @@ w8a8_gemm_kernel(const int8_t* __restrict__ qx, const float2* __restrict__ aux,
       const int r = i >> 2, k = k0 + (i & 3) * 16;
       const bool ok = m0 + r < rows && k < in_dim;
       cp_async16(sa + stage * kGemmTile + r * kGemmStride + (i & 3) * 16,
-                 ok ? qx + (size_t)(m0 + r) * in_dim + k : qx, ok);
+                 ok ? qx + (size_t)(m0 + r) * ldx + k : qx, ok);
     }
     for (int i = threadIdx.x; i < kGemmN * 4; i += kGemmThreads) {
       const int r = i >> 2, k = k0 + (i & 3) * 16;
@@ -251,10 +274,14 @@ w8a8_gemm_kernel(const int8_t* __restrict__ qx, const float2* __restrict__ aux,
         const int b = m0 + wm * 64 + mi * 16 + g + (i >> 1) * 8;
         const int o = n0 + wn * 32 + ni * 8 + tg * 2 + (i & 1);
         if (b < rows && o < out_dim) {
-          const float2 a = aux[b];  // (absmax / 127, sum of the row)
-          const float y = __fadd_rn(__fmul_rn(__fmul_rn((float)acc[mi][ni][i], s[o]), a.x),
-                                    __fmul_rn(z[o], a.y));
-          out[(size_t)b * out_dim + o] = from_f32<T>(y);
+          if constexpr (kRaw) {
+            out[(size_t)b * out_dim + o] = acc[mi][ni][i];
+          } else {
+            const float2 a = aux[b];  // (absmax / 127, sum of the row)
+            const float y = __fadd_rn(__fmul_rn(__fmul_rn((float)acc[mi][ni][i], s[o]), a.x),
+                                      __fmul_rn(z[o], a.y));
+            out[(size_t)b * out_dim + o] = from_f32<T>(y);
+          }
         }
       }
     }
@@ -263,8 +290,8 @@ w8a8_gemm_kernel(const int8_t* __restrict__ qx, const float2* __restrict__ aux,
 
 constexpr int kMaxDevices = 64;
 
-template <typename T>
-cudaError_t launch_gemm(const int8_t* qx, const float2* aux, const int8_t* w,
+template <typename T, bool kRaw>
+cudaError_t launch_gemm(const int8_t* qx, int ldx, const float2* aux, const int8_t* w,
                         const float* s, const float* z, T* out, int rows,
                         int in_dim, int out_dim, cudaStream_t stream) {
   // the shared-memory opt-in, once per device
@@ -274,18 +301,37 @@ cudaError_t launch_gemm(const int8_t* qx, const float2* aux, const int8_t* w,
   if (e != cudaSuccess) return e;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!ready[dev]) {
-    e = cudaFuncSetAttribute(w8a8_gemm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(w8a8_gemm_kernel<T, kRaw>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kGemmSmem);
     if (e != cudaSuccess) return e;
     ready[dev] = true;
   }
   dim3 grid((out_dim + kGemmN - 1) / kGemmN, (rows + kGemmM - 1) / kGemmM);
-  w8a8_gemm_kernel<T><<<grid, kGemmThreads, kGemmSmem, stream>>>(
-      qx, aux, w, s, z, out, rows, in_dim, out_dim);
+  w8a8_gemm_kernel<T, kRaw><<<grid, kGemmThreads, kGemmSmem, stream>>>(
+      qx, ldx, aux, w, s, z, out, rows, in_dim, out_dim);
   return cudaSuccess;
 }
 
 constexpr int kMaxMatvecRows = 64;  // W8A8_MATVEC_MAX_ROWS of ops/quant.py
+
+// The product of quantized rows (qx, ldx bytes apart) with w: the fix-up
+// into T (kRaw false), or the raw int32 sums (kRaw true, T = int).
+template <typename T, bool kRaw>
+cudaError_t product(const int8_t* qx, int ldx, const float2* aux, const int8_t* w,
+                    const float* s, const float* z, T* o, int rows, int in_dim,
+                    int out_dim, cudaStream_t stream) {
+  if (rows > kMaxMatvecRows)
+    return launch_gemm<T, kRaw>(qx, ldx, aux, w, s, z, o, rows, in_dim, out_dim, stream);
+  if (rows == 1)
+    launch_matvec<T, 1, kRaw>(qx, ldx, aux, w, s, z, o, rows, in_dim, out_dim, stream);
+  else if (rows == 2)
+    launch_matvec<T, 2, kRaw>(qx, ldx, aux, w, s, z, o, rows, in_dim, out_dim, stream);
+  else if (rows <= 4)
+    launch_matvec<T, 4, kRaw>(qx, ldx, aux, w, s, z, o, rows, in_dim, out_dim, stream);
+  else
+    launch_matvec<T, 8, kRaw>(qx, ldx, aux, w, s, z, o, rows, in_dim, out_dim, stream);
+  return cudaSuccess;
+}
 
 template <typename T>
 void run(const void* x, int8_t* qx, float2* aux, const int8_t* w,
@@ -293,18 +339,28 @@ void run(const void* x, int8_t* qx, float2* aux, const int8_t* w,
          int out_dim, cudaStream_t stream, cudaError_t* err) {
   quant_rows_kernel<T><<<rows, kQuantThreads, 0, stream>>>(
       static_cast<const T*>(x), qx, aux, in_dim);
-  T* o = static_cast<T*>(out);
-  if (rows > kMaxMatvecRows) {
-    const cudaError_t e = launch_gemm<T>(qx, aux, w, s, z, o, rows, in_dim, out_dim, stream);
-    if (e != cudaSuccess) *err = e;
-  } else if (rows == 1)
-    launch_matvec<T, 1>(qx, aux, w, s, z, o, rows, in_dim, out_dim, stream);
-  else if (rows == 2)
-    launch_matvec<T, 2>(qx, aux, w, s, z, o, rows, in_dim, out_dim, stream);
-  else if (rows <= 4)
-    launch_matvec<T, 4>(qx, aux, w, s, z, o, rows, in_dim, out_dim, stream);
-  else
-    launch_matvec<T, 8>(qx, aux, w, s, z, o, rows, in_dim, out_dim, stream);
+  const cudaError_t e = product<T, false>(qx, in_dim, aux, w, s, z,
+                                          static_cast<T*>(out), rows, in_dim,
+                                          out_dim, stream);
+  if (e != cudaSuccess) *err = e;
+}
+
+constexpr int kFixupThreads = 256;
+
+// out[b,o] = P[b,o] * s[o] * aux[b].x + z[o] * aux[b].y, the fused
+// epilogue's arithmetic on summed int32 partials.
+template <typename T>
+__global__ void __launch_bounds__(kFixupThreads)
+w8a8_fixup_kernel(const int* __restrict__ p, const float2* __restrict__ aux,
+                  const float* __restrict__ s, const float* __restrict__ z,
+                  T* __restrict__ out, int rows, int out_dim) {
+  const size_t i = (size_t)blockIdx.x * kFixupThreads + threadIdx.x;
+  if (i >= (size_t)rows * out_dim) return;
+  const int b = (int)(i / out_dim), o = (int)(i % out_dim);
+  const float2 a = aux[b];
+  const float y = __fadd_rn(__fmul_rn(__fmul_rn((float)p[i], s[o]), a.x),
+                            __fmul_rn(z[o], a.y));
+  out[i] = from_f32<T>(y);
 }
 
 }  // namespace
@@ -332,5 +388,63 @@ extern "C" int csm_w8a8_matvec(const void* x, void* qx, void* aux,
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The whole row's quantization alone: qx (rows, in_dim) int8 and aux
+// (rows, 2) fp32 = (absmax / 127, sum of the row), as the fused call
+// computes them. x: (rows, in_dim) fp32 or bf16, contiguous.
+extern "C" int csm_w8a8_quant_rows(const void* x, void* qx, void* aux, int rows,
+                                   int in_dim, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* q8 = static_cast<int8_t*>(qx);
+  auto* a2 = static_cast<float2*>(aux);
+  if (dtype == kF32)
+    quant_rows_kernel<float><<<rows, kQuantThreads, 0, st>>>(
+        static_cast<const float*>(x), q8, a2, in_dim);
+  else if (dtype == kBF16)
+    quant_rows_kernel<__nv_bfloat16><<<rows, kQuantThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), q8, a2, in_dim);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// Raw int32 sums out[b,o] = sum_i qx[b*ldx + i] * w[o*in_dim + i] for i <
+// in_dim: a column range of quantized rows (the pointer at its first
+// column, rows ldx bytes apart) against the local shard w (out_dim,
+// in_dim). qx + b*ldx and w on 16-byte boundaries, in_dim % 16 == 0
+// (checked by the wrapper). Up to 64 rows the matvec, above the GEMM.
+extern "C" int csm_w8a8_partial(const void* qx, int ldx, const void* w, void* out,
+                                int rows, int in_dim, int out_dim, void* stream) {
+  const cudaError_t e = product<int, true>(
+      static_cast<const int8_t*>(qx), ldx, nullptr, static_cast<const int8_t*>(w),
+      nullptr, nullptr, static_cast<int*>(out), rows, in_dim, out_dim,
+      static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The fix-up of summed partials: p (rows, out_dim) int32, aux (rows, 2)
+// fp32, s, z (out_dim,) fp32 -> out (rows, out_dim) in `dtype`.
+extern "C" int csm_w8a8_fixup(const void* p, const void* aux, const void* s,
+                              const void* z, void* out, int rows, int out_dim,
+                              int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t n = (size_t)rows * out_dim;
+  const unsigned blocks = (unsigned)((n + kFixupThreads - 1) / kFixupThreads);
+  auto* pi = static_cast<const int*>(p);
+  auto* a2 = static_cast<const float2*>(aux);
+  auto* sf = static_cast<const float*>(s);
+  auto* zf = static_cast<const float*>(z);
+  if (n == 0) return (int)cudaSuccess;
+  if (dtype == kF32)
+    w8a8_fixup_kernel<float><<<blocks, kFixupThreads, 0, st>>>(
+        pi, a2, sf, zf, static_cast<float*>(out), rows, out_dim);
+  else if (dtype == kBF16)
+    w8a8_fixup_kernel<__nv_bfloat16><<<blocks, kFixupThreads, 0, st>>>(
+        pi, a2, sf, zf, static_cast<__nv_bfloat16*>(out), rows, out_dim);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

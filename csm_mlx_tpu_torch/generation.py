@@ -32,6 +32,13 @@ encodes into prompt rows, `_assemble_prompt`): `generate`,
 rolling context of what it generated). `watermark_key` embeds the keyed
 watermark of `watermark.py` in the waveforms of `generate`,
 `generate_batch` and `generate_long`, as in the JAX package.
+
+Across GPUs, after `parallel.shard_model(model, mesh)`, every entry point
+runs the model tensor-parallel over the mesh's "model" axis
+(`ops.tensor_parallel`), and `mesh=` on `generate`, `generate_batch` and
+`generate_tokens(_batch)` also shards the rows over "data": one process
+a rank, each called with the same arguments, each returning the whole
+result.
 """
 
 from __future__ import annotations
@@ -45,14 +52,14 @@ from typing import Any, Callable, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from csm_mlx_tpu_torch.models.csm import (CSM, ModelArgs, embed_audio,
-                                          masked_input_embeds)
+from csm_mlx_tpu_torch.models.csm import (CSM, ModelArgs, codebook0_logits,
+                                          embed_audio, masked_input_embeds)
 from csm_mlx_tpu_torch.models.llama import llama_forward
-from csm_mlx_tpu_torch.ops import launches, resident_decoder
+from csm_mlx_tpu_torch.ops import launches, resident_decoder, tensor_parallel
 from csm_mlx_tpu_torch.ops.attention import (NEG_INF, causal_mask_bias,
                                              key_validity_bias)
 from csm_mlx_tpu_torch.ops.kv_cache import KVCache
-from csm_mlx_tpu_torch.ops.layers import emb_table, linear
+from csm_mlx_tpu_torch.ops.layers import linear
 from csm_mlx_tpu_torch.ops.quant import audio_head_logits
 from csm_mlx_tpu_torch.ops.rope import rope_cache_for
 from csm_mlx_tpu_torch.ops.sampling import (HISTORY_SIZE, SamplerConfig,
@@ -149,7 +156,7 @@ def _decode_frame(params, args: ModelArgs, last_hidden, generator, history,
     b = last_hidden.shape[0]
     device = last_hidden.device
 
-    c0_logits = linear(params["codebook0_head"], last_hidden).float()
+    c0_logits = codebook0_logits(params, args, last_hidden).float()
     c0_logits = apply_processors(processors, history, c0_logits)
     c0 = sampler(generator, c0_logits)
     history = torch.roll(history, -1, dims=-1)
@@ -206,10 +213,9 @@ def dispatched_decode(params, args: ModelArgs, proj01, dec_sampler,
         torch.arange(2, device=device)[None], dec_bias(2, 0), dcache)
     logits = [audio_head_logits(audio_head, 0, hidden[:, -1], n_vocab)]
     codes = [dec_sampler(generator, logits[0])]
-    table = emb_table(params["audio_embeddings"])
     for i in range(2, n_cb):
         prev = codes[-1] if forced is None else forced[:, i - 1]
-        emb = table[prev + (i - 1) * args.n_audio_vocab].to(dtype)
+        emb = embed_audio(params, args, i - 1, prev).to(dtype)
         x = linear(params["projection"], emb[:, None, :])
         # step i writes slot i: a Python int, nothing read from the device
         positions = torch.full((1, 1), i, device=device)
@@ -341,12 +347,16 @@ class FrameStep:
                 and generator.device != device:
             raise ValueError(f"a captured frame step draws on {device}; the "
                              f"generator is on {generator.device}")
+        self.tp = tensor_parallel.of(model)
+        if self.capture:
+            tensor_parallel.check_capture(self.tp, None, "_eager_step=True")
         self.cos_b, self.sin_b = rope_cache_for(
             bcfg, max(capacity, bcfg.max_position_embeddings), device)
         self.cos_d, self.sin_d = rope_cache_for(
             dcfg, args.n_audio_codebooks + 1, device)
-        self.cache = KVCache.init(bcfg, b, capacity, dtype=model.dtype,
-                                  device=device)
+        with tensor_parallel.scope(self.tp):
+            self.cache = KVCache.init(bcfg, b, capacity, dtype=model.dtype,
+                                      device=device)
         self.pad = torch.zeros((b,), dtype=torch.long, device=device)
         self.frame = torch.zeros((b, args.n_audio_codebooks),
                                  dtype=torch.long, device=device)
@@ -381,14 +391,29 @@ class FrameStep:
                 t.zero_()
         t = torch.from_numpy(tokens).long().to(self.device)
         m = torch.from_numpy(mask).long().to(self.device)
-        last_hidden, _ = _prefill(self.params, self.args, t, m, self.pad,
-                                  self.cache, self.cos_b, self.sin_b)
+        with tensor_parallel.scope(self.tp):
+            last_hidden, _ = _prefill(self.params, self.args, t, m, self.pad,
+                                      self.cache, self.cos_b, self.sin_b)
         return last_hidden
 
     def first(self, last_hidden: torch.Tensor) -> None:
         """The stream's first frame from the prefill's hidden state
         (eager)."""
-        self._decode(last_hidden)
+        with tensor_parallel.scope(self.tp):
+            self._decode(last_hidden)
+        self.check_replicated()
+
+    def check_replicated(self) -> None:
+        """Raise where the ranks of the model axis made different frames
+        (a sampled run whose ranks' generators differ): they would leave
+        the loop apart. Every rank sees the same gathered frames, so all
+        raise together. Nothing without tensor parallelism over > 1 rank."""
+        if self.tp is None or self.tp.size == 1:
+            return
+        if bool(tensor_parallel.diverged(self.frame, self.tp)):
+            raise RuntimeError(
+                "the ranks of the model axis sampled different frames: give "
+                "every rank a generator of the same seed")
 
     def _decode(self, last_hidden: torch.Tensor) -> None:
         if self.seeds.numel():
@@ -420,6 +445,11 @@ class FrameStep:
             raise ValueError(f"KV cache overflow: index {self.cache.length} "
                              f"+ 1 new token > capacity "
                              f"{self.cache.capacity}")
+        with tensor_parallel.scope(self.tp):
+            self._run()
+        self.check_replicated()
+
+    def _run(self) -> None:
         if not self.capture:
             self._step()
             return
@@ -509,7 +539,8 @@ def _frame_step(model: CSM, b: int, capacity: int, sampler,
                 codec=None, eager: bool = False) -> Iterator[FrameStep]:
     """The frame step of a configuration, the caller's alone for the length
     of the `with`. On the card, the one captured before for the same (B,
-    capacity, sampler, processors, generator, codec, parameter buffers) if
+    capacity, sampler, processors, tensor parallelism, generator, codec,
+    parameter buffers) if
     no other call holds it, else a new one; it is kept on the model
     (`CSM.frame_steps`) for the next call. Eager or on the CPU, a new one,
     dropped after."""
@@ -521,11 +552,28 @@ def _frame_step(model: CSM, b: int, capacity: int, sampler,
         yield build()
         return
     key = (b, capacity, sampler, processors, flash_decode_min_b,
+           tensor_parallel.of(model),
            None if generator is None else id(generator),
            None if codec is None else id(codec),
            tuple(t.data_ptr() for t in _tensors(model.params)))
     with _held(model.frame_steps, key, build) as step:
         yield step
+
+
+def _data_rows(mesh, b: int):
+    """(lo, n, group) of this rank's rows of a batch of b over the mesh's
+    "data" axis, or None where the batch replicates: no mesh, no data axis
+    of more than one rank, or b not divisible by it (JAX's
+    `_place_inputs`: tensor parallelism still applies)."""
+    if mesh is None:
+        return None
+    from csm_mlx_tpu_torch.parallel.mesh import axis_sizes
+
+    d = axis_sizes(mesh).get("data", 1)
+    if d <= 1 or b % d:
+        return None
+    n = b // d
+    return mesh.get_local_rank("data") * n, n, mesh.get_group("data")
 
 
 @torch.no_grad()
@@ -534,7 +582,7 @@ def _generate_padded(model: CSM, tokens: np.ndarray, mask: np.ndarray,
                      sampler, processors: Tuple,
                      generator: Optional[torch.Generator],
                      flash_decode_min_b: Optional[int] = None,
-                     _eager_step: bool = False
+                     _eager_step: bool = False, mesh=None
                      ) -> Tuple[np.ndarray, np.ndarray]:
     """The frame loop over a left-padded batch; returns (frames
     (max_frames, B, 32) int32, n_frames (B,) int32). A row stops counting
@@ -543,9 +591,19 @@ def _generate_padded(model: CSM, tokens: np.ndarray, mask: np.ndarray,
     eagerly, every later frame through the `FrameStep` (a replayed CUDA
     graph on the card; `_eager_step` runs it eagerly, for comparing the
     two). Backbone steps of B >= `flash_decode_min_b` rows run their
-    attention through kernel 4 (None: never)."""
+    attention through kernel 4 (None: never).
+
+    With `mesh`, every rank is given the whole batch: each data group runs
+    its block of rows (`_data_rows`) and the frames are all-gathered over
+    "data", so that every rank returns the whole result; a sharded model
+    runs tensor-parallel over "model" (`ops.tensor_parallel`)."""
     args = model.args
     device = model.device
+    rows = _data_rows(mesh, tokens.shape[0])
+    if rows is not None:
+        lo, n, _ = rows
+        tokens, mask, pad_len = (a[lo:lo + n] for a in (tokens, mask,
+                                                        pad_len))
     b = tokens.shape[0]
     frames = torch.zeros((max_frames, b, args.n_audio_codebooks),
                          dtype=torch.long, device=device)
@@ -562,6 +620,10 @@ def _generate_padded(model: CSM, tokens: np.ndarray, mask: np.ndarray,
             if bool(done.all()) or i + 1 == max_frames:
                 break
             step()
+    if rows is not None:
+        frames = tensor_parallel.gather_rows(
+            frames.transpose(0, 1), rows[2]).transpose(0, 1)
+        n_frames = tensor_parallel.gather_rows(n_frames, rows[2])
     return (frames.to(torch.int32).cpu().numpy(),
             n_frames.to(torch.int32).cpu().numpy())
 
@@ -577,17 +639,22 @@ def generate_tokens(
     logits_processors: Optional[Sequence] = None,
     generator: Optional[torch.Generator] = None,
     flash_decode_min_b: Optional[int] = None,
+    mesh: Optional[Any] = None,
     _eager_step: bool = False,
 ) -> Tuple[np.ndarray, int]:
     """One (S, 33) prompt -> (frames (F, 32) int32, F). `flash_decode_min_b`
-    as in `generate_tokens_batch`: one row takes kernel 4 only at 1."""
+    as in `generate_tokens_batch`: one row takes kernel 4 only at 1.
+
+    Pass `mesh=` (after `parallel.shard_model(model, mesh)`) to run
+    tensor-parallel over the mesh's "model" axis, one process a rank, each
+    called with the same arguments; the row replicates over "data"."""
     _check_context_window(model.args, prompt.shape[0], max_audio_frames)
     tokens, mask, pad_len, bucket = _pad_prompt(prompt, prompt_mask)
     frames, n = _generate_padded(
         model, tokens, mask, pad_len, bucket, max_audio_frames,
         _resolve_sampler(temperature, sampler),
         tuple(logits_processors or ()), generator, flash_decode_min_b,
-        _eager_step)
+        _eager_step, mesh)
     n = int(n[0])
     return frames[:n, 0, :], n
 
@@ -603,10 +670,21 @@ def generate_tokens_batch(
     logits_processors: Optional[Sequence] = None,
     generator: Optional[torch.Generator] = None,
     flash_decode_min_b: Optional[int] = None,
+    mesh: Optional[Any] = None,
     _eager_step: bool = False,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Prompts left-padded to a common bucket; each row stops at its own
     all-zero frame. Returns (frames (max_frames, B, 32), n_frames (B,)).
+
+    With `mesh=` (after `parallel.shard_model(model, mesh)`; one process a
+    rank, each given the same prompts), rows shard over the "data" axis
+    and weights over "model" (tensor parallelism), and every rank returns
+    the whole result. A batch that does not divide the "data" axis is
+    REPLICATED across it instead (tensor parallelism still applies), as in
+    JAX; pad the batch to a multiple of the data axis (as
+    `serve.TTSServer` does) to keep data parallelism. A sampled run needs
+    one generator seed on the ranks of a model group: their frames are
+    compared every frame, and a difference raises.
 
     `flash_decode_min_b`: at B >= it, each backbone step's attention runs
     the flash-decode kernel (`ops.attention.flash_decode_sdpa`, kernel 4)
@@ -630,7 +708,7 @@ def generate_tokens_batch(
         model, tokens, mask, pad_len, bucket, max_audio_frames,
         _resolve_sampler(temperature, sampler),
         tuple(logits_processors or ()), generator, flash_decode_min_b,
-        _eager_step)
+        _eager_step, mesh)
 
 
 def generate(
@@ -644,11 +722,13 @@ def generate(
     sampler: Optional[Any] = None,
     logits_processors: Optional[Sequence] = None,
     generator: Optional[torch.Generator] = None,
+    mesh: Optional[Any] = None,
     watermark_key: Optional[int] = None,
     mimi=None,
 ) -> torch.Tensor:
     """Text (+ conversational context) -> 24 kHz waveform (1-D tensor), in
-    JAX's argument order, `generator` in place of `key`.
+    JAX's argument order, `generator` in place of `key`; `mesh` as in
+    `generate_tokens`.
 
     The text goes through the canonical tokenizer
     (`tokenizers.get_text_tokenizer`: a local path installed earlier or
@@ -661,7 +741,7 @@ def generate(
     frames, n = generate_tokens(
         model, prompt, mask, max_frames, temperature=temperature,
         sampler=sampler, logits_processors=logits_processors,
-        generator=generator)
+        generator=generator, mesh=mesh)
     if n == 0:
         return torch.zeros((0,), dtype=torch.float32)
     codes = torch.from_numpy(frames.T[None].copy()).long()  # (1, K, F)
@@ -681,7 +761,8 @@ def generate_batch(
 ) -> list:
     """Batched TTS: one waveform (1-D tensor) per (text, speaker[, context])
     row. The rows' prompts, each with its own context, are left-padded to
-    one bucket (`generate_tokens_batch`, which takes `kwargs`); the frames
+    one bucket (`generate_tokens_batch`, which takes `kwargs`, `mesh=`
+    among them); the frames
     of every row go through one Mimi decode over the longest row, sliced
     per row to its own frames (each then watermarked with
     `watermark_key`, if given)."""
@@ -874,6 +955,17 @@ def generate_frame(
     `return_state=True` raises. The port's cache is advanced in place, the
     generator draws in place. A new cache holds max(max_position_embeddings
     or 2048, S) positions."""
+    with tensor_parallel.scope(tensor_parallel.of(model)):
+        return _generate_frame(
+            model, tokens, temperature=temperature, token_mask=token_mask,
+            sampler=sampler, logits_processors=logits_processors,
+            cache=cache, pad_len=pad_len, generator=generator,
+            history=history, return_state=return_state)
+
+
+def _generate_frame(model, tokens, *, temperature, token_mask, sampler,
+                    logits_processors, cache, pad_len, generator, history,
+                    return_state):
     if (cache is not None or generator is not None or history is not None) \
             and not return_state:
         raise ValueError(

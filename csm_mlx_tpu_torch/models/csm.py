@@ -25,7 +25,8 @@ from csm_mlx_tpu_torch.config import (
 )
 from csm_mlx_tpu_torch.device import resolve_device
 from csm_mlx_tpu_torch.models.llama import init_llama_params
-from csm_mlx_tpu_torch.ops.layers import emb_table
+from csm_mlx_tpu_torch.ops import tensor_parallel
+from csm_mlx_tpu_torch.ops.layers import linear
 
 Params = Dict[str, Any]
 
@@ -99,20 +100,38 @@ def init_csm_params(generator: torch.Generator, args: ModelArgs,
 
 def embed_audio(params: Params, args: ModelArgs, codebook: int,
                 tokens: torch.Tensor) -> torch.Tensor:
-    """Embedding of `tokens` under codebook number `codebook`."""
-    return emb_table(params["audio_embeddings"])[
-        tokens + codebook * args.n_audio_vocab]
+    """Embedding of `tokens` under codebook number `codebook` (a masked
+    lookup and an all-reduce where a sharded model holds a block of the
+    table's rows, `ops.tensor_parallel.embed`)."""
+    return tensor_parallel.embed(
+        params["audio_embeddings"], tokens + codebook * args.n_audio_vocab,
+        args.n_audio_vocab * args.n_audio_codebooks)
 
 
 def embed_tokens(params: Params, args: ModelArgs,
                  tokens: torch.Tensor) -> torch.Tensor:
     """Per-slot embeddings of a (B, S, 33) frame tensor -> (B, S, 33, D):
     slots 0..31 audio, offset into the fused table; slot 32 text."""
-    text = emb_table(params["text_embeddings"])[tokens[:, :, -1]][:, :, None, :]
+    text = tensor_parallel.embed(params["text_embeddings"],
+                                 tokens[:, :, -1], args.n_text_vocab)
     offsets = torch.arange(args.n_audio_codebooks, device=tokens.device,
                            dtype=tokens.dtype) * args.n_audio_vocab
-    audio = emb_table(params["audio_embeddings"])[tokens[:, :, :-1] + offsets]
-    return torch.cat([audio, text], dim=-2)
+    audio = tensor_parallel.embed(
+        params["audio_embeddings"], tokens[:, :, :-1] + offsets,
+        args.n_audio_vocab * args.n_audio_codebooks)
+    return torch.cat([audio, text[:, :, None, :]], dim=-2)
+
+
+def codebook0_logits(params: Params, args: ModelArgs,
+                     hidden: torch.Tensor) -> torch.Tensor:
+    """Codebook-0 logits (B, V) of the backbone's hidden state; where a
+    sharded model holds a block of the head's vocabulary, its local
+    logits all-gathered over the model axis."""
+    head = params["codebook0_head"]
+    sharded = (tensor_parallel.engages(head)
+               and tensor_parallel.shard_of(args.n_audio_vocab) is not None)
+    y = linear(head, hidden, "out" if sharded else None)
+    return tensor_parallel.all_gather_last(y) if sharded else y
 
 
 def masked_input_embeds(params: Params, args: ModelArgs, tokens: torch.Tensor,

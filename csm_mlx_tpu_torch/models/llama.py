@@ -15,7 +15,7 @@ import torch.utils.checkpoint
 
 from csm_mlx_tpu_torch.config import LlamaConfig
 from csm_mlx_tpu_torch.device import resolve_device
-from csm_mlx_tpu_torch.ops import layers
+from csm_mlx_tpu_torch.ops import layers, tensor_parallel
 from csm_mlx_tpu_torch.ops.attention import (flash_decode_sdpa,
                                              flash_prefill_sdpa, sdpa)
 from csm_mlx_tpu_torch.ops.flash_train import flash_attention
@@ -112,7 +112,23 @@ def _attn_layer(
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     b, s, _ = x.shape
     h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    if "qkv_proj" in p:
+    lay = tensor_parallel.attn_layout(cfg)
+    if lay is not None:
+        # this rank's heads (ops/tensor_parallel.py); o_proj in-sharded
+        parts = ((h * hd, (lay.q_lo * hd, lay.heads * hd)),
+                 (hkv * hd, (lay.kv_lo * hd, lay.kv_heads * hd)),
+                 (hkv * hd, (lay.kv_lo * hd, lay.kv_heads * hd)))
+        if "qkv_proj" in p:
+            q, k, v = tensor_parallel.split_out(
+                p["qkv_proj"], linear(p["qkv_proj"], x, "out"), parts)
+        else:
+            q, k, v = (tensor_parallel.split_out(
+                p[name], linear(p[name], x, "out"), (part,))[0]
+                for name, part in zip(("q_proj", "k_proj", "v_proj"), parts))
+        h, hkv = lay.heads, lay.kv_heads
+        q, k, v = (q.reshape(b, s, h, hd), k.reshape(b, s, hkv, hd),
+                   v.reshape(b, s, hkv, hd))
+    elif "qkv_proj" in p:
         attn_dim, kv_dim = cfg.attn_dim, hkv * hd
         qkv = linear(p["qkv_proj"], x)
         q = qkv[..., :attn_dim].reshape(b, s, h, hd)
@@ -150,7 +166,8 @@ def _attn_layer(
     else:
         out = sdpa(q, k, v, scale=hd ** -0.5, mask_bias=mask_bias)
     out = out.transpose(1, 2).reshape(b, s, -1)
-    return linear(p["o_proj"], out), cache
+    return linear(p["o_proj"], out, "in" if lay is not None else None), \
+        cache
 
 
 def _layer(lp: Params, cfg: LlamaConfig, x: torch.Tensor, cos, sin,
@@ -162,7 +179,7 @@ def _layer(lp: Params, cfg: LlamaConfig, x: torch.Tensor, cos, sin,
         cos, sin, positions, mask_bias, cache, idx, **attn)
     x = x + attn_out
     h = rms_norm(lp["post_attention_layernorm"], x, cfg.rms_norm_eps)
-    return x + swiglu_mlp(lp["mlp"], h), cache
+    return x + swiglu_mlp(lp["mlp"], h, cfg.intermediate_size), cache
 
 
 def llama_layer(lp: Params, cfg: LlamaConfig, x: torch.Tensor,

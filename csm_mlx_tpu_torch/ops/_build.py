@@ -43,6 +43,12 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # x, qx, aux, w, s, z, out, rows, in_dim, out_dim, dtype, stream
     "csm_w8a8_matvec": (_VP,) * 7 + (_I,) * 4 + (_VP,),
+    # x, qx, aux, rows, in_dim, dtype, stream
+    "csm_w8a8_quant_rows": (_VP,) * 3 + (_I,) * 3 + (_VP,),
+    # qx (at its first column), ldx, w, out, rows, in_dim, out_dim, stream
+    "csm_w8a8_partial": (_VP, _I, _VP, _VP) + (_I,) * 3 + (_VP,),
+    # p, aux, s, z, out, rows, out_dim, dtype, stream
+    "csm_w8a8_fixup": (_VP,) * 5 + (_I,) * 3 + (_VP,),
     # q, k, v, pad_len, out, 9 strides, batch, n_heads, n_kv, seq, head_dim,
     # scale, dtype, stream
     "csm_flash_prefill": (_VP,) * 5 + (_LL,) * 9 + (_I,) * 5

@@ -56,9 +56,13 @@ class KVCache:
     def init(cfg: LlamaConfig, batch_size: int, capacity: int,
              dtype=torch.bfloat16, device: torch.device | str | None = None
              ) -> "KVCache":
-        """Zeroed buffers on `device` (default `cuda`)."""
+        """Zeroed buffers on `device` (default `cuda`), for the kv heads
+        this rank holds under a sharded model's tensor parallelism
+        (`ops.tensor_parallel.local_kv_heads`; all of them without)."""
+        from csm_mlx_tpu_torch.ops.tensor_parallel import local_kv_heads
+
         device = resolve_device(device)
-        shape = (cfg.num_hidden_layers, batch_size, cfg.num_key_value_heads,
+        shape = (cfg.num_hidden_layers, batch_size, local_kv_heads(cfg),
                  capacity, cfg.head_dim)
         return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                        v=torch.zeros(shape, dtype=dtype, device=device),

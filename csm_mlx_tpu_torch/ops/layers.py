@@ -98,9 +98,22 @@ def _lora_delta(params: Params, x: torch.Tensor) -> torch.Tensor:
     return _lora_scale(params) * z
 
 
-def linear(params: Params, x: torch.Tensor) -> torch.Tensor:
+def linear(params: Params, x: torch.Tensor,
+           tp: Optional[str] = None) -> torch.Tensor:
     """y = x @ W^T (+ b), W stored (out, in); LoRA adds the adapter term,
-    DoRA renormalizes each row of the adapted weight."""
+    DoRA renormalizes each row of the adapted weight.
+
+    `tp` is the caller's tensor-parallel layout hint, as in JAX: "out"
+    (output channels shard over the model axis: the local rows run as
+    they are) or "in" (the contracted dim shards: under a sharded model's
+    `ops.tensor_parallel.scope`, x is this rank's part and the partial
+    products are summed over the model axis, `tensor_parallel.linear_in`).
+    """
+    if tp == "in":
+        from csm_mlx_tpu_torch.ops import tensor_parallel
+
+        if tensor_parallel.active() is not None:
+            return tensor_parallel.linear_in(params, x)
     if "weight_q" in params:
         if "dora_m" in params:
             raise ValueError(
@@ -155,14 +168,34 @@ def rms_norm(params: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * rrms).to(x.dtype) * params["weight"].to(x.dtype)
 
 
-def swiglu_mlp(params: Dict[str, Params], x: torch.Tensor) -> torch.Tensor:
+def swiglu_mlp(params: Dict[str, Params], x: torch.Tensor,
+               hidden: Optional[int] = None) -> torch.Tensor:
     """down(silu(gate(x)) * up(x)); fused `gateup_proj` runs gate and up as
-    one wide matmul (see models.llama.fuse_layer_weights)."""
+    one wide matmul (see models.llama.fuse_layer_weights). `hidden`, the
+    stack's intermediate size, is needed only under a sharded model's
+    tensor parallelism: the hidden columns then shard over the model axis
+    where they divide it (gate, up out-sharded; down in-sharded)."""
+    from csm_mlx_tpu_torch.ops import tensor_parallel
+
+    local = tensor_parallel.shard_of(hidden) if hidden else None
+    if local is None:
+        if "gateup_proj" in params:
+            gu = linear(params["gateup_proj"], x)
+            f = gu.shape[-1] // 2
+            gate, up = gu[..., :f], gu[..., f:]
+        else:
+            gate = linear(params["gate_proj"], x)
+            up = linear(params["up_proj"], x)
+        return linear(params["down_proj"], F.silu(gate) * up)
+    part = (hidden, local)
     if "gateup_proj" in params:
-        gu = linear(params["gateup_proj"], x)
-        f = gu.shape[-1] // 2
-        gate, up = gu[..., :f], gu[..., f:]
+        gate, up = tensor_parallel.split_out(
+            params["gateup_proj"], linear(params["gateup_proj"], x, "out"),
+            (part, part))
     else:
-        gate = linear(params["gate_proj"], x)
-        up = linear(params["up_proj"], x)
-    return linear(params["down_proj"], F.silu(gate) * up)
+        (gate,) = tensor_parallel.split_out(
+            params["gate_proj"], linear(params["gate_proj"], x, "out"),
+            (part,))
+        (up,) = tensor_parallel.split_out(
+            params["up_proj"], linear(params["up_proj"], x, "out"), (part,))
+    return linear(params["down_proj"], F.silu(gate) * up, "in")

@@ -261,22 +261,45 @@ def _int_dot(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return torch.matmul(xq.double(), wq.double().t())
 
 
-def w8a8_matvec_plain(x: torch.Tensor, weight_q: torch.Tensor,
-                      scales: torch.Tensor, biases: torch.Tensor
-                      ) -> torch.Tensor:
-    """Plain PyTorch version of kernel 1, the mirror of the JAX
-    `_xla_w8a8_matvec`. x: (B, IN) -> (B, OUT) in x.dtype."""
+def w8a8_quant_rows_plain(x: torch.Tensor
+                          ) -> "tuple[torch.Tensor, torch.Tensor]":
+    """Plain version of kernel 1's row quantization: x (B, IN) -> (qx int8
+    (B, IN), aux fp32 (B, 2) = (absmax / 127, the row's sum))."""
     xf = x.float()
     absmax = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-6)
     # A true division: `127.0 / absmax` would run as reciprocal(absmax) * 127
     # (Tensor.__rtruediv__), one rounding more, which moves some codes.
     xs = torch.full_like(absmax, 127.0) / absmax
     xq = torch.clamp(torch.round(xf * xs), -127, 127).to(torch.int8)
-    p = _int_dot(xq, weight_q)
-    out_dim = weight_q.shape[0]
-    return (p.float() * scales.reshape(1, out_dim) * (absmax / 127.0)
-            + biases.reshape(1, out_dim) * xf.sum(dim=-1, keepdim=True)
-            ).to(x.dtype)
+    return xq, torch.cat([absmax / 127.0, xf.sum(dim=-1, keepdim=True)], 1)
+
+
+def w8a8_partial_plain(xq: torch.Tensor, lo: int, weight_q: torch.Tensor
+                       ) -> torch.Tensor:
+    """Plain version of kernel 1's int32 partial: columns [lo, lo + IN) of
+    the codes xq against weight_q (OUT, IN) -> exact int32 (B, OUT)."""
+    return _int_dot(xq[:, lo:lo + weight_q.shape[1]], weight_q).to(
+        torch.int32)
+
+
+def w8a8_fixup_plain(p: torch.Tensor, aux: torch.Tensor,
+                     scales: torch.Tensor, biases: torch.Tensor, dtype
+                     ) -> torch.Tensor:
+    """Plain version of kernel 1's fix-up: p * s * aux.x + z * aux.y in
+    fp32, cast to `dtype`."""
+    out_dim = scales.numel()
+    return (p.float() * scales.reshape(1, out_dim) * aux[:, :1]
+            + biases.reshape(1, out_dim) * aux[:, 1:]).to(dtype)
+
+
+def w8a8_matvec_plain(x: torch.Tensor, weight_q: torch.Tensor,
+                      scales: torch.Tensor, biases: torch.Tensor
+                      ) -> torch.Tensor:
+    """Plain PyTorch version of kernel 1, the mirror of the JAX
+    `_xla_w8a8_matvec`. x: (B, IN) -> (B, OUT) in x.dtype."""
+    xq, aux = w8a8_quant_rows_plain(x)
+    return w8a8_fixup_plain(_int_dot(xq, weight_q), aux, scales, biases,
+                            x.dtype)
 
 
 def w8a8_matvec(x: torch.Tensor, weight_q: torch.Tensor,
@@ -330,18 +353,125 @@ launches.register(w8a8_matvec)
 launches.register(w8a8_matvec, "gemm_launches", "w8a8_matvec.gemm")
 
 
+def _lib_device(name: str, *tensors: torch.Tensor):
+    """The kernel library for tensors that must share one CUDA device."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    for t in tensors:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: every tensor must be contiguous on "
+                             f"{dev}")
+    from csm_mlx_tpu_torch.ops import _build
+
+    return _build, dev
+
+
+def w8a8_quant_rows(x: torch.Tensor) -> "tuple[torch.Tensor, torch.Tensor]":
+    """Kernel 1's row quantization alone (the tensor-parallel in-sharded
+    linear quantizes the whole gathered row once): x (B, IN) fp32/bf16 ->
+    (qx int8 (B, IN), aux fp32 (B, 2)), bit-equal to what the fused call
+    computes. IN % 16 == 0 on CUDA."""
+    if x.device.type == "cpu":
+        return w8a8_quant_rows_plain(x)
+    x = x.contiguous()
+    _build, dev = _lib_device("w8a8_quant_rows", x)
+    rows, in_dim = x.shape
+    if in_dim % 16 or x.dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"w8a8_quant_rows takes fp32/bf16 rows with "
+                         f"IN % 16 == 0, got {x.dtype} {tuple(x.shape)}")
+    qx = torch.empty((rows, in_dim), dtype=torch.int8, device=dev)
+    aux = torch.empty((rows, 2), dtype=torch.float32, device=dev)
+    if rows:
+        _build.check(_build.library().csm_w8a8_quant_rows(
+            x.data_ptr(), qx.data_ptr(), aux.data_ptr(), rows, in_dim,
+            _build.DTYPE_CODES[x.dtype], _build.stream_ptr(dev)),
+            "csm_w8a8_quant_rows")
+        w8a8_quant_rows.launches += 1
+    return qx, aux
+
+
+def w8a8_partial(xq: torch.Tensor, lo: int, weight_q: torch.Tensor
+                 ) -> torch.Tensor:
+    """Kernel 1's int32 partial: the raw sums of columns [lo, lo + IN) of
+    the codes xq (B, IN_total) int8 against this rank's shard weight_q
+    (OUT, IN) int8 -> int32 (B, OUT), no fix-up; the matvec up to 64 rows,
+    the tensor-core GEMM above. On CUDA lo, IN and IN_total are multiples
+    of 16."""
+    if xq.device.type == "cpu":
+        return w8a8_partial_plain(xq, lo, weight_q)
+    _build, dev = _lib_device("w8a8_partial", xq, weight_q)
+    rows, ldx = xq.shape
+    out_dim, in_dim = weight_q.shape
+    if xq.dtype != torch.int8 or weight_q.dtype != torch.int8 \
+            or lo % 16 or in_dim % 16 or ldx % 16 or lo + in_dim > ldx:
+        raise ValueError(f"w8a8_partial: int8 codes {tuple(xq.shape)}, "
+                         f"columns [{lo}, {lo + in_dim}), shard "
+                         f"{tuple(weight_q.shape)}: need int8 and offsets "
+                         f"and widths that are multiples of 16")
+    if xq.data_ptr() % 16 or weight_q.data_ptr() % 16:
+        raise ValueError("w8a8_partial: codes and shard must be 16-byte "
+                         "aligned")
+    out = torch.empty((rows, out_dim), dtype=torch.int32, device=dev)
+    if rows:
+        _build.check(_build.library().csm_w8a8_partial(
+            xq.data_ptr() + lo, ldx, weight_q.data_ptr(), out.data_ptr(),
+            rows, in_dim, out_dim, _build.stream_ptr(dev)),
+            "csm_w8a8_partial")
+        w8a8_partial.launches += 1
+    return out
+
+
+def w8a8_fixup(p: torch.Tensor, aux: torch.Tensor, scales: torch.Tensor,
+               biases: torch.Tensor, dtype) -> torch.Tensor:
+    """Kernel 1's fix-up on summed int32 partials: p (B, OUT) int32, aux
+    (B, 2) fp32 from `w8a8_quant_rows`, scales/biases (OUT, 1) fp32 ->
+    (B, OUT) in `dtype` (fp32 or bf16)."""
+    if p.device.type == "cpu":
+        return w8a8_fixup_plain(p, aux, scales, biases, dtype)
+    _build, dev = _lib_device("w8a8_fixup", p, aux, scales, biases)
+    rows, out_dim = p.shape
+    if p.dtype != torch.int32 or aux.shape != (rows, 2) \
+            or scales.numel() != out_dim or biases.numel() != out_dim \
+            or dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"w8a8_fixup: int32 sums {tuple(p.shape)} "
+                         f"{p.dtype}, aux {tuple(aux.shape)}, {dtype}")
+    out = torch.empty((rows, out_dim), dtype=dtype, device=dev)
+    if rows:
+        _build.check(_build.library().csm_w8a8_fixup(
+            p.data_ptr(), aux.data_ptr(), scales.data_ptr(),
+            biases.data_ptr(), out.data_ptr(), rows, out_dim,
+            _build.DTYPE_CODES[dtype], _build.stream_ptr(dev)),
+            "csm_w8a8_fixup")
+        w8a8_fixup.launches += 1
+    return out
+
+
+launches.register(w8a8_quant_rows)
+launches.register(w8a8_partial)
+launches.register(w8a8_fixup)
+
+
 def audio_head_logits(head, i: int, hidden: torch.Tensor,
                       n_vocab: int) -> torch.Tensor:
     """Logits of codebook i+1, (B, V) fp32, from hidden (B, D_dec): against
     the raw (K-1, D_dec, V) head in fp32, or against head i of
     `quantize_audio_head`'s dict through kernel 1 (`quant_linear`) over the
-    padded vocabulary, the pad sliced off (`n_vocab` = V)."""
+    padded vocabulary, the pad sliced off (`n_vocab` = V). Under a sharded
+    model's tensor parallelism the raw head holds this rank's block of the
+    vocabulary where V divides the model axis (JAX's rules): its local
+    logits are all-gathered; the dict stays whole, as in JAX."""
     if isinstance(head, dict):
         y = quant_linear({"weight_q": head["weight_q"][i],
                           "scales": head["scales"][i],
                           "biases": head["biases"][i]}, hidden).float()
         return y[:, :n_vocab]
-    return torch.matmul(hidden.float(), head[i].float())
+    from csm_mlx_tpu_torch.ops import tensor_parallel
+
+    y = torch.matmul(hidden.float(), head[i].float())
+    if tensor_parallel.shard_of(n_vocab) is None:
+        return y
+    return tensor_parallel.all_gather_last(y)
 
 
 def quant_linear(params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:

@@ -31,6 +31,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from csm_mlx_tpu_torch.ops import tensor_parallel as tpar
+
 GROUP_TIMEOUT = timedelta(minutes=10)  # a collective that waits longer fails
 
 
@@ -48,21 +50,21 @@ class PartitionSpec(tuple):
 P = PartitionSpec
 
 
-def _init_group(cpu: bool) -> None:
+def _init_group(cpu: bool, timeout: timedelta = GROUP_TIMEOUT) -> None:
     """The default process group: from `torchrun`'s environment (RANK,
     WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) when it is set, else
-    one rank. NCCL on `cuda:LOCAL_RANK`, gloo on the CPU."""
+    one rank. NCCL on `cuda:LOCAL_RANK`, gloo on the CPU. A collective
+    that waits longer than `timeout` fails."""
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         kw: Dict[str, Any] = dict(init_method="env://")
     else:
         kw = dict(store=dist.HashStore(), rank=0, world_size=1)
     if cpu:
-        dist.init_process_group("gloo", timeout=GROUP_TIMEOUT, **kw)
+        dist.init_process_group("gloo", timeout=timeout, **kw)
         return
     device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
     torch.cuda.set_device(device)
-    dist.init_process_group("nccl", timeout=GROUP_TIMEOUT, device_id=device,
-                            **kw)
+    dist.init_process_group("nccl", timeout=timeout, device_id=device, **kw)
 
 
 def create_mesh(shape: Optional[Dict[str, int]] = None,
@@ -100,6 +102,18 @@ def create_mesh(shape: Optional[Dict[str, int]] = None,
     return DeviceMesh("cpu" if cpu else "cuda",
                       torch.arange(n).reshape(sizes),
                       mesh_dim_names=tuple(shape))
+
+
+def broadcast_object(obj: Any, src: int = 0) -> Any:
+    """`obj` (any picklable value) from global rank `src` on every rank of
+    the default process group: each rank passes its own, and gets the
+    sender's. Over NCCL the bytes go through this rank's current device."""
+    box = [obj]
+    device = None
+    if dist.get_backend() == "nccl":
+        device = torch.device("cuda", torch.cuda.current_device())
+    dist.broadcast_object_list(box, src=src, device=device)
+    return box[0]
 
 
 def is_main_rank() -> bool:
@@ -337,19 +351,113 @@ def _rows(x, idx: int, n: int):
     return x[idx * step:(idx + 1) * step]
 
 
+def _out_rows(d: dict, parts) -> dict:
+    """A linear dict cut to this rank's output rows: per part (its whole
+    width, its local (lo, size) or None for whole), the codes or weight
+    rows and W8A8's per-channel scales and biases alike. A dict that does
+    not shard (`ops.tensor_parallel.engages`) stays whole."""
+    if not tpar.engages(d):
+        return d
+    out = {}
+    for key, t in d.items():
+        pieces, off = [], 0
+        for full, local in parts:
+            lo, size = (0, full) if local is None else local
+            pieces.append(t[off + lo:off + lo + size])
+            off += full
+        out[key] = torch.cat(pieces).contiguous()
+    return out
+
+
+def _in_cols(d: dict, lo: int, size: int) -> dict:
+    """A linear dict cut to this rank's input columns (the weight or the
+    int8 codes; W8A8's per-channel scales and biases stay whole, the
+    fix-up applies once after the int32 sum)."""
+    if not tpar.engages(d):
+        return d
+    return {key: t[:, lo:lo + size].contiguous()
+            if key in ("weight", "weight_q") else t for key, t in d.items()}
+
+
+def _place_layer(layer: dict, cfg, tp) -> None:
+    """One transformer layer's TP shards, aligned to heads and to the MLP's
+    hidden columns (`ops.tensor_parallel`), in place."""
+    attn, mlp = layer["self_attn"], layer["mlp"]
+    lay = tpar.attn_layout(cfg, tp)
+    if lay is not None:
+        h, hkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                      cfg.head_dim)
+        kv = (hkv * hd, (lay.kv_lo * hd, lay.kv_heads * hd))
+        parts = ((h * hd, (lay.q_lo * hd, lay.heads * hd)), kv, kv)
+        if "qkv_proj" in attn:
+            attn["qkv_proj"] = _out_rows(attn["qkv_proj"], parts)
+        else:
+            for name, part in zip(("q_proj", "k_proj", "v_proj"), parts):
+                attn[name] = _out_rows(attn[name], (part,))
+        attn["o_proj"] = _in_cols(attn["o_proj"], lay.q_lo * hd,
+                                  lay.heads * hd)
+    f = cfg.intermediate_size
+    local = tpar.shard_of(f, tp)
+    if local is not None:
+        for name in ("gateup_proj", "gate_proj", "up_proj"):
+            if name in mlp:
+                mlp[name] = _out_rows(mlp[name], ((f, local),) * (
+                    2 if name == "gateup_proj" else 1))
+        mlp["down_proj"] = _in_cols(mlp["down_proj"], *local)
+
+
 def shard_model(model: Any, mesh: DeviceMesh, tensor_parallel: bool = True
                 ) -> Any:
-    """Keep only this rank's TP shards of a CSM's params, in place.
+    """Place a CSM for serving on `mesh`, in place: keep this rank's
+    tensor-parallel shards over "model" and record the tensor parallelism
+    on the model (`model.tp`, an `ops.tensor_parallel.TensorParallel`)
+    for generation, the engine and the servers, which then run with
+    `mesh=`.
+
+    The placement is aligned to what a local forward can run, where
+    `shard_params` keeps JAX's device blocks (the trainers' placement):
+    attention by heads (a fused `qkv_proj` split into q, k and v, each cut
+    to this rank's heads, and put back together; where the kv heads do not
+    divide the axis, the kv heads of this rank's GQA groups; where the q
+    heads do not divide it either, that stack's attention whole), the MLP
+    by hidden columns (`gateup_proj` likewise), and the vocabulary tables
+    by rows under JAX's rules, whole where the vocabulary does not divide
+    the axis. W8A8 codes shard with their per-channel scales and biases;
+    affine and adapter-carrying linears stay whole, as in JAX. A mesh
+    without a "model" axis, or tensor_parallel=False, keeps every tensor
+    whole (model.tp None).
 
     Derived "_"-prefixed entries (kernel 3's tables, which assume the
-    whole decoder on one device) are dropped. Nothing of the port consumes
-    a model placed so yet: sharded generation and serving are ROADMAP
-    queue 1, item 12, and `generate`, the engine and the servers refuse a
-    mesh.
+    whole decoder on one device) are dropped.
     """
-    if isinstance(model.params, dict):
-        for k in [k for k in model.params if isinstance(k, str)
-                  and k.startswith("_")]:
-            del model.params[k]
-    model.params = shard_params(model.params, mesh, tensor_parallel)
+    p = model.params
+    for k in [k for k in p if isinstance(k, str) and k.startswith("_")]:
+        del p[k]
+    sizes = axis_sizes(mesh)
+    model.tp = None
+    if not tensor_parallel or "model" not in sizes:
+        return model
+    group = mesh.get_group("model")
+    tp = tpar.TensorParallel(group, sizes["model"],
+                             mesh.get_local_rank("model"))
+    if dist.get_rank(group) != tp.rank:
+        raise RuntimeError("the model axis' group ranks its members out of "
+                           "mesh order")
+    args = model.args
+    for key, cfg in (("backbone", args.backbone_config),
+                     ("decoder", args.decoder_config)):
+        for layer in p.get(key, {}).get("layers", []):
+            _place_layer(layer, cfg, tp)
+    n_audio = args.n_audio_vocab
+    for key, full in (("text_embeddings", args.n_text_vocab),
+                      ("audio_embeddings", n_audio * args.n_audio_codebooks),
+                      ("codebook0_head", n_audio)):
+        local = tpar.shard_of(full, tp)
+        if isinstance(p.get(key), dict) and local is not None:
+            p[key] = _out_rows(p[key], ((full, local),))
+    local = tpar.shard_of(n_audio, tp)
+    if torch.is_tensor(p.get("audio_head")) and local is not None:
+        p["audio_head"] = p["audio_head"].narrow(2, *local).contiguous()
+    model.tp = tp
+    getattr(model, "frame_steps", {}).clear()
     return model

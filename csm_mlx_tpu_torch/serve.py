@@ -12,6 +12,9 @@
   (`continuous.ContinuousEngine`): every request is a slot of one
   always-running batch, recycled when its stream ends, and chunks leave
   per frame for every caller.
+- With `mesh=` (after `parallel.shard_model`), one server a rank: rank 0
+  serves, every other rank runs the server's `follow()`, entering the
+  same device programs on rank 0's broadcasts.
 - `serve_http` is a dependency-free HTTP/1.1 front end on asyncio streams:
   `POST /tts` {"text": ..., "speaker": 0} -> audio/wav, `POST /tts-stream`
   -> raw 24 kHz s16le PCM over chunked transfer encoding, one HTTP chunk a
@@ -43,10 +46,26 @@ class ServerOverloaded(RuntimeError):
     HTTP layer answers 503 so that clients back off."""
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: parallelism is not ported yet (ROADMAP queue 1, item 12)")
+def _mesh_generator(model, mesh) -> Optional[torch.Generator]:
+    """Under a mesh, the server's generator on this rank: rank 0's random
+    seed, broadcast (a collective: every rank builds its server at once),
+    offset by the data coordinate so that data groups draw apart while the
+    ranks of a model group draw alike. None without a mesh (the global
+    generator, as before)."""
+    if mesh is None:
+        return None
+    from csm_mlx_tpu_torch.parallel.mesh import axis_sizes, broadcast_object
+
+    seed = broadcast_object(int(np.random.randint(0, 2 ** 31 - 1)))
+    if axis_sizes(mesh).get("data", 1) > 1:
+        seed += mesh.get_local_rank("data")
+    return torch.Generator(device=model.device).manual_seed(seed)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank()
 
 
 @dataclass
@@ -83,6 +102,14 @@ class TTSServer:
     HTTP endpoints send 16-bit PCM anyway. `max_pending` bounds the queue:
     past it synthesize() raises ServerOverloaded (HTTP 503); None is
     unbounded.
+
+    `mesh` (after `parallel.shard_model(model, mesh)`; one server a rank,
+    each built with the same arguments): batches pad to a multiple of the
+    "data" axis and run `generate_batch(mesh=...)`. Rank 0 serves; every
+    other rank runs `follow()`, which enters the same `generate_batch` or
+    `stream_generate` on rank 0's broadcast of each request, until rank 0
+    stops its server. A stream then runs to its end on every rank, also
+    when its consumer leaves early.
     """
 
     def __init__(
@@ -99,9 +126,10 @@ class TTSServer:
         transfer: str = "float32",
         max_pending: Optional[int] = None,
     ):
-        _no_mesh(mesh)
         if transfer not in ("float32", "int16"):
             raise ValueError(f"transfer must be float32|int16, got {transfer}")
+        self.mesh = mesh
+        self._generator = _mesh_generator(model, mesh)
         self.model = model
         self.max_batch = max_batch
         self.max_wait_ms = max_wait_ms
@@ -123,6 +151,7 @@ class TTSServer:
         self.max_inflight = 2
         # streams waiting for the device lock (max_pending bounds them too)
         self._streams_pending = 0
+        self._released = False  # rank 0 of a mesh told the followers to stop
 
     async def start(self) -> None:
         if self._task is None:
@@ -144,6 +173,62 @@ class TTSServer:
             p = self._queue.get_nowait()
             if not p.future.done():
                 p.future.set_exception(RuntimeError("TTS server stopped"))
+        if self.mesh is not None and _rank() == 0 and not self._released:
+            from csm_mlx_tpu_torch.parallel.mesh import broadcast_object
+
+            # after the device programs in flight: the followers leave
+            async with self._device_lock:
+                self._released = True
+                await asyncio.get_running_loop().run_in_executor(
+                    None, broadcast_object, None)
+
+    def _batch(self, texts, speakers, contexts) -> List[Any]:
+        """One `generate_batch` with the server's settings (every rank of
+        a mesh calls it alike)."""
+        from csm_mlx_tpu_torch.generation import generate_batch
+
+        return generate_batch(
+            self.model, texts, speakers, contexts,
+            max_audio_length_ms=self.max_audio_length_ms,
+            watermark_key=self.watermark_key,
+            temperature=self.temperature, sampler=self.sampler,
+            generator=self._generator, mesh=self.mesh)
+
+    def _stream(self, text, speaker, context):
+        from csm_mlx_tpu_torch.generation import stream_generate
+
+        return stream_generate(
+            self.model, text, speaker, context,
+            max_audio_length_ms=self.max_audio_length_ms,
+            temperature=self.temperature, sampler=self.sampler,
+            generator=self._generator)
+
+    def follow(self) -> None:
+        """Every rank of a mesh but 0: run the batches and streams rank 0
+        broadcasts, until rank 0 stops its server."""
+        from csm_mlx_tpu_torch.parallel.mesh import broadcast_object
+
+        if self.mesh is None or _rank() == 0:
+            raise RuntimeError("follow() is for the ranks of a mesh other "
+                               "than 0; rank 0 serves")
+        while True:
+            cmd = broadcast_object(None)
+            if cmd is None:
+                return
+            kind, args = cmd
+            if kind == "batch":
+                self._batch(*args)
+            else:
+                for _ in self._stream(*args):
+                    pass
+
+    def _lead(self, kind: str, *args) -> None:
+        """Rank 0 of a mesh: send the followers the device program it
+        enters next."""
+        if self.mesh is not None:
+            from csm_mlx_tpu_torch.parallel.mesh import broadcast_object
+
+            broadcast_object((kind, args))
 
     async def synthesize(self, text: str, speaker: int = 0,
                          context: Sequence = ()) -> np.ndarray:
@@ -167,8 +252,6 @@ class TTSServer:
         needs the whole utterance's STFT); a caller who needs it embeds it
         in the joined result. Raises ServerOverloaded when max_pending
         streams already wait for the card."""
-        from csm_mlx_tpu_torch.generation import stream_generate
-
         if self.max_pending is not None and \
                 self._streams_pending >= self.max_pending:
             raise ServerOverloaded(
@@ -183,11 +266,11 @@ class TTSServer:
         def run() -> float:
             t0 = time.monotonic()
             try:
-                for chunk in stream_generate(
-                        self.model, text, speaker, context,
-                        max_audio_length_ms=self.max_audio_length_ms,
-                        temperature=self.temperature, sampler=self.sampler):
+                self._lead("stream", text, speaker, context)
+                for chunk in self._stream(text, speaker, context):
                     if stop.is_set():
+                        if self.mesh is not None:
+                            continue  # the followers run it to its end
                         break  # the client went away: no more frames
                     loop.call_soon_threadsafe(
                         q.put_nowait, chunk.float().numpy())
@@ -274,8 +357,6 @@ class TTSServer:
             raise
 
     async def _run_batch(self, batch: List[_Pending]) -> None:
-        from csm_mlx_tpu_torch.generation import generate_batch
-
         texts = [p.text for p in batch]
         speakers = [p.speaker for p in batch]
         contexts = [p.context for p in batch]
@@ -286,6 +367,12 @@ class TTSServer:
         while target < len(texts):
             target *= 2
         target = min(target, self.max_batch)
+        if self.mesh is not None:
+            # rows shard over the data axis only when they divide it
+            from csm_mlx_tpu_torch.parallel.mesh import axis_sizes
+
+            data = axis_sizes(self.mesh).get("data", 1)
+            target = -(-target // data) * data
         while len(texts) < target:
             texts.append(texts[-1])
             speakers.append(speakers[-1])
@@ -293,12 +380,8 @@ class TTSServer:
 
         def run_device() -> Tuple[List[Any], float]:
             t0 = time.monotonic()
-            rows = generate_batch(
-                self.model, texts, speakers, contexts,
-                max_audio_length_ms=self.max_audio_length_ms,
-                watermark_key=self.watermark_key,
-                temperature=self.temperature,
-                sampler=self.sampler)[:len(batch)]
+            self._lead("batch", texts, speakers, contexts)
+            rows = self._batch(texts, speakers, contexts)[:len(batch)]
             if self.transfer == "int16":
                 # 16-bit PCM on the card (after the watermark): half the
                 # bytes to the host
@@ -357,8 +440,9 @@ class ContinuousTTSServer:
     scheduler's own counters are `self.engine.stats` (and `/stats`).
     `n_slots` defaults to 64, kernel 3's rows a launch; `transfer` to
     "int16", lossless for the PCM16 endpoints. `quantize_codec` decodes
-    through an int8 copy of the codec's decoder; `mesh` raises (not
-    ported).
+    through an int8 copy of the codec's decoder. `mesh` builds the engine
+    with it (`ContinuousEngine(mesh=...)`): rank 0 serves, every other
+    rank runs `follow()`.
     """
 
     def __init__(
@@ -384,7 +468,6 @@ class ContinuousTTSServer:
             raise ValueError(
                 "pass mesh= to the ContinuousEngine constructor, not to "
                 "ContinuousTTSServer(engine=<existing>, mesh=...)")
-        _no_mesh(mesh)
         max_frames = int(max_audio_length_ms / FRAME_MS)
         self.model = model
         self.max_audio_length_ms = max_audio_length_ms
@@ -394,7 +477,7 @@ class ContinuousTTSServer:
             model, n_slots=n_slots, max_frames=max_frames,
             max_prompt_bucket=max_prompt_bucket, temperature=temperature,
             sampler=sampler, codec=True, transfer=transfer,
-            quantize_codec=quantize_codec)
+            quantize_codec=quantize_codec, mesh=mesh)
         if not getattr(self.engine, "has_codec", False):
             # a codec-less engine would answer every request with no audio
             raise ValueError(
@@ -410,6 +493,10 @@ class ContinuousTTSServer:
     async def stop(self) -> None:
         self.engine.stop()
         self._started = False
+
+    def follow(self) -> None:
+        """Every rank of a mesh but 0: the engine's `follow()`."""
+        self.engine.follow()
 
     async def synthesize(self, text: str, speaker: int = 0,
                          context: Sequence = ()) -> np.ndarray:

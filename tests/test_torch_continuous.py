@@ -311,9 +311,15 @@ def test_capacity_slack_must_cover_step_block(model):
 
 
 def test_not_ported_options_raise(model):
-    """mesh= names the ROADMAP item it waits for."""
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _engine(model, mesh=object())
+    """mesh= is ported (tests/test_torch_parallel_serve.py); with the
+    whole-frame decoder's tables still in the params it raises, as in JAX
+    (`parallel.shard_model` drops them)."""
+    model.params["_resident"] = {"layers": []}
+    try:
+        with pytest.raises(ValueError, match="resident"):
+            _engine(model, mesh=object())
+    finally:
+        model.params.pop("_resident", None)
 
 
 def test_quantized_codec_engine_close_to_f32(model, fresh_codec):

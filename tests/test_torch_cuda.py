@@ -115,6 +115,59 @@ def test_w8a8_kernel_rejects_what_it_does_not_take(cuda_device):
                           q["weight_q"], q["scales"], q["biases"])
 
 
+@pytest.mark.parametrize("n_ranks", [1, 2, 4])
+@pytest.mark.parametrize("rows", [1, 3, 8, 64, 65, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w8a8_in_sharded_entries_match_the_fused_kernel(cuda_device, rows,
+                                                         dtype, n_ranks):
+    """Kernel 1's three in-sharded entries: the quantized rows (codes
+    bit-equal to the plain version's), each rank's int32 partial of its
+    columns (bit-equal to the plain `_int_dot`, on the matvec route up to
+    64 rows and the GEMM route above, at a column offset inside the row),
+    the partials summed and the fix-up: bit-equal to the fused kernel's
+    output on the whole row, at 1, 2 and 4 column shards; with their
+    launch counts."""
+    rng = np.random.RandomState(rows + n_ranks)
+    in_dim = 512
+    w = torch.from_numpy((rng.randn(1000, in_dim) * 0.1).astype(np.float32))
+    q = {k: v.to(cuda_device) for k, v in quant.quantize_weight_w8(w).items()}
+    x = torch.from_numpy(rng.randn(rows, in_dim).astype(np.float32)).to(
+        cuda_device, dtype)
+    counts = [f.launches for f in (quant.w8a8_quant_rows, quant.w8a8_partial,
+                                   quant.w8a8_fixup)]
+    qx, aux = quant.w8a8_quant_rows(x)
+    qp, _ = quant.w8a8_quant_rows_plain(x)
+    assert torch.equal(qx, qp)
+    step = in_dim // n_ranks
+    p = torch.zeros((rows, 1000), dtype=torch.int32, device=cuda_device)
+    for r in range(n_ranks):
+        shard = q["weight_q"][:, r * step:(r + 1) * step].contiguous()
+        part = quant.w8a8_partial(qx, r * step, shard)
+        assert torch.equal(part, quant.w8a8_partial_plain(qx, r * step,
+                                                          shard))
+        p += part
+    got = quant.w8a8_fixup(p, aux, q["scales"], q["biases"], dtype)
+    want = quant.w8a8_matvec(x, q["weight_q"], q["scales"], q["biases"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, quant.w8a8_fixup_plain(p, aux, q["scales"],
+                                                   q["biases"], dtype))
+    assert [f.launches - c for f, c in zip(
+        (quant.w8a8_quant_rows, quant.w8a8_partial, quant.w8a8_fixup),
+        counts)] == [1, n_ranks, 1]
+
+
+def test_w8a8_in_sharded_entries_reject_what_they_do_not_take(cuda_device):
+    qx = torch.zeros((2, 64), dtype=torch.int8, device=cuda_device)
+    w = torch.zeros((8, 32), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        quant.w8a8_partial(qx, 8, w)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        quant.w8a8_partial(qx, 48, w)  # past the row
+    with pytest.raises(ValueError, match="IN % 16"):
+        quant.w8a8_quant_rows(torch.zeros((2, 40), device=cuda_device))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s,pads", [(64, (0, 63)), (256, (0, 37)),
                                     (512, (200, 5)), (512, (64, 130)),
@@ -206,6 +259,52 @@ def resident_model(name, device, backbone_head_dim=32, mode="w8a8"):
     quant.quantize_model(model, mode=mode, min_size=0)
     assert "_resident" in model.params
     return model
+
+
+def test_mesh_on_the_card_captures_nccl_and_refuses_gloo(cuda_device):
+    """A one-rank mesh on the card: over gloo, the captured frame step and
+    the engine's captured blocks refuse (naming their eager flag) and the
+    eager paths run; over NCCL, the captured frame step runs the
+    tensor-parallel path (kernel 1's in-sharded entries inside the graph)
+    and gives the mesh-less frames."""
+    import torch.distributed as dist
+
+    from csm_mlx_tpu_torch import parallel
+    from csm_mlx_tpu_torch.continuous import ContinuousEngine
+    from csm_mlx_tpu_torch.generation import generate_tokens
+
+    prompt = np.zeros((12, 9), np.int32)
+    prompt[:, -1] = np.arange(12) + 3
+    mask = np.zeros_like(prompt)
+    mask[:, -1] = 1
+    for backend in ("gloo", "nccl"):
+        model = resident_model("tiny", cuda_device)
+        model.params.pop("_resident")
+        want = generate_tokens(model, prompt, mask, 4, temperature=0.0)
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+        try:
+            mesh = parallel.create_mesh({"data": 1, "model": 1})
+            parallel.shard_model(model, mesh)
+            if backend == "gloo":
+                with pytest.raises(ValueError, match="eager=True"):
+                    ContinuousEngine(model, n_slots=2, codec=False,
+                                     mesh=mesh, max_frames=8,
+                                     max_prompt_bucket=32)
+                with pytest.raises(ValueError, match="_eager_step=True"):
+                    generate_tokens(model, prompt, mask, 4, temperature=0.0,
+                                    mesh=mesh)
+                got = generate_tokens(model, prompt, mask, 4,
+                                      temperature=0.0, mesh=mesh,
+                                      _eager_step=True)
+            else:
+                before = quant.w8a8_partial.launches
+                got = generate_tokens(model, prompt, mask, 4,
+                                      temperature=0.0, mesh=mesh)
+                assert quant.w8a8_partial.launches > before
+            np.testing.assert_array_equal(got[0], want[0])
+        finally:
+            dist.destroy_process_group()
 
 
 def forced_agreement(model, proj01, tokens, kernel_logits):

@@ -130,7 +130,8 @@ PORT_MODULES = [
     "csm_mlx_tpu_torch.ops.layers",
     "csm_mlx_tpu_torch.ops.quant", "csm_mlx_tpu_torch.ops.resident_decoder",
     "csm_mlx_tpu_torch.ops.rope",
-    "csm_mlx_tpu_torch.ops.sampling", "csm_mlx_tpu_torch.models.csm",
+    "csm_mlx_tpu_torch.ops.sampling", "csm_mlx_tpu_torch.ops.tensor_parallel",
+    "csm_mlx_tpu_torch.models.csm",
     "csm_mlx_tpu_torch.models.llama", "csm_mlx_tpu_torch.models.mimi",
     "csm_mlx_tpu_torch.models.mimi.config", "csm_mlx_tpu_torch.models.mimi.conv",
     "csm_mlx_tpu_torch.models.mimi.mimi", "csm_mlx_tpu_torch.models.mimi.rvq",

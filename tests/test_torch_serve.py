@@ -527,10 +527,16 @@ def test_continuous_server_rejects_codecless_engine(model):
 
 
 def test_servers_reject_mesh(model):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TTSServer(model, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _continuous(model, mesh=object())
+    """Both servers take mesh= (tests/test_torch_parallel_serve.py); the
+    continuous one still refuses a mesh beside an engine it did not build,
+    as in JAX (the mesh would be ignored)."""
+    from csm_mlx_tpu_torch.continuous import ContinuousEngine
+
+    eng = ContinuousEngine(model, n_slots=2, max_frames=4,
+                           max_prompt_bucket=32, capacity_slack=8,
+                           codec=False)
+    with pytest.raises(ValueError, match="mesh"):
+        ContinuousTTSServer(model, engine=eng, mesh=object())
 
 
 def test_stream_producer_base_exception_does_not_hang(model, monkeypatch):
@@ -625,7 +631,7 @@ def test_serve_cli_flags_and_defaults_equal_jax():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh", "data=2"], "item 12"),
+    (["--mesh", "data=0"], "mesh axis"),
     (["--quantize-codec"], "requires --continuous"),
     (["--weight", "org/repo"], "not a local path"),
     (["--weight", "/nonexistent/weights.safetensors"], "not a local path"),

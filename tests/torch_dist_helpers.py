@@ -283,7 +283,9 @@ def mesh_world(rank: int, n: int, payload: dict) -> dict:
         params = dict(torch_tree(payload["params"]),
                       _resident={"tables": torch.zeros(3)})
 
-    out["model_keys"] = sorted(shard_model(Holder(), m24).params)
+    # a data-only mesh: the serving placement (tests/
+    # test_torch_parallel_serve.py) needs the model's configs
+    out["model_keys"] = sorted(shard_model(Holder(), m8).params)
     out["pp_dp"] = pipeline_case(payload["pp_dp"], {"pipe": 2, "data": 4})
     try:  # a microbatch of 4 rows over data=8
         pipeline_case(payload["pp_dp"], {"pipe": 1, "data": 8})
@@ -493,3 +495,246 @@ def cli_world(rank: int, n: int, payload: dict) -> dict:
     if rank == 0:
         history = json.loads(state.read_text())["history"]
     return dict(written=written, history=history)
+
+
+# ---------------------------------------------------------------------------
+# Sharded serving (tests/test_torch_parallel_serve.py)
+# ---------------------------------------------------------------------------
+
+
+def _serving_setup(payload: dict):
+    """The fake text tokenizer and the tiny codec as this rank's CPU
+    singletons, as the parent installs them."""
+    from csm_mlx_tpu_torch import tokenizers as ttok
+    from csm_mlx_tpu_torch.models.mimi import Mimi
+
+    mimi = Mimi(payload["codec"], device="cpu",
+                generator=torch.Generator().manual_seed(payload["codec_seed"]))
+    ttok._MIMI_CACHE[(payload["n_cb"], "cpu")] = (None, mimi)
+    fake = FakeTokenizer()
+    ttok.get_text_tokenizer = lambda path=None: fake
+
+
+def serving_model(payload: dict, mesh, kind: str = "f32"):
+    """The tiny model on this rank: "f32", "bf16" or "w8a8" (quantized
+    here, as the parent quantizes its copy), placed on `mesh`."""
+    from csm_mlx_tpu_torch.ops.quant import quantize_model
+    from csm_mlx_tpu_torch.parallel import shard_model
+
+    model = port_model(payload)
+    if kind == "bf16":
+        model.params = torch_tree(payload["params"], torch.bfloat16)
+        model.dtype = torch.bfloat16
+    elif kind == "w8a8":
+        quantize_model(model, mode="w8a8", min_size=1)
+    return shard_model(model, mesh)
+
+
+def _batch_frames(model, payload, mesh, key: str = "prompts") -> dict:
+    from csm_mlx_tpu_torch.generation import generate_tokens_batch
+
+    prompts = payload[key]
+    frames, n = generate_tokens_batch(
+        model, prompts, [np.ones_like(p) for p in prompts],
+        payload["n_frames"], temperature=0.0, mesh=mesh)
+    return dict(frames=frames, n=n)
+
+
+def _engine_streams(model, payload, mesh, case: dict) -> Any:
+    """case["requests"] through a ContinuousEngine on `mesh`: rank 0's
+    (tokens, audio) per request; the other ranks follow."""
+    from csm_mlx_tpu_torch.continuous import ContinuousEngine
+
+    eng = ContinuousEngine(
+        model, n_slots=case["n_slots"], max_frames=12, max_prompt_bucket=32,
+        capacity_slack=16, frames_per_step=3, codec=case.get("codec", False),
+        quantize_codec=case.get("quantize_codec", False), mesh=mesh,
+        generator=torch.Generator().manual_seed(7))
+    if dist.get_rank() != 0:
+        eng.follow()
+        return None
+    handles = [eng.submit_prompt(p, np.ones_like(p), max_frames=mf)
+               for p, mf in case["requests"]]
+    eng.run_until_idle()
+    eng.stop()
+    return [(h.wait(0), h.audio() if eng.has_codec else None)
+            for h in handles]
+
+
+def _tp_in_case(payload: dict, tp) -> dict:
+    """The in-sharded W8A8 linear of this rank's column shard against the
+    solo kernel: its output, and its int32 partials summed."""
+    from csm_mlx_tpu_torch.ops import quant, tensor_parallel
+
+    w, x = torch_tree(payload["tp_in_w"]), torch_tree(payload["tp_in_x"])
+    q = quant.quantize_weight_w8(w)
+    step = w.shape[1] // tp.size
+    lo = tp.rank * step
+    local = {k: (v[:, lo:lo + step].contiguous() if k == "weight_q" else v)
+             for k, v in q.items()}
+    with tensor_parallel.scope(tp):
+        y = tensor_parallel.linear_in(local, x[:, lo:lo + step])
+        qx, _ = quant.w8a8_quant_rows(x)
+        p = tensor_parallel.all_reduce(
+            quant.w8a8_partial(qx, lo, local["weight_q"]))
+    return dict(y=y.numpy(), p=p.numpy())
+
+
+def _tables_case(model, payload) -> dict:
+    """The vocabulary-sharded embeddings and heads of a sharded model."""
+    from csm_mlx_tpu_torch.models.csm import (codebook0_logits,
+                                              masked_input_embeds)
+    from csm_mlx_tpu_torch.ops import tensor_parallel
+    from csm_mlx_tpu_torch.ops.quant import audio_head_logits
+
+    tokens = torch_tree(payload["tokens"]).long()
+    hidden = torch_tree(payload["hidden"])
+    hidden_d = torch_tree(payload["hidden_d"])
+    args = model.args
+    with tensor_parallel.scope(tensor_parallel.of(model)):
+        return dict(
+            embeds=masked_input_embeds(model.params, args, tokens,
+                                       torch.ones_like(tokens)).numpy(),
+            c0=codebook0_logits(model.params, args, hidden).numpy(),
+            head=audio_head_logits(model.params["audio_head"], 2, hidden_d,
+                                   args.n_audio_vocab).numpy(),
+            local_rows=int(model.params["text_embeddings"]["weight"]
+                           .shape[0]))
+
+
+async def _ask_servers(tts, cont, payload) -> dict:
+    """Rank 0: the lockstep server's batch and stream, the continuous
+    server's requests."""
+    import asyncio
+
+    texts = payload["texts"]
+    out = {}
+    await tts.start()
+    out["tts"] = await asyncio.gather(*[tts.synthesize(t, 0)
+                                        for t in texts])
+    out["stream"] = [c async for c in tts.synthesize_stream(texts[0], 0)]
+    await tts.stop()
+    await cont.start()
+    out["continuous"] = await asyncio.gather(*[cont.synthesize(t, 0)
+                                               for t in texts])
+    await cont.stop()
+    return out
+
+
+def _sampled_case(payload: dict, mesh, rank: int) -> dict:
+    """A sampled run (T = 0.8) on a model axis: with one generator seed on
+    every rank its frames, with a seed a rank the error every rank
+    raises."""
+    from csm_mlx_tpu_torch.generation import generate_tokens
+
+    model = serving_model(payload, mesh)
+    p = payload["prompts"][0]
+    out = {}
+    for label, seed in (("same", 11), ("apart", 11 + rank)):
+        try:
+            out[label] = generate_tokens(
+                model, p, np.ones_like(p), 4, temperature=0.8, mesh=mesh,
+                generator=torch.Generator().manual_seed(seed))[0]
+        except RuntimeError as e:
+            out[label] = str(e)
+    return out
+
+
+def _cli_case(payload: dict, mesh_arg: str) -> Any:
+    """`serve --mesh` over this world: rank 0 answers one POST /tts."""
+    import asyncio
+
+    from csm_mlx_tpu_torch.cli.application import build_parser
+    from csm_mlx_tpu_torch.cli.serve import serve_model
+
+    args = build_parser().parse_args(
+        ["serve", "--mesh", mesh_arg, "--port", "0", "--temperature", "0",
+         "--max-audio-length", "320", "--max-wait-ms", "1", "--transfer",
+         "float32"])
+    got = {}
+
+    async def ask(port):
+        body = json.dumps({"text": payload["texts"][1], "speaker": 0})
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        writer.write((f"POST /tts HTTP/1.1\r\nHost: x\r\nContent-Length: "
+                      f"{len(body)}\r\n\r\n{body}").encode())
+        await writer.drain()
+        got["reply"] = await reader.read()
+        writer.close()
+
+    serve_model(args, port_model(payload), devices="cpu", until=ask)
+    return got.get("reply")
+
+
+def serve_world(rank: int, n: int, payload: dict) -> dict:
+    """The sharded-serving cases of one world (payload["cases"] names
+    them): generation on each of payload["meshes"], the engine, the W8A8
+    in-sharded linear, the vocabulary tables, the servers and the CLI."""
+    from csm_mlx_tpu_torch.ops import tensor_parallel
+    from csm_mlx_tpu_torch.serve import ContinuousTTSServer, TTSServer
+
+    _serving_setup(payload)
+    register_configs(payload)
+    out: Dict[str, Any] = {}
+    for name, shape in payload["meshes"].items():
+        mesh = cpu_mesh(shape)
+        for kind in payload["kinds"].get(name, ()):
+            model = serving_model(payload, mesh, kind)
+            got = _batch_frames(model, payload, mesh)
+            if kind == "f32":
+                from csm_mlx_tpu_torch.generation import generate_tokens
+
+                p = payload["prompts"][0]
+                got["single"] = generate_tokens(
+                    model, p, np.ones_like(p), 3, temperature=0.0,
+                    mesh=mesh)[0]
+                if name in payload.get("tables", ()):
+                    out[f"tables {name}"] = _tables_case(model, payload)
+                if name in payload.get("capture", ()):
+                    try:
+                        tensor_parallel.check_capture(
+                            tensor_parallel.of(model), mesh, "eager=True")
+                    except ValueError as e:
+                        got["capture"] = str(e)
+            out[f"{name} {kind}"] = got
+        for case in payload["engines"].get(name, ()):
+            model = serving_model(payload, mesh, case["kind"])
+            out[f"engine {name} {case['label']}"] = _engine_streams(
+                model, payload, mesh, case)
+        if name in payload.get("tp_in", ()):
+            out[f"tp_in {name}"] = _tp_in_case(
+                payload, tensor_parallel.TensorParallel(
+                    mesh.get_group("model"), shape["model"],
+                    mesh.get_local_rank("model")))
+        if name in payload.get("sampled", ()):
+            out[f"sampled {name}"] = _sampled_case(payload, mesh, rank)
+        if name in payload.get("follower", ()) and rank != 0:
+            from csm_mlx_tpu_torch.continuous import ContinuousEngine
+
+            model = serving_model(payload, mesh)
+            eng = ContinuousEngine(model, n_slots=2, max_frames=4,
+                                   max_prompt_bucket=32, capacity_slack=8,
+                                   codec=False, mesh=mesh,
+                                   generator=torch.Generator().manual_seed(7))
+            try:
+                eng.submit_prompt(payload["prompts"][0],
+                                  np.ones_like(payload["prompts"][0]))
+            except RuntimeError as e:
+                out["follower submit"] = str(e)
+        if name in payload.get("servers", ()):
+            import asyncio
+
+            model = serving_model(payload, mesh)
+            kw = dict(max_audio_length_ms=400, temperature=0.0)
+            tts = TTSServer(model, max_wait_ms=300, mesh=mesh, **kw)
+            cont = ContinuousTTSServer(model, n_slots=4,
+                                       max_prompt_bucket=32, mesh=mesh, **kw)
+            if rank == 0:
+                out[f"servers {name}"] = asyncio.run(
+                    _ask_servers(tts, cont, payload))
+            else:
+                tts.follow()
+                cont.follow()
+        if name in payload.get("cli", ()):
+            out[f"cli {name}"] = _cli_case(payload, payload["cli"][name])
+    return out
