@@ -38,6 +38,13 @@ card runs block k+1 while the host reads block k (`pipeline_depth`).
 
 On the CPU, or with `eager=True`, the same block runs eagerly.
 
+While a torch profiler records on the engine's thread, the loop's phases
+are spans of that trace (`utils.profiling.annotate`): `engine.take` (the
+queue read), `engine.admit` (one admission batch's issue),
+`engine.rebase` (a cache compaction), `engine.block` (a block's
+dispatch), `engine.fetch` (a flight read, with `engine.fetch_wait` inside
+it, the wait on the flight's event) and `engine.idle`.
+
 Across GPUs (`mesh=`, after `parallel.shard_model`): one engine a rank,
 the model tensor-parallel over "model", the slots sharded over "data"
 when they divide it; rank 0 takes the requests and broadcasts each
@@ -74,6 +81,7 @@ from csm_mlx_tpu_torch.ops import launches, tensor_parallel
 from csm_mlx_tpu_torch.ops.attention import kv_bucket_for, kv_prefix_buckets
 from csm_mlx_tpu_torch.ops.kv_cache import KVCache
 from csm_mlx_tpu_torch.ops.rope import rope_cache_for
+from csm_mlx_tpu_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -245,13 +253,18 @@ class ContinuousStats:
         default_factory=lambda: deque(maxlen=1024))
     submit_to_first_chunk: deque = dataclasses.field(
         default_factory=lambda: deque(maxlen=1024))
+    # and of the wait in the queue, submit -> admission, seconds
+    submit_to_admit: deque = dataclasses.field(
+        default_factory=lambda: deque(maxlen=1024))
 
     def first_chunk_latency_ms(self) -> Dict[str, Optional[float]]:
-        """p50/p90/p99 of the first-chunk latencies in ms (None before a
-        codec stream delivered audio)."""
+        """p50/p90/p99 in ms of the first-chunk latencies ("admit_*",
+        "submit_*"; None before a codec stream delivered audio) and of the
+        queue wait ("queue_*"; None before an admission)."""
         out: Dict[str, Optional[float]] = {}
         for name, d in (("admit", self.admit_to_first_chunk),
-                        ("submit", self.submit_to_first_chunk)):
+                        ("submit", self.submit_to_first_chunk),
+                        ("queue", self.submit_to_admit)):
             arr = np.asarray(d.copy(), np.float64)  # read while appended
             for q in (50, 90, 99):
                 out[f"{name}_p{q}_ms"] = (
@@ -269,8 +282,9 @@ class _Flight:
     event: Optional[Any] = None
 
     def get(self) -> Tuple[np.ndarray, ...]:
-        if self.event is not None:
-            self.event.synchronize()
+        with annotate("engine.fetch_wait"):
+            if self.event is not None:
+                self.event.synchronize()
         return tuple(t.numpy() for t in self.host)
 
 
@@ -821,6 +835,8 @@ class ContinuousEngine:
         t_adm = time.perf_counter()
         for slot_i, (res, _tk, _m, pad, _b) in assignments:
             res.t_admitted = t_adm
+            if res.t_submit is not None:
+                self.stats.submit_to_admit.append(t_adm - res.t_submit)
             self._pads[slot_i] = self._idx - bucket + pad
             s = self._slots[slot_i]
             s.req = res
@@ -893,7 +909,8 @@ class ContinuousEngine:
             raise RuntimeError(
                 "cache full with an unrebaseable row — max_frames/"
                 "capacity_slack misconfigured")
-        self._rebase(shift)
+        with annotate("engine.rebase"):
+            self._rebase(shift)
         self._idx -= shift
         self._cache.length = self._idx
         self._pads = [max(p - shift, 0) for p in self._pads]
@@ -1071,7 +1088,8 @@ class ContinuousEngine:
 
     def _drive_once(self) -> bool:
         """One scheduler iteration; False when fully idle."""
-        assigned = self._take()
+        with annotate("engine.take"):
+            assigned = self._take()
         if self.mesh is not None:
             self._sync(assigned)
         return self._drive(assigned)
@@ -1086,14 +1104,17 @@ class ContinuousEngine:
             for group in groups.values():
                 top = self._ADMIT_SIZES[-1]
                 for s0 in range(0, len(group), top):
-                    self._dispatch_admit(group[s0:s0 + top])
+                    with annotate("engine.admit"):
+                        self._dispatch_admit(group[s0:s0 + top])
             if not self._active() and not self._flushing():
                 self._drain()
                 return False
             self._maybe_rebase()
-            self._dispatch_step()
+            with annotate("engine.block"):
+                self._dispatch_step()
             while len(self._inflight) > self.pipeline_depth:
-                self._fetch_one()
+                with annotate("engine.fetch"):
+                    self._fetch_one()
             return True
 
     def follow(self) -> None:
@@ -1112,7 +1133,8 @@ class ContinuousEngine:
 
     def _drain(self) -> None:
         while self._inflight:
-            self._fetch_one()
+            with annotate("engine.fetch"):
+                self._fetch_one()
 
     def run_until_idle(self) -> None:
         """Drive synchronously until queue and slots are empty."""
@@ -1151,7 +1173,8 @@ class ContinuousEngine:
                 self._fail_all(e)
                 raise
             if not busy:
-                self._wake.wait(timeout=0.05)
+                with annotate("engine.idle"):
+                    self._wake.wait(timeout=0.05)
                 self._wake.clear()
         self._drain()
         if self.mesh is not None:

@@ -64,6 +64,7 @@ from csm_mlx_tpu_torch.ops.quant import audio_head_logits
 from csm_mlx_tpu_torch.ops.rope import rope_cache_for
 from csm_mlx_tpu_torch.ops.sampling import (HISTORY_SIZE, SamplerConfig,
                                             apply_processors)
+from csm_mlx_tpu_torch.utils.profiling import annotate
 
 PROMPT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
 FRAME_MS = 80  # one RVQ frame = 80 ms of audio
@@ -262,9 +263,10 @@ def _assemble_prompt(model: CSM, text: str, speaker: int, context: Sequence,
         mimi = _codec_for(model, mimi)
     tokens, masks = [], []
     for segment in context:
-        t, m = tokenize_segment(segment,
-                                n_audio_codebooks=model.n_audio_codebooks,
-                                mimi=mimi)
+        with annotate("stream.encode"):
+            t, m = tokenize_segment(segment,
+                                    n_audio_codebooks=model.n_audio_codebooks,
+                                    mimi=mimi)
         tokens.append(t)
         masks.append(m)
     t, m = tokenize_text_segment(text, speaker, model.n_audio_codebooks)
@@ -1033,23 +1035,38 @@ def stream_generate(
     out before it launches the next frame, so the card makes frame i+1
     while the caller takes chunk i, a float tensor on the CPU. `mimi` is
     the codec that encodes the context's audio and decodes the frames, by
-    default the `get_audio_tokenizer` singleton on the model's device."""
+    default the `get_audio_tokenizer` singleton on the model's device.
+
+    While a torch profiler records on the calling thread, each phase is a
+    span of its trace (`utils.profiling.annotate`): `stream.assemble` (the
+    prompt, with one `stream.encode` a context segment), `stream.prefill`,
+    `stream.first`, then a frame's `stream.eos` (the host's wait for the
+    frame), `stream.chunk` (its copy out) and `stream.replay` (the next
+    frame's launch). No span is open while the caller holds a chunk."""
     args = model.args
     max_frames = int(max_audio_length_ms / FRAME_MS)
     codec = _codec_for(model, mimi)
-    prompt, mask = _assemble_prompt(model, text, speaker, context, codec)
-    _check_context_window(args, prompt.shape[0], max_frames)
-    tokens, mask, pad_len, bucket = _pad_prompt(prompt, mask)
+    with annotate("stream.assemble"):
+        prompt, mask = _assemble_prompt(model, text, speaker, context, codec)
+        _check_context_window(args, prompt.shape[0], max_frames)
+        tokens, mask, pad_len, bucket = _pad_prompt(prompt, mask)
     with _frame_step(model, 1, bucket + max_frames,
                      _resolve_sampler(temperature, sampler),
                      tuple(logits_processors or ()), generator, codec=codec,
                      eager=_eager_step) as step:
-        step.first(step.prefill(tokens, mask, pad_len))
+        with annotate("stream.prefill"):
+            last_hidden = step.prefill(tokens, mask, pad_len)
+        with annotate("stream.first"):
+            step.first(last_hidden)
         for i in range(max_frames):
-            if not bool(step.frame.any()):
-                break  # EOS; this frame's chunk is not sent
+            with annotate("stream.eos"):
+                eos = not bool(step.frame.any())
+            if eos:
+                break  # this frame's chunk is not sent
             # a copy, also on the CPU: the next frame overwrites the buffer
-            chunk = step.chunk[0].to("cpu", copy=True)
+            with annotate("stream.chunk"):
+                chunk = step.chunk[0].to("cpu", copy=True)
             if i + 1 < max_frames:
-                step()
+                with annotate("stream.replay"):
+                    step()
             yield chunk

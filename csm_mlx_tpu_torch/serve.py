@@ -83,13 +83,29 @@ class ServerStats:
     # bounded: a long-running server must not grow an unbounded history
     batch_sizes: collections.deque = field(
         default_factory=lambda: collections.deque(maxlen=256))
+    # the lockstep server: seconds of its batches and streams on the device,
+    # one at a time under its lock; the continuous server: wall seconds in
+    # which at least one request was in flight (`flight`)
     generate_seconds: float = 0.0
     audio_seconds: float = 0.0
+    in_flight: int = 0
+    _since: float = 0.0
 
     @property
     def aggregate_rtf(self) -> float:
+        """Audio seconds delivered per second of `generate_seconds`."""
         return self.audio_seconds / self.generate_seconds \
             if self.generate_seconds else 0.0
+
+    def flight(self, delta: int) -> None:
+        """A request enters (+1) or leaves (-1) the service: the wall time
+        since the last entry or exit counts into `generate_seconds` if a
+        request was in flight through it."""
+        now = time.monotonic()
+        if self.in_flight:
+            self.generate_seconds += now - self._since
+        self._since = now
+        self.in_flight += delta
 
 
 class TTSServer:
@@ -435,9 +451,10 @@ class ContinuousTTSServer:
     finished row is recycled at once, streams and whole-utterance requests
     share the card without a lock, and chunks leave per frame.
 
-    `generate_seconds` accrues request latency (queue wait, generation,
-    consumption), so `aggregate_rtf` counts concurrency in; the
-    scheduler's own counters are `self.engine.stats` (and `/stats`).
+    `generate_seconds` accrues the wall time in which at least one request
+    was in flight, so `aggregate_rtf` is audio seconds per wall second
+    across the service; the scheduler's own counters are
+    `self.engine.stats` (and `/stats`).
     `n_slots` defaults to 64, kernel 3's rows a launch; `transfer` to
     "int16", lossless for the PCM16 endpoints. `quantize_codec` decodes
     through an int8 copy of the codec's decoder. `mesh` builds the engine
@@ -511,7 +528,6 @@ class ContinuousTTSServer:
                 f"{self.engine.pending()} requests pending (max_pending="
                 f"{self.max_pending})")
         loop = asyncio.get_running_loop()
-        t0 = time.monotonic()
         res = self.engine.submit(text, speaker, tuple(context))
         fut: asyncio.Future = loop.create_future()
 
@@ -549,13 +565,15 @@ class ContinuousTTSServer:
                 pass  # the loop closed: nobody waits
 
         res.add_done_callback(on_done)
+        self.stats.flight(1)
         try:
             audio = await fut
         except BaseException:
             res.cancel()
             raise
+        finally:
+            self.stats.flight(-1)
         self.stats.requests += 1
-        self.stats.generate_seconds += time.monotonic() - t0
         self.stats.audio_seconds += audio.shape[-1] / SAMPLING_RATE
         return audio
 
@@ -587,7 +605,7 @@ class ContinuousTTSServer:
                 pass  # the loop closed mid-stream
 
         res.set_chunk_callback(deliver)
-        t0 = time.monotonic()
+        self.stats.flight(1)
         n_samples = 0
         try:
             while True:
@@ -598,11 +616,11 @@ class ContinuousTTSServer:
                     raise item
                 n_samples += item.shape[-1]
                 yield item
-            self.stats.requests += 1
-            self.stats.generate_seconds += time.monotonic() - t0
-            self.stats.audio_seconds += n_samples / SAMPLING_RATE
         finally:
+            self.stats.flight(-1)
             res.cancel()  # frees the slot unless already complete
+        self.stats.requests += 1
+        self.stats.audio_seconds += n_samples / SAMPLING_RATE
 
 
 def wav_bytes(audio: np.ndarray, sample_rate: int = SAMPLING_RATE) -> bytes:

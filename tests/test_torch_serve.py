@@ -362,6 +362,79 @@ def test_continuous_server_http_front_end(offline_tokenizers, model):
     assert engine["admissions"] == 2 and engine["admit_p50_ms"] is not None
 
 
+def test_continuous_server_stats_report_queue_wait(offline_tokenizers,
+                                                   model):
+    """Five requests on two slots: three wait in the queue for a slot, so
+    /stats reports the engine's queue wait (submit to admission) above 0,
+    its percentiles in order."""
+    async def main():
+        server = _continuous(model)
+        http = await serve_http(server, host="127.0.0.1", port=0)
+        port = http.sockets[0].getsockname()[1]
+        await asyncio.gather(*[server.synthesize(f"queued {i}")
+                               for i in range(5)])
+        stats_raw = await _request(port, _get("/stats"))
+        http.close()
+        await http.wait_closed()
+        await server.stop()
+        return stats_raw
+
+    engine = json.loads(asyncio.run(main()).split(b"\r\n\r\n", 1)[1])[
+        "engine"]
+    assert engine["admissions"] == 5
+    assert engine["queue_p90_ms"] > 0
+    assert engine["queue_p99_ms"] >= engine["queue_p90_ms"] \
+        >= engine["queue_p50_ms"] >= 0
+
+
+def test_continuous_server_aggregate_rtf_is_audio_per_wall_second(
+        offline_tokenizers, model):
+    """Concurrent requests: `generate_seconds` is the wall time with a
+    request in flight (at most the gather's wall, not the sum of the
+    requests' latencies), so `aggregate_rtf` is the audio delivered over
+    it; a stream that fails leaves the count of requests in flight at
+    0."""
+    import time
+
+    async def main():
+        server = _continuous(model)
+        await server.start()
+
+        async def one_stream():
+            return [c async for c in server.synthesize_stream("stream")]
+
+        t0 = time.monotonic()
+        out = await asyncio.gather(
+            *[server.synthesize(f"rtf {i}") for i in range(4)], one_stream())
+        wall = time.monotonic() - t0
+        await server.stop()
+        return server, out, wall
+
+    server, out, wall = asyncio.run(main())
+    st = server.stats
+    audio = sum(w.size for w in out[:4]) + sum(c.size for c in out[4])
+    assert st.in_flight == 0 and st.requests == 5
+    assert 0 < st.generate_seconds <= wall
+    assert st.audio_seconds == pytest.approx(audio / 24_000)
+    assert st.aggregate_rtf == pytest.approx(
+        st.audio_seconds / st.generate_seconds)
+
+
+def test_server_stats_flight_counts_overlap_once(monkeypatch):
+    """Two requests over [0, 3] and [1, 2], then one over [5, 6]: three
+    seconds with one in flight, the gap not counted."""
+    from csm_mlx_tpu_torch import serve as tserve
+
+    now = [0.0]
+    monkeypatch.setattr(tserve.time, "monotonic", lambda: now[0])
+    st = tserve.ServerStats()
+    for t, d in ((0, 1), (1, 1), (2, -1), (3, -1), (5, 1), (6, -1)):
+        now[0] = float(t)
+        st.flight(d)
+    assert st.in_flight == 0
+    assert st.generate_seconds == pytest.approx(4.0)
+
+
 def test_wav_bytes_layout():
     import struct
 
