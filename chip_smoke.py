@@ -60,11 +60,15 @@ requests (a 512-row prompt bucket: kernel 2 and kernel 1's GEMM route in
 their admission) and 96 32-row requests of 10-60 frames, 64 admitted at
 once and the rest as slots free, then 8 short ones (a bucket grow, an
 eager rebase and a shrink): frames a second, the aggregate RTF, the first
-chunk's p50 and p90, kernel 3 exactly once a frame stepped; a first-wave
-request's chunks against the batch decode; 8 requests against their solo
-`generate_tokens` runs (each first difference a near tie); kernel 4
-against its plain version on the engine's cache as a bucket's graph reads
-it (a prefix view, the engine's pads); captured blocks against eager ones
+chunk's p50 and p90, kernel 3 exactly once a frame stepped, kernel 4 (the
+engine's default) once a layer a backbone step; a first-wave request's
+chunks against the batch decode; 8 requests against their solo
+`generate_tokens` runs (each first difference a near tie of the layout's
+noise and kernel 4's, the requests replayed through kernel 4 in every
+step); kernel 4 against its plain version on the engine's cache as a
+bucket's graph reads it (a prefix view, the engine's pads), and unmoved
+with every key and value outside a row's valid range overwritten;
+captured blocks against eager ones
 (equal frames and chunks), a block's device time by part (the engine's
 own eager block, with its timing marks), the PCM16 transfer, T = 0.8 (new
 draws each replay) and kernel 4 (`flash_decode_min_b=8`) on and off,
@@ -315,6 +319,9 @@ AFFINE_FRAMES = {4: 20, 8: 5}  # frames of the full-width affine runs
 # run. Tolerances: the JAX tests' own (tests/test_flash_attention.py).
 FLASH_DECODE_CASES = ((8, 157), (64, 40), (64, 157), (64, 1024), (8, 2048))
 FLASH_DECODE_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# written over the cache keys and values a decode step must not read: one
+# of them read would swamp its row's softmax and output
+KV_POISON = 1e4
 # Kernel 4's split edges, (B, cap, index, pads): at (8, 2048) the cache
 # splits into 8 chunks of 256 keys — an index on the last slot of a chunk
 # and on the first of the next, pad and index inside one chunk, a row with
@@ -3445,12 +3452,15 @@ def first_pick_margins(model: CSM, prompts, gots, wants,
     logits of a solo run at the first pick where they differ, teacher-forced
     on `want` before it, as (frame, codebook, kind, top logit - `got`'s
     pick's logit, one unit in the last place of the top logit in the
-    logits' dtype, noise). With `kernel4`, each step also runs through
-    kernel 4 on the same cache first, and `noise` is the std over the
-    vocabulary of the pick's logits through kernel 4 less those through
-    the masked attention (0 at frame 0, the admission's); else 0. The
-    requests are stepped together, rows of one prompt bucket; kernel 1
-    quantizes each row alone."""
+    logits' dtype, noise, kernel 4's pick). With `kernel4`, the requests
+    also run through kernel 4 in every step, on a cache of their own, as an
+    engine on kernel 4 runs them, so its rounding reaches the cached keys
+    and values of every frame before the pick: `noise` is the std over the
+    vocabulary of the pick's logits through kernel 4 less those through the
+    masked attention, and kernel 4's pick whether the top logit through
+    kernel 4 is `got`'s (both 0 and None at frame 0, the admission's; else
+    0 and None). The requests are stepped together, rows of one prompt
+    bucket; kernel 1 quantizes each row alone."""
     args, params, dev = model.args, model.params, model.device
     bcfg = args.backbone_config
     firsts = []
@@ -3471,14 +3481,15 @@ def first_pick_margins(model: CSM, prompts, gots, wants,
     cap = padded[0][3] + last + 1
     cos_b, sin_b = rope_cache_for(bcfg, max(cap, bcfg.max_position_embeddings),
                                   dev)
-    cache = KVCache.init(bcfg, len(prompts), cap, dtype=model.dtype,
-                         device=dev)
+    caches = [KVCache.init(bcfg, len(prompts), cap, dtype=model.dtype,
+                           device=dev) for _ in range(1 + kernel4)]
     at = [None] * len(prompts)  # each row's hidden state at its frame
     at4 = [None] * len(prompts)  # and through kernel 4
     with torch.no_grad():
-        h, _ = generation._prefill(params, args, tokens, masks, pad, cache,
-                                   cos_b, sin_b)
-        h4 = h
+        h = [generation._prefill(params, args, tokens, masks, pad, c, cos_b,
+                                 sin_b)[0] for c in caches]
+        h4 = h[-1]
+        h = h[0]
         for i in range(last + 1):
             for r, (f, _) in enumerate(firsts):
                 if f == i:
@@ -3489,15 +3500,11 @@ def first_pick_margins(model: CSM, prompts, gots, wants,
             frame = torch.from_numpy(np.stack(
                 [w[min(i, f)] for w, (f, _) in zip(wants, firsts)])).long()
             tk, mk = generation._frame_to_next_input(frame.to(dev))
-            index = cache.length
-            if kernel4:  # then the masked step rewrites the slot it wrote
-                h4, _ = generation._backbone_step(params, args, tk, mk, pad,
-                                                  cache, cos_b, sin_b, 1)
-                cache.index.fill_(index)
-                cache.length = index
             h, _ = generation._backbone_step(params, args, tk, mk, pad,
-                                             cache, cos_b, sin_b)
-            h4 = h4 if kernel4 else h
+                                             caches[0], cos_b, sin_b)
+            h4 = generation._backbone_step(params, args, tk, mk, pad,
+                                           caches[1], cos_b, sin_b, 1)[0] \
+                if kernel4 else h
         c0 = torch.tensor([int(w[f, 0]) for w, (f, _) in zip(wants, firsts)],
                           device=dev)
         forced = torch.from_numpy(np.stack(
@@ -3520,7 +3527,10 @@ def first_pick_margins(model: CSM, prompts, gots, wants,
             np.log2(max(abs(top), 1e-30))))
         margin = top - pick[0][int(gots[r][f, c])].float().item()
         noise = (pick[1].float() - pick[0].float()).std().item()
-        out.append((f, c, "c0" if c == 0 else "decoder", margin, ulp, noise))
+        picks4 = (bool(pick[1][int(gots[r][f, c])] >= pick[1].max())
+                  if kernel4 and f else None)
+        out.append((f, c, "c0" if c == 0 else "decoder", margin, ulp, noise,
+                    picks4))
     return out
 
 
@@ -3531,9 +3541,11 @@ def near_ties(model: CSM, prompts, gots, wants, spreads: tuple,
     difference is a near tie when its margin is at most one unit in the
     last place of the top logit or under 4 spreads; the spread, the layout
     noise of `serving_spreads` (c0, decoder) for the codebook and, with
-    `kernel4`, kernel 4's noise on that pick (`first_pick_margins`), in
-    quadrature. Returns (equal, lines, every first difference a near
-    tie)."""
+    `kernel4` (`gots` ran through kernel 4, `wants` through the masked
+    attention), kernel 4's noise on that pick (`first_pick_margins`), in
+    quadrature; its lines then add that noise and whether kernel 4's
+    replay picks as `got` did. Returns (equal, lines, every first
+    difference a near tie)."""
     apart = [i for i, (g, w) in enumerate(zip(gots, wants))
              if not np.array_equal(g, w)]
     lines, ties = [], True
@@ -3541,12 +3553,15 @@ def near_ties(model: CSM, prompts, gots, wants, spreads: tuple,
         margins = first_pick_margins(model, [prompts[i] for i in apart],
                                      [gots[i] for i in apart],
                                      [wants[i] for i in apart], kernel4)
-        for i, (f, c, kind, margin, ulp, noise) in zip(apart, margins):
+        for i, (f, c, kind, margin, ulp, noise, picks4) in zip(apart,
+                                                              margins):
             spread = max(float(np.hypot(
                 spreads[0] if kind == "c0" else spreads[1], noise)), 1e-12)
             ties &= margin <= ulp or margin < 4 * spread
             lines.append((i, f, c, f"{margin:.4g}", margin / spread)
-                         + ((f"noise {noise:.4g}",) if kernel4 else ())
+                         + ((f"noise {noise:.4g}",
+                             f"kernel 4 picks got {picks4}") if kernel4
+                            else ())
                          + (("one ulp",) if margin <= ulp else ()))
     return len(gots) - len(apart), lines, ties
 
@@ -3560,11 +3575,14 @@ def run_serving(model: CSM, mimi: Mimi) -> dict:
     free), then SERVE_TAIL short ones. Gates: an admission burst of 64,
     slot reuse, a bucket grow, a rebase and a shrink with no capture of a
     bucket twice; kernels 1 (both routes), 2 and 3 launched, kernel 3
-    exactly once a frame stepped and once an admission; a first-wave
-    request's chunks within STREAM_TOL of the batch decode of its frames
-    (a recycled row's within the JAX test's 2e-3); SERVE_SOLO requests
-    against their solo `generate_tokens` runs, each first difference a near
-    tie (a margin under 4 spreads of the layout noise)."""
+    exactly once a frame stepped and once an admission, kernel 4 once a
+    layer a backbone step; a first-wave request's chunks within STREAM_TOL
+    of the batch decode of its frames (a recycled row's within the JAX
+    test's 2e-3); SERVE_SOLO requests against their solo `generate_tokens`
+    runs (the masked attention), each first difference a near tie by
+    `near_ties`: a margin under 4 spreads of the layout noise and kernel
+    4's noise on that pick, in quadrature; kernel 4 on the engine's cache
+    view as `kernel4_on_engine_view` checks it."""
     args, dev, card = model.args, model.device, card_info()
     rng = np.random.RandomState(SEED + 400)
     reqs = [(*synthetic_prompt(32, args.n_text_vocab, SEED + 500 + i),
@@ -3628,6 +3646,7 @@ def run_serving(model: CSM, mimi: Mimi) -> dict:
         f"buffers in all), reserved after the run +{reserved / 2**30:.2f} "
         f"GiB (graph pool, admission temporaries); launches {counts}")
     k3_want = SERVE_K * st.steps + st.admit_batches
+    k4_want = args.backbone_config.num_hidden_layers * SERVE_K * st.steps
     if burst != SERVE_SLOTS or st.admissions <= SERVE_SLOTS \
             or st.completed != len(reqs) + len(ctx_res) + len(tail) \
             or st.cache_grows < 1 or st.rebases < 1 \
@@ -3637,12 +3656,13 @@ def run_serving(model: CSM, mimi: Mimi) -> dict:
                              "reuse, a grow, a rebase or a shrink, or a "
                              "bucket was captured twice")
     if counts["resident_decode_frame"] != k3_want \
+            or counts["flash_decode_sdpa"] != k4_want \
             or counts["flash_prefill_sdpa"] < 1 \
             or counts["w8a8_matvec.gemm"] < 1 \
             or counts["w8a8_matvec"] <= counts["w8a8_matvec.gemm"]:
         raise AssertionError(f"serving launches {counts}: want kernel 3 "
-                             f"{k3_want} times, kernel 2 and both routes of "
-                             f"kernel 1")
+                             f"{k3_want} times, kernel 4 {k4_want} times, "
+                             f"kernel 2 and both routes of kernel 1")
 
     # chunks: a first-wave request (a fresh row) and a recycled one
     for label, res, tol_rel in (("first-wave", results[0], STREAM_TOL),
@@ -3669,11 +3689,12 @@ def run_serving(model: CSM, mimi: Mimi) -> dict:
     equal, lines, ties = near_ties(model, [reqs[i][:2] for i in picks],
                                    [results[i].wait(0) for i in picks],
                                    [want[:n] for want, n in solo],
-                                   (spread_c0, spread_dec))
+                                   (spread_c0, spread_dec), kernel4=True)
     lines = [(picks[j], *rest) for j, *rest in lines]
     log(f"engine vs solo generate_tokens ({card}): {equal} of {len(picks)} "
         f"requests equal frame for frame; first differences (request, "
-        f"frame, codebook, margin, margin in spreads): {lines}; spreads (std of "
+        f"frame, codebook, margin, margin in spreads, kernel 4's noise on "
+        f"the pick, its replay's pick): {lines}; spreads (std of "
         f"the logits of a step as solo runs and as the engine take it) c0 "
         f"{spread_c0:.4f}, decoder {spread_dec:.4f}; kernel 4's (a step of "
         f"the engine through it and through the masked attention) c0 "
@@ -3696,7 +3717,11 @@ def kernel4_on_engine_view(eng) -> float:
     full-capacity buffer (not contiguous), the engine's spliced pads and
     clamped dead rows, at its index (below the bucket's end), a random
     bf16 query of the backbone's heads; tolerance FLASH_DECODE_TOL times
-    max |plain| where that is below 1. The largest error."""
+    max |plain| where that is below 1. Then every key and value of a row
+    outside its valid range (pad <= j <= index: a recycled row's earlier
+    request, the slots past the index) is overwritten with KV_POISON in
+    place, and kernel 4's output must not move by a bit. The largest
+    error."""
     bcfg, dev = eng.args.backbone_config, eng.device
     view = eng._view(eng._cap)
     if view.k[0].is_contiguous():
@@ -3708,6 +3733,9 @@ def kernel4_on_engine_view(eng) -> float:
     heads, d = bcfg.num_attention_heads, bcfg.head_dim
     q = torch.randn((eng.n_slots, heads, 1, d), generator=gen,
                     device=dev).to(view.k.dtype)
+    pos = torch.arange(eng._cap, device=dev)[None, :]
+    live = eng._pad <= index  # the rows with a valid key
+    outside = ((pos < eng._pad[:, None]) | (pos > index)) & live[:, None]
     worst, worst_tol = 0.0, 0.0
     for layer in range(bcfg.num_hidden_layers):
         k, v = view.k[layer], view.v[layer]
@@ -3724,12 +3752,22 @@ def kernel4_on_engine_view(eng) -> float:
                                  f"{tol:.3e})")
         if err >= worst:
             worst, worst_tol = err, tol
+        k.masked_fill_(outside[:, None, :, None], KV_POISON)
+        v.masked_fill_(outside[:, None, :, None], KV_POISON)
+        poisoned = attention.flash_decode_sdpa(q, k, v, d ** -0.5, eng._pad,
+                                               index)
+        if not torch.equal(poisoned[live], got[live]):
+            raise AssertionError(f"kernel 4 on the engine's cache view, layer "
+                                 f"{layer}, reads a key or value outside a "
+                                 f"row's valid range")
     log(f"kernel 4 vs flash_decode_plain on the engine's cache view "
         f"({eng.n_slots} rows, bucket {eng._cap} of {eng.capacity} slots, "
         f"strides {tuple(view.k[0].stride())}, index {int(index)}, pads "
         f"{int(eng._pad.min())}-{int(eng._pad.max())}, {q.dtype}), "
         f"{bcfg.num_hidden_layers} layers: max_abs_err {worst:.3e} (tol "
-        f"{worst_tol:.3e})")
+        f"{worst_tol:.3e}); bit-equal with the keys and values of the "
+        f"{int(outside.sum())} slots outside the {int(live.sum())} live "
+        f"rows' valid ranges set to {KV_POISON:g}")
     return worst
 
 
@@ -3789,7 +3827,8 @@ def run_serving_ab(model: CSM, mimi: Mimi, spreads: tuple) -> dict:
     prompts = [synthetic_prompt(32, args.n_text_vocab, SEED + 800 + i)
                for i in range(SERVE_SLOTS)]
     engines = {e: serving_engine(model, mimi, SEED + 402,
-                                 max_frames=SERVE_AB_CAP, eager=e)
+                                 max_frames=SERVE_AB_CAP, eager=e,
+                                 flash_decode_min_b=None)
                for e in (False, True)}
     runs: dict = {False: [], True: []}
     for eager in (False, True, True, False):
@@ -3811,7 +3850,7 @@ def run_serving_ab(model: CSM, mimi: Mimi, spreads: tuple) -> dict:
     del engines[True]
     torch.cuda.empty_cache()
     splits = {}
-    for label, kw in (("masked attention", {}),
+    for label, kw in (("masked attention", dict(flash_decode_min_b=None)),
                       ("kernel 4", dict(flash_decode_min_b=8))):
         eng = serving_engine(model, mimi, SEED + 404, max_frames=SERVE_AB_CAP,
                              eager=True, **kw)
@@ -3824,7 +3863,7 @@ def run_serving_ab(model: CSM, mimi: Mimi, spreads: tuple) -> dict:
             for label, sp in splits.items()))
 
     i16 = serving_engine(model, mimi, SEED + 402, max_frames=SERVE_AB_CAP,
-                         transfer="int16")
+                         transfer="int16", flash_decode_min_b=None)
     frames16, audio16, _ = engine_ab_run(i16, prompts, SERVE_AB_FRAMES)
     del i16
     grid = max(float(np.abs(np.clip(a, -1, 1) - b).max())
@@ -3891,7 +3930,7 @@ def run_serving_ab(model: CSM, mimi: Mimi, spreads: tuple) -> dict:
         f"requests equal to the engine's without kernel 4 frame for frame "
         f"{[eq for eq, _, _ in ties]} of {len(prompts)} a run; first "
         f"differences (request, frame, codebook, margin, margin in "
-        f"spreads, kernel 4's noise on the pick) "
+        f"spreads, kernel 4's noise on the pick, its replay's pick) "
         f"{[lines for _, lines, _ in ties]}")
     if any(got != want for got, want in k4):
         raise AssertionError("kernel 4 did not run once a layer a backbone "

@@ -65,7 +65,8 @@ import queue
 import threading
 import time
 from collections import deque
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -78,7 +79,9 @@ from csm_mlx_tpu_torch.generation import (HISTORY_SIZE, _assemble_prompt,
                                           _use_resident_decoder)
 from csm_mlx_tpu_torch.models.csm import CSM
 from csm_mlx_tpu_torch.ops import launches, tensor_parallel
-from csm_mlx_tpu_torch.ops.attention import kv_bucket_for, kv_prefix_buckets
+from csm_mlx_tpu_torch.ops.attention import (flash_decode_takes,
+                                              kv_bucket_for,
+                                              kv_prefix_buckets)
 from csm_mlx_tpu_torch.ops.kv_cache import KVCache
 from csm_mlx_tpu_torch.ops.rope import rope_cache_for
 from csm_mlx_tpu_torch.utils.profiling import annotate
@@ -308,9 +311,16 @@ class ContinuousEngine:
 
     The JAX package's `key` is `generator`, a `torch.Generator` on the
     model's device (default: one seeded at random). `flash_decode_min_b`
-    runs each backbone step's attention through kernel 4 at B >= it, as in
-    `generate_tokens_batch` (None: never). `mimi` is the codec (default
-    the `get_audio_tokenizer` singleton on the model's device);
+    runs each backbone step's attention through kernel 4 at B >= it (B:
+    this rank's slots), as in `generate_tokens_batch`; None: never. On the
+    card an int raises ValueError where kernel 4 would run and does not
+    take the backbone's shape (`ops.attention.flash_decode_takes` on this
+    rank's heads, an fp32 or bf16 cache). The default, "auto", is 1 where
+    kernel 4 takes the shape, else None; the JAX package's is off: the
+    masked path copies every bucket of K and V to fp32 each layer of each
+    step, and kernel 4 reads the cache once, so a block on the H100 is
+    faster from one slot up (PERF.md §6). `mimi` is the codec
+    (default the `get_audio_tokenizer` singleton on the model's device);
     `quantize_codec` decodes through an int8 copy of its decoder
     (`models/mimi/quant.py`: int8 SEANet convs, the codec transformer's
     linears on kernel 1). `eager` runs every block eagerly on the card, for
@@ -362,7 +372,7 @@ class ContinuousEngine:
         transfer: str = "float32",
         mesh: Optional[Any] = None,
         generator: Optional[torch.Generator] = None,
-        flash_decode_min_b: Optional[int] = None,
+        flash_decode_min_b: Union[int, str, None] = "auto",
         mimi=None,
         eager: bool = False,
     ):
@@ -385,7 +395,6 @@ class ContinuousEngine:
         self.frames_per_step = k = max(1, frames_per_step)
         self.pipeline_depth = max(1, pipeline_depth)
         self.transfer = transfer
-        self.flash_decode_min_b = flash_decode_min_b
         ctx = args.backbone_config.max_position_embeddings or 2048
         if max_prompt_bucket + max_frames > ctx:
             raise ValueError(
@@ -469,6 +478,22 @@ class ContinuousEngine:
                                        dtype=model.dtype, device=device)
         self._cache.index.fill_(self._bootstrap)
         self._cache.length = self._bootstrap
+        # kernel 4 on this rank's heads where it takes them, else masked
+        lay = tensor_parallel.attn_layout(bcfg, self._tp)
+        heads = ((lay.heads, lay.kv_heads) if lay is not None else
+                 (bcfg.num_attention_heads, bcfg.num_key_value_heads))
+        takes = (flash_decode_takes(bcfg.head_dim, *heads)
+                 and self._cache.k.dtype in (torch.float32, torch.bfloat16))
+        if flash_decode_min_b == "auto":
+            flash_decode_min_b = 1 if takes else None
+        elif (flash_decode_min_b is not None and rows >= flash_decode_min_b
+              and not takes and device.type == "cuda"):
+            raise ValueError(
+                f"flash_decode_min_b={flash_decode_min_b} runs kernel 4 at "
+                f"{rows} rows, which takes D=64, H/n_kv in (1, 2, 4, 8) and "
+                f"an fp32 or bf16 cache; got D={bcfg.head_dim}, "
+                f"H/n_kv={heads[0]}/{heads[1]}, {self._cache.k.dtype}")
+        self.flash_decode_min_b = flash_decode_min_b
         self._cap = (kv_bucket_for(self._bootstrap + k, self._kv_buckets)
                      or self.capacity)
         self._views: Dict[int, KVCache] = {}

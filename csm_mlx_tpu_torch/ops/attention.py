@@ -232,6 +232,13 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return sdpa(q, k, v, scale, key_validity_bias(valid)[:, None])
 
 
+def flash_decode_takes(head_dim: int, n_heads: int, n_kv: int) -> bool:
+    """Whether kernel 4 takes attention of this head shape on CUDA: D = 64
+    and H / n_kv in {1, 2, 4, 8}."""
+    return (head_dim == 64 and n_heads % n_kv == 0
+            and n_heads // n_kv in (1, 2, 4, 8))
+
+
 def flash_decode_sdpa(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -259,8 +266,7 @@ def flash_decode_sdpa(
 
     b, n_heads, s, d = q.shape
     n_kv, cap = k.shape[1], k.shape[2]
-    if s != 1 or d != 64 or n_heads % n_kv \
-            or n_heads // n_kv not in (1, 2, 4, 8):
+    if s != 1 or not flash_decode_takes(d, n_heads, n_kv):
         raise ValueError(
             f"flash_decode_sdpa kernel takes one query position, D=64 and "
             f"H/n_kv in (1, 2, 4, 8); got S={s}, D={d}, H={n_heads}, "

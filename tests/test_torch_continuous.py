@@ -536,3 +536,88 @@ def test_rebase_shift_equals_a_roll(shift, n):
     want = torch.roll(buf, -shift, dims=3)[:, :, :, :n].clone()
     tcont._shift_left(buf, shift, n)
     torch.testing.assert_close(buf[:, :, :, :n], want, rtol=0, atol=0)
+
+
+@pytest.fixture(scope="module")
+def model_d64():
+    """A port-only tiny CSM whose backbone has kernel 4's head size (two
+    heads of 64 over one kv head) and a random audio_head."""
+    from csm_mlx_tpu_torch import config as port_config
+    from csm_mlx_tpu_torch.models.csm import CSM, ModelArgs
+
+    port_config.BACKBONE_CONFIGURATION["tiny_d64"] = port_config.LlamaConfig(
+        num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1,
+        head_dim=64, intermediate_size=128, hidden_size=128,
+        max_position_embeddings=512)
+    gen = torch.Generator().manual_seed(11)
+    m = CSM(ModelArgs("tiny_d64", "tiny", 256, 64, 8), dtype=torch.float32,
+            generator=gen, device="cpu")
+    m.params["audio_head"] = torch.randn(m.params["audio_head"].shape,
+                                         generator=gen) * 0.5
+    return m
+
+
+def _spy_kernel_4(monkeypatch) -> list:
+    """The rows of each call of kernel 4's wrapper from the attention."""
+    from csm_mlx_tpu_torch.models import llama
+
+    calls, real = [], llama.flash_decode_sdpa
+
+    def spy(q, *rest):
+        calls.append(q.shape[0])
+        return real(q, *rest)
+
+    monkeypatch.setattr(llama, "flash_decode_sdpa", spy)
+    return calls
+
+
+@pytest.mark.parametrize("slots,kw,d64,min_b", [
+    (8, {}, True, 1),                                   # the default
+    (1, {}, True, 1),                                   # at one row
+    (8, dict(flash_decode_min_b=None), True, None),     # never
+    (8, {}, False, None),                               # head_dim 16
+    (8, dict(flash_decode_min_b=8), False, 8),          # explicit: plain
+    (7, dict(flash_decode_min_b=8), True, 8),           # under an explicit
+])
+def test_engine_runs_kernel_4_where_it_takes_the_shape(
+        model, model_d64, monkeypatch, slots, kw, d64, min_b):
+    """By default each backbone step of every block runs its attention
+    through kernel 4 in every layer, at any number of slots, where the
+    backbone's head size is 64; with an explicit None or on another head
+    size, the masked path. An explicit int keeps its meaning: kernel 4 at
+    as many slots or more, on another head size too (on the CPU, kernel
+    4's plain version)."""
+    m = model_d64 if d64 else model
+    calls = _spy_kernel_4(monkeypatch)
+    eng = _engine(m, n_slots=slots, **kw)
+    res = [eng.submit_prompt(*_prompt(m.args, 4 + i % 3, seed=60 + i),
+                             max_frames=5) for i in range(slots)]
+    eng.run_until_idle()
+    assert all(r.wait(0).shape[0] > 0 for r in res) and eng.stats.steps > 0
+    layers = m.args.backbone_config.num_hidden_layers
+    runs = min_b is not None and slots >= min_b
+    assert len(calls) == (layers * eng.frames_per_step * eng.stats.steps
+                          if runs else 0)
+    assert set(calls) <= {slots}
+    assert eng.flash_decode_min_b == min_b
+
+
+def test_default_engine_equals_the_masked_engine(model_d64, fresh_codec):
+    """At 8 slots the default engine (kernel 4's plain version on the CPU)
+    gives the frames and chunks of the engine with `flash_decode_min_b`
+    None, more requests than slots."""
+    def run(**kw):
+        eng = _engine(model_d64, n_slots=8, codec=True, **kw)
+        res = [eng.submit_prompt(*_prompt(model_d64.args, 4 + i % 5,
+                                          seed=80 + i), max_frames=4 + i)
+               for i in range(10)]
+        eng.run_until_idle()
+        return [(r.wait(0), r.audio()) for r in res], eng
+
+    got, eng = run()
+    want, plain = run(flash_decode_min_b=None)
+    assert eng.flash_decode_min_b == 1 and plain.flash_decode_min_b is None
+    assert eng.stats.steps == plain.stats.steps
+    for (frames, audio), (wframes, waudio) in zip(got, want):
+        np.testing.assert_array_equal(frames, wframes)
+        np.testing.assert_array_equal(audio, waudio)

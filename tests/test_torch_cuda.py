@@ -1303,7 +1303,7 @@ def test_engine_with_kernel_4_equals_the_engine_without(cuda_device,
     """`flash_decode_min_b=1`: every backbone step of a block runs its
     attention through kernel 4, over a bucket's prefix view of the cache
     (buckets of 64 slots in a cache of 88); frames and chunks equal the
-    same engine's without it, fp32."""
+    same engine's with `flash_decode_min_b=None`, fp32."""
     import functools
 
     from csm_mlx_tpu_torch import continuous
@@ -1317,7 +1317,8 @@ def test_engine_with_kernel_4_equals_the_engine_without(cuda_device,
     got, eng = _run_engine(model, requests, mimi=mimi, max_frames=40,
                            flash_decode_min_b=1)
     launched = attention.flash_decode_sdpa.launches - before
-    want, plain = _run_engine(model, requests, mimi=mimi, max_frames=40)
+    want, plain = _run_engine(model, requests, mimi=mimi, max_frames=40,
+                              flash_decode_min_b=None)
     assert eng.capacity == 88 and 64 in eng._graphs
     layers = model.args.backbone_config.num_hidden_layers
     assert launched == layers * eng.frames_per_step * eng.stats.steps > 0
@@ -1325,6 +1326,49 @@ def test_engine_with_kernel_4_equals_the_engine_without(cuda_device,
     for (frames, audio), (wframes, waudio) in zip(got, want):
         np.testing.assert_array_equal(frames, wframes)
         np.testing.assert_array_equal(audio, waudio)
+
+
+def test_default_engine_runs_kernel_4(cuda_device):
+    """The engine at its default on 8 slots over a backbone of head size
+    64: kernel 4 in each layer of every backbone step of every block
+    (captured blocks, replays counted), and frames and chunks equal to the
+    same engine's with `flash_decode_min_b=None`, fp32."""
+    model = resident_model("tiny", cuda_device, backbone_head_dim=64)
+    mimi = _tiny_codec(cuda_device)
+    requests = _engine_requests(model, 12, seed=6)
+    before = attention.flash_decode_sdpa.launches
+    got, eng = _run_engine(model, requests, mimi=mimi, n_slots=8)
+    launched = attention.flash_decode_sdpa.launches - before
+    want, plain = _run_engine(model, requests, mimi=mimi, n_slots=8,
+                              flash_decode_min_b=None)
+    # the engine with None launched none
+    assert attention.flash_decode_sdpa.launches - before == launched
+    layers = model.args.backbone_config.num_hidden_layers
+    assert eng.flash_decode_min_b == 1 and eng.stats.graph_captures > 0
+    assert launched == layers * eng.frames_per_step * eng.stats.steps > 0
+    assert plain.stats.steps == eng.stats.steps
+    for (frames, audio), (wframes, waudio) in zip(got, want):
+        np.testing.assert_array_equal(frames, wframes)
+        np.testing.assert_array_equal(audio, waudio)
+
+
+def test_engine_explicit_kernel_4_raises_on_a_shape_it_cannot_take(
+        cuda_device):
+    """An explicit `flash_decode_min_b` keeps its meaning on the card: at
+    as many slots or more, a backbone of head size 32 raises ValueError at
+    construction; below it the engine runs masked. The default falls back
+    to the masked path there."""
+    from csm_mlx_tpu_torch.continuous import ContinuousEngine
+
+    model = resident_model("tiny", cuda_device)
+    kw = dict(max_frames=16, max_prompt_bucket=32, capacity_slack=16,
+              codec=False)
+    with pytest.raises(ValueError, match="flash_decode_min_b=8"):
+        ContinuousEngine(model, n_slots=8, flash_decode_min_b=8, **kw)
+    below = ContinuousEngine(model, n_slots=4, flash_decode_min_b=8, **kw)
+    default = ContinuousEngine(model, n_slots=8, **kw)
+    assert below.flash_decode_min_b == 8
+    assert default.flash_decode_min_b is None
 
 
 # --- the int8 codec, the voice chat, async checkpoints ----------------------
