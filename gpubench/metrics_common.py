@@ -34,7 +34,8 @@ COUNTERS = {K1: "w8a8_matvec", K3: "resident_decode_frame"}
 def replays(layer: dict) -> List[Tuple[list, int]]:
     """The replayed graphs of the stretch whose launches the profiler all
     kept: (the graph's kernels, the frames it ran), a frame being one
-    kernel-3 launch with a backbone step's kernel-1 launches."""
+    kernel-3 launch with a backbone step's kernel-1 launches (as many as
+    `roofline.k1_frame_bound_s` counts from the backbone's architecture)."""
     tr = layer.get("trace")
     if tr is None:
         return []

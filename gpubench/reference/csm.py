@@ -1,35 +1,36 @@
 """Plain fp32 reference of CSM under per-channel weight quantization.
 
 Written from the published description of CSM (huggingface.co/sesame/csm-1b:
-a Llama backbone over the summed text and audio embeddings of a frame, a
+a backbone over the summed text and audio embeddings of a frame, a
 codebook-0 head, and a small Llama decoder that, primed with the backbone's
 hidden state and codebook 0's embedding, scores codebooks 1..31 against
-per-codebook heads) and of the W8A8 scheme the configuration states:
+per-codebook heads) and of the W8A8 scheme the configuration states
+(`reference.quant`), with:
 
-- each weight row quantized to int codes in [-lim, lim] with a scale and
-  the row's midpoint, w ~= s * q + z (lim 127 for 8 bits, 7 for 4 bits);
-- each activation row quantized per call, x ~= (absmax / 127) * xq;
-- y = (xq . q) * s * absmax / 127 + z * sum(x);
 - the audio head rounded to bf16, quantized symmetrically per column,
   scored against the normed hidden state quantized per row.
 
-Everything is fp32 on the device the caller gives, TF32 off (the caller's
-`no_tf32`), with no cache, no batching across requests and no kernel: the
-backbone runs each request's whole sequence causally, the decoder each
-frame's 32 positions. It takes the raw weights (the benchmark's seeded
-tree) and works out its own codes; it imports nothing of the system under
-test. RoPE is the Llama-3.1 scaled rotation on interleaved pairs, as the
-CSM reference implementation applies it (torchtune's convention).
+The backbone is the configuration's architecture's plain stack
+(`arch.load(config).reference`; CSM-1B's is `reference.llama.Stack`), the
+decoder always `reference.llama.Stack`. Everything is fp32 on the device
+the caller gives, TF32 off (the caller's `no_tf32`), with no cache, no
+batching across requests and no kernel: the backbone runs each request's
+whole sequence causally, the decoder each frame's 32 positions. It takes
+the raw weights (the benchmark's seeded tree) and works out its own codes;
+it imports nothing of the system under test.
 """
 
 from __future__ import annotations
 
 import contextlib
-import math
 from typing import Tuple
 
 import numpy as np
 import torch
+
+from gpubench import arch
+from gpubench.reference.llama import Stack
+from gpubench.reference.quant import QLinear, quant_act
 
 
 @contextlib.contextmanager
@@ -44,113 +45,6 @@ def no_tf32():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
-
-
-def rope_freqs(head_dim: int, theta: float, scaling: dict | None
-               ) -> np.ndarray:
-    """Llama-3.1 inverse frequencies (the wavelength rule), fp32."""
-    freqs = 1.0 / (theta ** (np.arange(0, head_dim, 2).astype(np.float32)
-                             / head_dim))
-    if not scaling or scaling.get("rope_type") != "llama3":
-        return freqs.astype(np.float32)
-    old = float(scaling["original_max_position_embeddings"])
-    lo, hi = scaling["low_freq_factor"], scaling["high_freq_factor"]
-    wavelen = 2.0 * math.pi / freqs
-    smooth = (old / wavelen - lo) / (hi - lo)
-    blended = (1.0 - smooth) * freqs / scaling["factor"] + smooth * freqs
-    out = np.where(wavelen < old / hi, freqs,
-                   np.where(wavelen > old / lo, freqs / scaling["factor"],
-                            blended))
-    return out.astype(np.float32)
-
-
-def rope(x: torch.Tensor, cfg: dict, positions: torch.Tensor) -> torch.Tensor:
-    """x (..., S, H, D) rotated at `positions` (S,), interleaved pairs."""
-    inv = torch.from_numpy(rope_freqs(cfg["head_dim"], cfg["rope_theta"],
-                                      cfg.get("rope_scaling"))).to(x.device)
-    ang = positions.float()[:, None] * inv[None]  # (S, D/2)
-    c, s = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
-    x0, x1 = x[..., 0::2], x[..., 1::2]
-    return torch.stack([x0 * c - x1 * s, x1 * c + x0 * s], dim=-1).reshape(
-        x.shape)
-
-
-def quant_rows(w: torch.Tensor, bits: int) -> Tuple[torch.Tensor, ...]:
-    """(OUT, IN) -> (codes as fp32, s (OUT,), z (OUT,))."""
-    lim = 127 if bits == 8 else 7
-    w = w.float()
-    hi, lo = w.amax(dim=-1), w.amin(dim=-1)
-    z = (hi + lo) / 2
-    s = torch.clamp((hi - lo) / (2 * lim), min=1e-12)
-    q = torch.clamp(torch.round((w - z[:, None]) / s[:, None]), -lim, lim)
-    return q, s, z
-
-
-def quant_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row int8 codes (as fp32) and absmax / 127."""
-    absmax = torch.clamp(x.abs().amax(dim=-1, keepdim=True), min=1e-6)
-    return torch.clamp(torch.round(x * (127.0 / absmax)), -127, 127), \
-        absmax / 127.0
-
-
-class QLinear:
-    def __init__(self, w: torch.Tensor, bits: int):
-        self.q, self.s, self.z = quant_rows(w, bits)
-
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        xq, ax = quant_act(x)
-        return (xq @ self.q.t()) * self.s[None] * ax \
-            + self.z[None] * x.sum(dim=-1, keepdim=True)
-
-
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    return x * torch.rsqrt(x.pow(2).mean(dim=-1, keepdim=True) + eps) * w
-
-
-class Stack:
-    """A Llama stack with quantized linears, run over one whole sequence."""
-
-    def __init__(self, p: dict, cfg: dict, bits: int):
-        self.cfg = cfg
-        self.layers = []
-        for lp in p["layers"]:
-            at, mlp = lp["self_attn"], lp["mlp"]
-            self.layers.append(dict(
-                ln1=lp["input_layernorm"]["weight"].float(),
-                ln2=lp["post_attention_layernorm"]["weight"].float(),
-                **{k: QLinear(at[k]["weight"], bits)
-                   for k in ("q_proj", "k_proj", "v_proj", "o_proj")},
-                **{k: QLinear(mlp[k]["weight"], bits)
-                   for k in ("gate_proj", "up_proj", "down_proj")}))
-        self.norm = p["norm"]["weight"].float()
-
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        """x (N, S, D) fp32, positions 0..S-1, causal -> normed hidden."""
-        cfg = self.cfg
-        n, s, _ = x.shape
-        h, hkv, hd = (cfg["num_attention_heads"], cfg["num_key_value_heads"],
-                      cfg["head_dim"])
-        eps = cfg["rms_norm_eps"]
-        pos = torch.arange(s, device=x.device)
-        causal = torch.ones((s, s), dtype=torch.bool,
-                            device=x.device).tril()
-        for L in self.layers:
-            a = rms_norm(x, L["ln1"], eps).reshape(n * s, -1)
-            q = rope(L["q_proj"](a).reshape(n, s, h, hd), cfg, pos)
-            k = rope(L["k_proj"](a).reshape(n, s, hkv, hd), cfg, pos)
-            v = L["v_proj"](a).reshape(n, s, hkv, hd)
-            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-            k = k.repeat_interleave(h // hkv, dim=1)
-            v = v.repeat_interleave(h // hkv, dim=1)
-            sc = (q @ k.transpose(-1, -2)) * hd ** -0.5
-            sc = sc.masked_fill(~causal, float("-inf"))
-            o = (torch.softmax(sc, dim=-1) @ v).transpose(1, 2)
-            x = x + L["o_proj"](o.reshape(n * s, h * hd)).reshape(n, s, -1)
-            m = rms_norm(x, L["ln2"], eps).reshape(n * s, -1)
-            g, u = L["gate_proj"](m), L["up_proj"](m)
-            x = x + L["down_proj"](torch.nn.functional.silu(g) * u).reshape(
-                n, s, -1)
-        return rms_norm(x, self.norm, eps)
 
 
 class Head:
@@ -176,7 +70,8 @@ class CSMReference:
         self.config = config
         self.v = config["audio_vocab_size"]
         self.k = config["audio_num_codebooks"]
-        self.backbone = Stack(params["backbone"], config["backbone"], bits)
+        self.backbone = arch.load(config).reference(
+            params["backbone"], config["backbone"], bits)
         self.decoder = Stack(params["decoder"], config["decoder"], bits)
         self.text = params["text_embeddings"]["weight"]
         self.audio = params["audio_embeddings"]["weight"]

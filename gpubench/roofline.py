@@ -11,7 +11,11 @@ peak of their type.
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Dict, List, Tuple
+
+from gpubench import arch
+from gpubench.arch import llama
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -34,37 +38,24 @@ def k1_bound_s(rows: int, in_dim: int, out_dim: int) -> float:
     return bound_s(*k1_bytes_ops(rows, in_dim, out_dim), "int8")
 
 
-def backbone_linears(config: dict) -> List[Tuple[str, int, int]]:
-    """(name, IN, OUT) of one backbone layer's quantized linears, fused as
-    `quantize_model(fuse=True)` runs them."""
-    b = config["backbone"]
-    d, f = b["hidden_size"], b["intermediate_size"]
-    attn = b["num_attention_heads"] * b["head_dim"]
-    kv = b["num_key_value_heads"] * b["head_dim"]
-    return [("qkv", d, attn + 2 * kv), ("o", attn, d), ("gate-up", d, 2 * f),
-            ("down", f, d)]
-
-
 def decoder_linears(config: dict) -> List[Tuple[str, int, int]]:
-    c = config["decoder"]
-    d, f = c["hidden_size"], c["intermediate_size"]
-    attn = c["num_attention_heads"] * c["head_dim"]
-    kv = c["num_key_value_heads"] * c["head_dim"]
-    return [("qkv", d, attn + 2 * kv), ("o", attn, d), ("gate-up", d, 2 * f),
-            ("down", f, d)]
+    """(name, IN, OUT) of one decoder layer's quantized linears."""
+    return llama.linears(config["decoder"])[0]
 
 
 def k1_frame_bound_s(config: dict, rows: int) -> Tuple[float, int]:
-    """Kernel 1's launches of one backbone step and its projection at
-    `rows` rows (the projection takes 2 rows a row: hidden and c0):
-    (summed bound, launches)."""
-    n_layers = config["backbone"]["num_hidden_layers"]
-    d_b = config["backbone"]["hidden_size"]
-    d_d = config["decoder"]["hidden_size"]
-    per_layer = sum(k1_bound_s(rows, i, o)
-                    for _, i, o in backbone_linears(config))
-    return (n_layers * per_layer + k1_bound_s(2 * rows, d_b, d_d),
-            4 * n_layers + 1)
+    """Kernel 1's launches of one backbone step (each layer's linears,
+    `arch.load(config).linears`) and its projection at `rows` rows (the
+    projection takes 2 rows a row: hidden and c0): (summed bound,
+    launches). Layers of one kind are summed once and counted."""
+    b = config["backbone"]
+    layers = arch.load(config).linears(b)
+    kinds = Counter(tuple(layer) for layer in layers)
+    bound = sum(n * sum(k1_bound_s(rows, i, o) for _, i, o in kind)
+                for kind, n in kinds.items())
+    proj = k1_bound_s(2 * rows, b["hidden_size"],
+                      config["decoder"]["hidden_size"])
+    return bound + proj, sum(map(len, layers)) + 1
 
 
 def k3_bytes_ops(config: dict, rows: int) -> Tuple[float, float]:
@@ -107,38 +98,26 @@ def flash_train_bounds_s(b: int, s: int, h: int, n_kv: int, d: int,
                 bwd=bound_s(4 * qb + 4 * kb + lse, 2.5 * flops, kind))
 
 
-def _stack_ops_per_position(cfg: dict, linears) -> float:
-    return 2.0 * cfg["num_hidden_layers"] * sum(i * o for _, i, o in linears)
-
-
-def _attn_ops(cfg: dict, keys: float) -> float:
-    """Scores and the weighted sum of one query position over `keys`."""
-    attn = cfg["num_attention_heads"] * cfg["head_dim"]
-    return 4.0 * cfg["num_hidden_layers"] * attn * keys
-
-
 def frame_ops(config: dict, context: float) -> float:
     """The model's operations for one frame of one row whose backbone step
-    attends over `context` positions: the backbone step, the codebook-0
-    head, the projection of the primed rows and of 30 embeddings, the
-    decoder's 32 positions and the 31 audio heads. Mimi is left out."""
+    attends over `context` positions: the backbone step
+    (`arch.load(config).decode_ops`), the codebook-0 head, the projection
+    of the primed rows and of 30 embeddings, the decoder's 32 positions and
+    the 31 audio heads. Mimi is left out."""
     b, c = config["backbone"], config["decoder"]
     n_cb, v = config["audio_num_codebooks"], config["audio_vocab_size"]
     d_b, d_d = b["hidden_size"], c["hidden_size"]
-    ops = _stack_ops_per_position(b, backbone_linears(config))
-    ops += _attn_ops(b, context) + 2.0 * d_b * v
+    ops = arch.load(config).decode_ops(b, context) + 2.0 * d_b * v
     ops += 2.0 * n_cb * d_b * d_d
-    ops += n_cb * _stack_ops_per_position(c, decoder_linears(config))
-    ops += _attn_ops(c, n_cb * (n_cb + 1) / 2)
+    ops += llama.prefill_ops(c, n_cb)
     ops += 2.0 * (n_cb - 1) * d_d * v
     return ops
 
 
 def prefill_ops(config: dict, rows: int) -> float:
     """The backbone's operations over a prompt of `rows` positions
-    (causal attention: rows * (rows + 1) / 2 query-key pairs) and the
-    codebook-0 head of its last row."""
+    (`arch.load(config).prefill_ops`) and the codebook-0 head of its last
+    row."""
     b = config["backbone"]
-    ops = rows * _stack_ops_per_position(b, backbone_linears(config))
-    ops += _attn_ops(b, rows * (rows + 1) / 2)
-    return ops + 2.0 * b["hidden_size"] * config["audio_vocab_size"]
+    return arch.load(config).prefill_ops(b, rows) \
+        + 2.0 * b["hidden_size"] * config["audio_vocab_size"]

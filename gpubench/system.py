@@ -9,28 +9,23 @@ import dataclasses
 
 import torch
 
-from gpubench import weights
+from gpubench import arch, weights
+from gpubench.arch import llama
 
 
 def model_args(config: dict):
     """The port's ModelArgs of a configuration, its two stacks registered
-    under the configuration's name."""
+    under the configuration's name: the backbone's as its architecture's
+    file makes it (`arch`), the decoder's as a Llama stack."""
     from csm_mlx_tpu_torch.config import (BACKBONE_CONFIGURATION,
-                                          DECODER_CONFIGURATION, LlamaConfig,
-                                          RopeScalingConfig)
+                                          DECODER_CONFIGURATION)
     from csm_mlx_tpu_torch.models.csm import ModelArgs
 
-    def llama(c: dict) -> LlamaConfig:
-        c = dict(c)
-        scaling = c.pop("rope_scaling", None)
-        fields = {f.name for f in dataclasses.fields(LlamaConfig)}
-        return LlamaConfig(
-            rope_scaling=RopeScalingConfig(**scaling) if scaling else None,
-            **{k: v for k, v in c.items() if k in fields})
-
     name = config["name"]
-    BACKBONE_CONFIGURATION[f"{name}.backbone"] = llama(config["backbone"])
-    DECODER_CONFIGURATION[f"{name}.decoder"] = llama(config["decoder"])
+    BACKBONE_CONFIGURATION[f"{name}.backbone"] = arch.load(
+        config).port_config(config["backbone"])
+    DECODER_CONFIGURATION[f"{name}.decoder"] = llama.port_config(
+        config["decoder"])
     return ModelArgs(backbone_name=f"{name}.backbone",
                      decoder_name=f"{name}.decoder",
                      n_text_vocab=config["text_vocab_size"],

@@ -17,39 +17,23 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from gpubench import arch
+from gpubench.arch import llama
+
 # (path, shape, kind, scale): kind "randn" (scaled by `scale`), "ones",
 # "zeros" or "full" (filled with `scale`)
 Spec = List[Tuple[tuple, tuple, str, float]]
 
 
-def _llama_spec(prefix: tuple, cfg: dict) -> Spec:
-    d, f = cfg["hidden_size"], cfg["intermediate_size"]
-    attn = cfg["num_attention_heads"] * cfg["head_dim"]
-    kv = cfg["num_key_value_heads"] * cfg["head_dim"]
-    spec: Spec = []
-    for i in range(cfg["num_hidden_layers"]):
-        lp = prefix + ("layers", i)
-        for name, (o, n) in (("q_proj", (attn, d)), ("k_proj", (kv, d)),
-                             ("v_proj", (kv, d)), ("o_proj", (d, attn))):
-            spec.append((lp + ("self_attn", name, "weight"), (o, n), "randn",
-                         n ** -0.5))
-        for name, (o, n) in (("gate_proj", (f, d)), ("up_proj", (f, d)),
-                             ("down_proj", (d, f))):
-            spec.append((lp + ("mlp", name, "weight"), (o, n), "randn",
-                         n ** -0.5))
-        for name in ("input_layernorm", "post_attention_layernorm"):
-            spec.append((lp + (name, "weight"), (d,), "ones", 1.0))
-    spec.append((prefix + ("norm", "weight"), (d,), "ones", 1.0))
-    return spec
-
-
 def csm_spec(config: dict) -> Spec:
-    """The CSM parameter tree of a configuration file."""
+    """The CSM parameter tree of a configuration file: the backbone's
+    leaves from its architecture's file (`arch`), the decoder's Llama
+    stack, then the embeddings, the projection and the heads."""
     b, dec = config["backbone"], config["decoder"]
-    d_b = b["num_attention_heads"] * b["head_dim"]
-    d_d = dec["num_attention_heads"] * dec["head_dim"]
+    d_b, d_d = b["hidden_size"], dec["hidden_size"]
     v, k = config["audio_vocab_size"], config["audio_num_codebooks"]
-    spec = _llama_spec(("backbone",), b) + _llama_spec(("decoder",), dec)
+    spec = arch.load(config).spec(("backbone",), b) \
+        + llama.spec(("decoder",), dec)
     spec += [
         (("text_embeddings", "weight"), (config["text_vocab_size"], d_b),
          "randn", d_b ** -0.5),
